@@ -9,11 +9,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time;
 2. hold the flash-attention kernel against its plain PyTorch version on the
    card (serving shape B=1, H=32, KV=8, hd=64, S=T=512 causal bf16; ragged
-   S=T=300; window 128; f32) and time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it);
-3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048)
-   and (512*32, 64) bf16, with ``F.rms_norm`` as the yardstick;
+   S=T=300; window 128; f32; the training shape B=4, S=T=1024 causal bf16)
+   and time kernel, plain version and ``F.scaled_dot_product_attention`` (a
+   yardstick only; the port never calls it);
+3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
+   (512*32, 64) and the training shape (4096, 2048) bf16, with
+   ``F.rms_norm`` as the yardstick;
 4. serve full-width llama3.2-1b (16 layers, d_model 2048, 32/8 heads,
    vocab 128256, tied; seeded random bf16 weights) through
    ``repro_torch.launch.serve.run_serving`` with both kernels selected:
@@ -24,12 +25,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step, are held against the same model on the plain path
    (``attn_impl="chunked"``, ``norm_impl="ref"``) on the card;
 5. profile a warm window of the same engine (4 more requests) with
-   ``torch.profiler``: device busy share and the top kernels by device time.
+   ``torch.profiler``: device busy share and the top kernels by device time;
+6. hold the flash backward kernels (dq, and dk/dv summed over the GQA
+   group), and the forward kernel that makes their inputs, against their
+   plain versions at the training shape B=4,
+   S=T=1024, H=32, KV=8, hd=64 causal bf16, ragged S=T=300, window 128 and
+   f32, and time them beside the plain versions and the backward of
+   ``F.scaled_dot_product_attention`` (a yardstick only);
+7. the same for the RMSNorm backward kernel at (4096, 2048), (300, 2048),
+   (16384, 64) bf16 and (7, 100) f32, with ``F.rms_norm``'s backward as the
+   yardstick;
+8. train full-width llama3.2-1b (bf16, remat "dots") through
+   ``repro_torch.launch.train.run_training`` with both kernel pairs
+   selected: global batch 4, seq 1024, 6 AdamW steps on the copy task.  The
+   five launch counters are set to 0 just before and read just after; per
+   step they must equal 2L flash forwards (the block forward runs again in
+   the backward), L dq, L dkv, 4L RMSNorm forwards and 2L RMSNorm backwards
+   (L = 16; the final norm is the unfused one).  Every loss must be finite.
+   One loss-and-gradient step on the kernel path is held against the plain
+   path (``attn_impl="chunked"``, ``norm_impl="ref"``) on the card from the
+   same weights and batch: loss, gradient norm and each leaf's relative
+   error; every leaf's gradient must be finite and nonzero;
+9. profile one warm training step with ``torch.profiler``.
 
 Kernel times are medians over CUDA events of back-to-back launches queued
 behind a device-side sleep (so host overhead is not in them), with inputs
-resident in L2.  Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s, 989
-TFLOP/s for bf16 tensor-core work, 67 TFLOP/s for f32 CUDA-core work.
+resident in L2 where they fit.  Bounds use the H100 SXM data-sheet peaks:
+3.35 TB/s, 989 TFLOP/s for bf16 tensor-core work, 67 TFLOP/s for f32
+CUDA-core work.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -37,8 +60,11 @@ The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,6 +79,17 @@ N_REQUESTS, PROMPT_LENS, MAX_NEW, N_SLOTS, SEED = 8, (512, 300), 16, 4, 0
 # bf16 model tolerance of the repo (tests/test_model_pallas_path.py)
 MODEL_ATOL, MODEL_RTOL = 0.1, 0.05
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# gradient tolerances of the repo (tests/test_kernels_flash.py:62,
+# tests/test_kernel_dtype_drift.py): flash f32 5e-4; dw sums over rows
+GRAD_TOL = {"bfloat16": 3e-2, "float32": 5e-4}
+DW_TOL = {"bfloat16": 3e-2, "float32": 2e-4}
+
+DEVICE = "cuda"
+# full-width training run (configs/llama3_2_1b.py, remat "dots")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+# kernel path vs plain path on the card, bf16: loss and gradient norm to the
+# bf16 gradient tolerance, each leaf's gradient to 10% in relative norm
+TRAIN_RTOL, LEAF_RTOL = 3e-2, 0.1
 
 
 def _print(*args) -> None:
@@ -85,15 +122,17 @@ def _bound_ms(n_bytes: float, flops: float, peak: str) -> tuple[float, str]:
 
 
 def _flash_phase(torch, F, fa_ops, gen):
-    cases = [  # (name, S=T, window, dtype)
-        ("path S=T=512 causal bf16", 512, None, torch.bfloat16),
-        ("ragged S=T=300 causal bf16", 300, None, torch.bfloat16),
-        ("window=128 S=T=512 bf16", 512, 128, torch.bfloat16),
-        ("f32 S=T=512 causal", 512, None, torch.float32),
+    cases = [  # (name, B, S=T, window, dtype); the serving path first, training last
+        ("path S=T=512 causal bf16", 1, 512, None, torch.bfloat16),
+        ("ragged S=T=300 causal bf16", 1, 300, None, torch.bfloat16),
+        ("window=128 S=T=512 bf16", 1, 512, 128, torch.bfloat16),
+        ("f32 S=T=512 causal", 1, 512, None, torch.float32),
+        (f"training path B={TRAIN_BATCH} S=T={TRAIN_SEQ} causal bf16", TRAIN_BATCH, TRAIN_SEQ,
+         None, torch.bfloat16),
     ]
-    b, h, kv, hd = 1, 32, 8, 64
+    h, kv, hd = 32, 8, 64
     rows = []
-    for name, s, window, dtype in cases:
+    for name, b, s, window, dtype in cases:
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dtype)
@@ -131,7 +170,9 @@ def _flash_phase(torch, F, fa_ops, gen):
 
 
 def _rmsnorm_phase(torch, F, rn_ops, gen):
-    cases = [(512, 2048), (300, 2048), (N_SLOTS, 2048), (512 * 32, 64)]
+    # the serving path first, the training path (batch x seq rows) last
+    cases = [(512, 2048), (300, 2048), (N_SLOTS, 2048), (512 * 32, 64),
+             (TRAIN_BATCH * TRAIN_SEQ, 2048)]
     rows = []
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -171,8 +212,7 @@ def _serve_phase(torch, fa_ops, rn_ops):
     from repro_torch.timing import TimingSession
 
     sess = TimingSession()
-    fa_ops.launches = 0
-    rn_ops.launches = 0
+    _zero_counters(fa_ops, rn_ops)
     t0 = time.perf_counter()
     with sess:
         engine = run_serving(
@@ -181,7 +221,10 @@ def _serve_phase(torch, fa_ops, rn_ops):
             attn_impl="pallas", norm_impl="fused", dtype="bfloat16", device="cuda",
         )
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa_ops.launches, "rmsnorm_fwd": rn_ops.launches}
+    launches = _read_counters(fa_ops, rn_ops)
+    # serving runs no backward
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0, launches
+    assert launches["rmsnorm_bwd"] == 0, launches
 
     cfg = engine.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) == (
@@ -275,6 +318,286 @@ def _profile_phase(torch, engine, sess):
         _print(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _flash_bwd_phase(torch, F, fa_ops, gen):
+    cases = [  # (name, B, S=T, window, dtype)
+        ("path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, None, torch.bfloat16),
+        ("ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, None, torch.bfloat16),
+        ("window=128 B=4 S=T=1024 bf16", TRAIN_BATCH, TRAIN_SEQ, 128, torch.bfloat16),
+        ("f32 B=4 S=T=1024 causal", TRAIN_BATCH, TRAIN_SEQ, None, torch.float32),
+    ]
+    h, kv, hd = 32, 8, 64
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, b, s, window, dtype in cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        do = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
+        mask = dict(causal=True, window=window)
+        out, lse = fa_ops.flash_fwd(q, k, v, **mask)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
+        tol = KERNEL_TOL[_dtype_name(dtype)]
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+        _print(f"[flash_bwd] {name}: forward out max_abs_err="
+               f"{(out.float() - ref_out.float()).abs().max().item():.3e} lse_err="
+               f"{(lse - ref_lse).abs().max().item():.3e}")
+        del ref_out, ref_lse
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq = fa_ops.flash_bwd_dq(*args, **mask)
+        dk, dv = fa_ops.flash_bwd_dkv(*args, **mask)
+        torch.cuda.synchronize()
+        ref_dq = fa_ops.flash_bwd_dq_plain(*args, **mask)
+        ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(*args, **mask)
+        tol = GRAD_TOL[_dtype_name(dtype)]
+        stats = []
+        for grad, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+            scale = got.float().abs().max().item()
+            assert scale > 0 and ref.float().abs().max().item() > 0, (name, grad)
+            stats.append(f"{grad}: max|kernel|={scale:.4g} "
+                         f"bit-equal={(got == ref).float().mean().item():.4f}")
+        _print(f"[flash_bwd] {name}: " + "; ".join(stats))
+        err_dq = (dq.float() - ref_dq.float()).abs().max().item()
+        err_dkv = max((dk.float() - ref_dk.float()).abs().max().item(),
+                      (dv.float() - ref_dv.float()).abs().max().item())
+
+        pos = torch.arange(s, device=DEVICE)
+        ok = pos[None, :] <= pos[:, None]
+        if window is not None:
+            ok &= pos[None, :] > pos[:, None] - window
+        pairs = int(ok.sum())
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=None if window is None else ok, is_causal=window is None,
+            enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        # one call computes dq, dk and dv: the yardstick of both kernels
+        library_ms = _device_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        peak = "bf16_tensor" if dtype == torch.bfloat16 else "f32"
+        nbytes = lambda *xs: sum(x.numel() * x.element_size() for x in xs)  # noqa: E731
+        for kernel, matmuls, moved, err, fn, plain in (
+            ("flash_bwd_dq", 3, nbytes(q, k, v, do, lse, delta, dq), err_dq,
+             lambda: fa_ops.flash_bwd_dq(*args, **mask),
+             lambda: fa_ops.flash_bwd_dq_plain(*args, **mask)),
+            ("flash_bwd_dkv", 4, nbytes(q, k, v, do, lse, delta, dk, dv), err_dkv,
+             lambda: fa_ops.flash_bwd_dkv(*args, **mask),
+             lambda: fa_ops.flash_bwd_dkv_plain(*args, **mask)),
+        ):
+            ms = _device_ms(torch, fn)
+            plain_ms = _device_ms(torch, plain)
+            bound_ms, bound_by = _bound_ms(moved, 2.0 * matmuls * b * h * pairs * hd, peak)
+            rows[kernel].append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=library_ms))
+            _print(f"[{kernel}] {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
+                   f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
+                   f"{moved / 1e6:.1f} MB, {2e-9 * matmuls * b * h * pairs * hd:.1f} GFLOP) "
+                   f"library_ms={library_ms:.5f} (SDPA backward: dq, dk, dv)")
+        del sdpa_out, qt, kt, vt
+    return rows
+
+
+def _rmsnorm_bwd_phase(torch, F, rn_ops, gen):
+    cases = [(4096, 2048, torch.bfloat16), (300, 2048, torch.bfloat16),
+             (16384, 64, torch.bfloat16), (7, 100, torch.float32)]
+    rows = []
+    for n, d, dtype in cases:
+        x = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)).to(dtype)
+        dy = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
+        dx, dw = rn_ops.rms_norm_bwd(x, w, dy, 1e-5)
+        torch.cuda.synchronize()
+        ref_dx, ref_dw = rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5)
+        name = _dtype_name(dtype)
+        tol_dx, tol_dw = KERNEL_TOL[name], DW_TOL[name]
+        torch.testing.assert_close(dx.float(), ref_dx.float(), atol=tol_dx, rtol=tol_dx)
+        torch.testing.assert_close(dw, ref_dw, atol=tol_dw, rtol=tol_dw)
+        assert torch.equal(rn_ops.rms_norm_bwd(x, w, dy, 1e-5)[1], dw)  # fixed-order dw
+        err = max((dx.float() - ref_dx.float()).abs().max().item(),
+                  (dw - ref_dw).abs().max().item())
+        ms = _device_ms(torch, lambda: rn_ops.rms_norm_bwd(x, w, dy, 1e-5))
+        plain_ms = _device_ms(torch, lambda: rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5))
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = F.rms_norm(xl, (d,), wl, 1e-5)
+        library_ms = _device_ms(torch, lambda: torch.autograd.grad(
+            y, (xl, wl), dy, retain_graph=True))
+        moved = 3 * x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * d
+        bound_ms, bound_by = _bound_ms(moved, 10.0 * n * d, "f32")
+        rows.append(dict(case=f"({n}, {d}) {name}", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms))
+        _print(f"[rmsnorm_bwd] ({n}, {d}) {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
+               f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
+               f"{moved / 1e6:.1f} MB) library_ms={library_ms:.5f}")
+        del y, xl, wl
+    return rows
+
+
+COUNTERS = (("flash_fwd", "launches"), ("flash_bwd_dq", "dq_launches"),
+            ("flash_bwd_dkv", "dkv_launches"), ("rmsnorm_fwd", "launches"),
+            ("rmsnorm_bwd", "bwd_launches"))
+
+
+def _counter_module(name, fa_ops, rn_ops):
+    return fa_ops if name.startswith("flash") else rn_ops
+
+
+def _zero_counters(fa_ops, rn_ops) -> None:
+    for name, attr in COUNTERS:
+        setattr(_counter_module(name, fa_ops, rn_ops), attr, 0)
+
+
+def _read_counters(fa_ops, rn_ops) -> dict[str, int]:
+    return {name: getattr(_counter_module(name, fa_ops, rn_ops), attr)
+            for name, attr in COUNTERS}
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _named_leaves(value, f"{prefix}/{key}" if prefix else key)
+    elif isinstance(tree, (tuple, list)):
+        for i, value in enumerate(tree):
+            yield from _named_leaves(value, f"{prefix}/{i}")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def _train_phase(torch, fa_ops, rn_ops):
+    from repro_torch.configs import get_config
+    from repro_torch.core import TimerLogger
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.models import model as M
+    from repro_torch.timing import TimingSession
+
+    cfg = get_config("llama3.2-1b").replace(
+        attn_impl="pallas", norm_impl="fused", remat="dots", dtype="bfloat16")
+    n_layers = cfg.n_layers
+    assert (n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.vocab_size, cfg.tied_embeddings) == (16, 2048, 32, 8, 64, 128256, True), cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "train.jsonl")
+        settings = TrainSettings(
+            arch=cfg.name, smoke=False, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED, report_every=0,
+            log_path=log_path, device=DEVICE,
+        )
+        sess = TimingSession()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(fa_ops, rn_ops)
+        t0 = time.perf_counter()
+        summary = run_training(settings, cfg=cfg, session=sess)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters(fa_ops, rn_ops)
+        records = TimerLogger(log_path, sess.db).read_all()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers,
+                "rmsnorm_bwd": 2 * n_layers}
+    assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, launches
+    assert summary["iterations"] == TRAIN_STEPS and len(records) == TRAIN_STEPS, summary
+    losses = [r["extra"]["loss"] for r in records]
+    assert all(math.isfinite(x) for x in losses), losses
+    cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
+    step_s = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+    median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    active = M.param_counts(cfg)[1]
+    mfu = 6.0 * active * tokens / median_s / PEAK_FLOPS["bf16_tensor"]
+    _print(f"[train] llama3.2-1b full width, bf16, remat dots, batch {TRAIN_BATCH} x seq "
+           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps: wall_s={wall:.3f} launches={launches} "
+           f"(per step {per_step})")
+    _print(f"[train] losses={[round(x, 5) for x in losses]} "
+           f"grad_norm={summary['final_metrics']['grad_norm']:.5f}")
+    _print(f"[train] step_s={[round(x, 5) for x in step_s]} median_s(steps 2-6)={median_s:.5f} "
+           f"tokens_per_s(EVOL, all steps)={TRAIN_STEPS * tokens / cum[-1]:.1f} "
+           f"tokens_per_s(median step)={tokens / median_s:.1f} "
+           f"mfu(6*{active}*tokens vs 989 TFLOP/s)={mfu:.4f} "
+           f"max_memory_allocated_GB={peak_gb:.3f}")
+    return launches, cfg
+
+
+def _train_compare_phase(torch, cfg):
+    """One loss-and-gradient step, kernel path vs plain path, same weights and
+    batch, on the card."""
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import global_norm
+
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+                                        seed=SEED)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
+    names = [name for name, _ in _named_leaves(params)]
+    out = {}
+    for path, c in (("kernel", cfg), ("plain", plain)):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        loss, _ = M.loss_fn(c, tree_map(lambda _: next(it), params), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        out[path] = (loss.item(), global_norm(list(grads)).item(), grads)
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out["kernel"], out["plain"]
+    rel = {}
+    for name, a, b in zip(names, g_k, g_p):
+        for tag, g in (("kernel", a), ("plain", b)):
+            assert bool(torch.isfinite(g).all()) and g.abs().max().item() > 0, (tag, name)
+        rel[name] = ((a.float() - b.float()).norm() / b.float().norm()).item()
+    assert abs(loss_k - loss_p) <= TRAIN_RTOL * abs(loss_p), (loss_k, loss_p)
+    assert abs(gn_k - gn_p) <= TRAIN_RTOL * gn_p, (gn_k, gn_p)
+    worst = max(rel, key=rel.get)
+    assert rel[worst] < LEAF_RTOL, rel
+    _print(f"[train] one step on the card, kernel vs plain path: loss {loss_k:.6f} vs "
+           f"{loss_p:.6f}; grad_norm {gn_k:.6f} vs {gn_p:.6f}; every leaf finite and nonzero; "
+           f"worst leaf relative error {rel[worst]:.3e} ({worst}; limit {LEAF_RTOL})")
+    _print("[train] relative error by leaf: "
+           + ", ".join(f"{k}={v:.2e}" for k, v in rel.items()))
+    return params, batch
+
+
+def _train_profile_phase(torch, cfg, params, batch):
+    """Where a warm training step's time goes: one warm-up step, then one
+    step under ``torch.profiler`` (device busy share = summed kernel time over
+    the step's wall time, the profiler's host cost included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    built = make_train_step(cfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                            peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt_state = init_opt_state(AdamWConfig(), params)
+    params, opt_state, metrics = built.fn(params, opt_state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = built.fn(params, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    _print(f"[profile-train] one warm step: wall_s={wall:.4f} device_kernel_s={device_s:.4f} "
+           f"device_busy_share={device_s / wall:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        _print(f"[profile-train]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} "
+               f"{e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -298,8 +621,8 @@ def main() -> int:
     _print(smi)
     _print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
            f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    _print(f"[build] kernels {', '.join(build.SOURCES)} built and loaded in "
-           f"{build.build_all():.2f} s")
+    _print(f"[build] five kernels from {', '.join(f'{n}.cu' for n in build.SOURCES)} built "
+           f"and loaded in {build.build_all():.2f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -307,20 +630,43 @@ def main() -> int:
     rms = _rmsnorm_phase(torch, F, rn_ops, gen)
     launches, engine, sess = _serve_phase(torch, fa_ops, rn_ops)
     _profile_phase(torch, engine, sess)
+    del engine, sess
+    torch.cuda.empty_cache()
 
+    flash_bwd = _flash_bwd_phase(torch, F, fa_ops, gen)
+    rms_bwd = _rmsnorm_bwd_phase(torch, F, rn_ops, gen)
+    torch.cuda.empty_cache()
+    train_launches, cfg = _train_phase(torch, fa_ops, rn_ops)
+    params, batch = _train_compare_phase(torch, cfg)
+    _train_profile_phase(torch, cfg, params, batch)
+
+    # each kernel at the shapes of its main path: the forward kernels on the
+    # serving path (their launches in phase 4) and, under "train", on the
+    # training path (phase 8); the backward kernels on the training path
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    csrc = "src/repro_torch/kernels/csrc/"
     record = {"kernels": [
-        dict(name="flash_fwd", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
-             launches=launches["flash_fwd"],
-             **{k: flash[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}),
-        dict(name="rmsnorm_fwd", route="cuda",
-             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+             launches=launches["flash_fwd"], **{k: flash[0][k] for k in keys},
+             train=dict(launches=train_launches["flash_fwd"],
+                        **{k: flash[-1][k] for k in keys})),
+        dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:176",
+             launches=train_launches["flash_bwd_dq"],
+             **{k: flash_bwd["flash_bwd_dq"][0][k] for k in keys}),
+        dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:242",
+             launches=train_launches["flash_bwd_dkv"],
+             **{k: flash_bwd["flash_bwd_dkv"][0][k] for k in keys}),
+        dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
-             launches=launches["rmsnorm_fwd"],
-             **{k: rms[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}),
+             launches=launches["rmsnorm_fwd"], **{k: rms[0][k] for k in keys},
+             train=dict(launches=train_launches["rmsnorm_fwd"],
+                        **{k: rms[-1][k] for k in keys})),
+        dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
+             replaces="src/repro/kernels/rmsnorm/kernel.py:75",
+             launches=train_launches["rmsnorm_bwd"], **{k: rms_bwd[0][k] for k in keys}),
     ]}
     _print(json.dumps(record))
     _print(json.dumps({"ok": True, "device": {

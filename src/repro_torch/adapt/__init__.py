@@ -2,18 +2,23 @@
 actions (the paper's "profile itself and dynamically adapt itself to a
 changing environment at run time", Sec. 1 & 3).
 
-The port carries the controller protocol and the serving controller;
-checkpoint admission, straggler response and the simulated fleet come with
-the training and distribution slices.
+The port carries the controller protocol, AdaptCheck checkpoint admission
+(:class:`CheckpointControl`), straggler response (:class:`StragglerResponse`)
+and the serving controller; the simulated fleet comes with the distribution
+slice.
 """
 
+from .checkpoint import CheckpointControl
 from .controller import ControlAction, Controller, ControlLoop, Measurement
 from .serving import ServingControl
+from .stragglers import StragglerResponse
 
 __all__ = [
     "ControlAction",
     "Controller",
     "ControlLoop",
     "Measurement",
+    "CheckpointControl",
     "ServingControl",
+    "StragglerResponse",
 ]

@@ -14,13 +14,16 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "list_archs"]
 
 #: arch id -> module name
 _MODULES: dict[str, str] = {
+    "glm4-9b": "glm4_9b",
     "llama3.2-1b": "llama3_2_1b",
+    "qwen3-14b": "qwen3_14b",
+    "minitron-8b": "minitron_8b",
 }
 
 #: architectures the reference package serves that this port does not yet
 _NOT_YET_PORTED = (
-    "glm4-9b", "qwen3-14b", "minitron-8b", "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b",
-    "recurrentgemma-9b", "rwkv6-1.6b", "seamless-m4t-large-v2", "internvl2-26b",
+    "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "recurrentgemma-9b", "rwkv6-1.6b",
+    "seamless-m4t-large-v2", "internvl2-26b",
 )
 
 ARCH_IDS = tuple(_MODULES)

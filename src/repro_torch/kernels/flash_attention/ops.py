@@ -1,17 +1,27 @@
-"""Flash-attention forward: the CUDA kernel on the card, its plain PyTorch
-version on the CPU.
+"""Flash attention, forward and backward: the CUDA kernels on the card, their
+plain PyTorch versions on the CPU, and the ``autograd.Function`` that joins
+them.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``flash_fwd`` of ``src/repro/kernels/flash_attention/kernel.py``.  It reads
-q/k/v in the model layout (B, S, H, hd) / (B, T, KV, hd) through their
-strides — no transposes, unlike the reference wrapper — and masks ragged S
-and T itself, so every prefill on the card goes through it; the reference's
-untiled fallback to ``chunked_attention`` is deliberately absent.  On the
-H100 a tensor-core version of this work would be memory bound (~1.6 us at
-S = T = 512, 32 heads); this first version uses f32 FMAs from shared memory
-and is bound by those instead (PERF.md has its time).  ``launches`` counts
-kernel launches only.  Forward only: the backward kernels come with the
-training path.
+The kernels replace the Pallas TPU kernels of
+``src/repro/kernels/flash_attention/kernel.py``: ``flash_fwd``
+(``csrc/flash_attention.cu``), ``flash_bwd_dq`` and ``flash_bwd_dkv``
+(``csrc/flash_attention_bwd.cu``).  They read q/k/v in the model layout
+(B, S, H, hd) / (B, T, KV, hd) through their strides — no transposes, unlike
+the reference wrapper — and mask ragged S and T themselves, so every sequence
+length on the card goes through them; the reference's untiled fallback to
+``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
+GQA group inside each block and returns dk/dv already reduced to the KV
+heads.  This first version of all three uses f32 FMAs from shared memory
+(no tensor cores); PERF.md has their times against their bounds.
+
+``flash_attention`` goes through :class:`FlashAttention` on both devices, so
+a loss on the card differentiates through the kernels: forward saves q, k, v,
+out and lse; backward forms ``delta = rowsum(do · out)`` in f32 (one torch
+expression, as the reference's ``ops.py`` does outside its kernels) and runs
+dq and dkv.  Gradients come back in the inputs' dtypes.
+
+``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches only
+(never the plain versions' calls).
 """
 
 from __future__ import annotations
@@ -22,13 +32,50 @@ import torch
 
 from .. import build
 
-__all__ = ["flash_attention", "flash_fwd", "flash_fwd_plain"]
+__all__ = [
+    "FlashAttention",
+    "flash_attention",
+    "flash_bwd",
+    "flash_bwd_dkv",
+    "flash_bwd_dkv_plain",
+    "flash_bwd_dq",
+    "flash_bwd_dq_plain",
+    "flash_bwd_plain",
+    "flash_fwd",
+    "flash_fwd_plain",
+]
 
-#: kernel launches since the counter was last set to 0
+#: flash_fwd kernel launches since the counter was last set to 0
 launches = 0
+#: flash_bwd_dq kernel launches since the counter was last set to 0
+dq_launches = 0
+#: flash_bwd_dkv kernel launches since the counter was last set to 0
+dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _allowed(s: int, t: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, T) bool mask of admissible (query, key) pairs."""
+    q_pos = torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+def _grouped(x: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, hd) -> f32 (B, S, KV, G, hd)."""
+    b, s, h, hd = x.shape
+    return x.float().reshape(b, s, n_kv, h // n_kv, hd)
 
 
 def flash_fwd_plain(
@@ -39,27 +86,101 @@ def flash_fwd_plain(
     lse (B, H, S) f32).  Every query row must admit at least one key."""
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, s, n_kv, h // n_kv, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * hd ** -0.5
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    k_pos = torch.arange(t, device=q.device)[None, :]
-    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos <= q_pos
-    if window is not None:
-        ok &= k_pos > q_pos - window
-    scores = scores.masked_fill(~ok, float("-inf"))
+    scores = torch.einsum("bskgd,btkd->bkgst", _grouped(q, n_kv), k.float()) * hd ** -0.5
+    scores = scores.masked_fill(~_allowed(s, t, causal, window, q.device), float("-inf"))
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.exp(scores - lse[..., None])
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float()).reshape(b, s, h, hd)
     return out.to(q.dtype), lse.reshape(b, h, s)
 
 
-def _kernel():
+def _probs_and_ds(q, k, v, do, lse, delta, causal, window):
+    """f32 p = exp(s·scale − lse) and ds = p·(do·vᵀ − delta), (B, KV, G, S, T)."""
+    b, s, h, hd = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    scores = torch.einsum("bskgd,btkd->bkgst", _grouped(q, n_kv), k.float()) * hd ** -0.5
+    scores = scores.masked_fill(~_allowed(s, t, causal, window, q.device), float("-inf"))
+    probs = torch.exp(scores - lse.float().reshape(b, n_kv, g, s, 1))
+    dp = torch.einsum("bskgd,btkd->bkgst", _grouped(do, n_kv), v.float())
+    ds = probs * (dp - delta.float().reshape(b, n_kv, g, s, 1))
+    return probs, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool, window: int | None):
+    """dq of the dq kernel in plain PyTorch (f32 inside, q's dtype out)."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    b, s, h, hd = q.shape
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * hd ** -0.5
+    return dq.reshape(b, s, h, hd).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool, window: int | None):
+    """(dk, dv) of the dkv kernel in plain PyTorch, summed over the GQA group
+    in f32 and returned in k's and v's dtypes."""
+    probs, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    n_kv, hd = k.shape[2], q.shape[3]
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, _grouped(q, n_kv)) * hd ** -0.5
+    dv = torch.einsum("bkgst,bskgd->btkd", probs, _grouped(do, n_kv))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do · out) in f32, (B, H, S) contiguous."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_plain(q, k, v, out, lse, do, *, causal: bool, window: int | None):
+    """The backward in plain PyTorch, f32 inside: ``delta = rowsum(do·out)``,
+    then (dq, dk, dv) in q's, k's and v's dtypes, dk/dv summed over the GQA
+    group."""
+    delta = _delta(out, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, window, *more) -> None:
+    b, s, h, hd = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    tensors = (q, k, v, *more)
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in tensors):
+        raise TypeError("flash kernels take f32/bf16 tensors of one dtype, got "
+                        + "/".join(str(x.dtype) for x in tensors))
+    if hd not in _HEAD_DIMS or k.shape != (b, t, n_kv, hd) or v.shape != k.shape:
+        raise ValueError(f"flash kernel shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; head_dim must be one of {_HEAD_DIMS}")
+    if any(x.shape != q.shape for x in more):
+        raise ValueError(f"flash kernel: do must match q {tuple(q.shape)}")
+    if h % n_kv or min(x.stride(-1) for x in tensors) != 1:
+        raise ValueError("flash kernel needs H % KV == 0 and a contiguous head_dim axis")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _fwd_kernel():
     fn = build.library("flash_attention").flash_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 5 + [i] * 7 + [ll] * 12 + [i, i, ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def _bwd_kernel(name: str):
+    fn = getattr(build.library("flash_attention_bwd"), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        n_out = 1 if name == "flash_bwd_dq" else 2
+        fn.argtypes = [p] * (6 + n_out) + [i] * 7 + [p, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -75,33 +196,107 @@ def flash_fwd(
     """q (B,S,H,hd), k/v (B,T,KV,hd) -> (out (B,S,H,hd), lse (B,H,S) f32)."""
     if not build.on_cuda(q, k, v):
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes f32/bf16 q, k, v of one dtype, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in _HEAD_DIMS or k.shape != (b, t, n_kv, hd) or v.shape != k.shape:
-        raise ValueError(f"flash kernel shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}; head_dim must be one of {_HEAD_DIMS}")
-    if h % n_kv or min(q.stride(-1), k.stride(-1), v.stride(-1)) != 1:
-        raise ValueError("flash kernel needs H % KV == 0 and a contiguous head_dim axis")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if s == 0:
         return out, lse
-    err = _kernel()(
+    err = _fwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPES[q.dtype], b, s, t, h, n_kv, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(causal), window or 0, hd ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), window or 0, hd ** -0.5, _stream(q),
     )
     build.check(err, "flash_fwd")
     global launches
     launches += 1
     return out, lse
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
+    b, s, h, hd = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    if lse.shape != (b, h, s) or delta.shape != (b, h, s):
+        raise ValueError(f"lse/delta must be (B, H, S) = {(b, h, s)}")
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    dq = outs[0] if name == "flash_bwd_dq" else q
+    dk, dv = (outs if name == "flash_bwd_dkv" else (k, v))
+    strides = [n for x in (q, k, v, do, dq, dk, dv) for n in x.stride()[:3]]
+    st = (ctypes.c_longlong * len(strides))(*strides)
+    err = _bwd_kernel(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(o.data_ptr() for o in outs),
+        _DTYPES[q.dtype], b, s, t, h, n_kv, hd, ctypes.addressof(st),
+        int(causal), window or 0, hd ** -0.5, _stream(q),
+    )
+    build.check(err, name)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, window: int | None = None):
+    """dq (B,S,H,hd) from q, do (B,S,H,hd), k/v (B,T,KV,hd) and f32 lse and
+    delta (B,H,S): the dq kernel on CUDA tensors, its plain version on CPU."""
+    if not build.on_cuda(q, k, v, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    _check(q, k, v, window, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        return dq.zero_()
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal, window)
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window: int | None = None):
+    """(dk, dv) (B,T,KV,hd), summed over the GQA group: the dkv kernel on CUDA
+    tensors, its plain version on CPU."""
+    if not build.on_cuda(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    _check(q, k, v, window, do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal, window)
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int | None = None):
+    """(dq, dk, dv) from the forward's q, k, v, out, lse and the output
+    gradient ``do``: delta in f32, then the dq and dkv kernels (their plain
+    versions on CPU tensors)."""
+    if not build.on_cuda(q, k, v, out, lse, do):
+        return flash_bwd_plain(q, k, v, out, lse, do, causal=causal, window=window)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = _delta(out, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, window=window)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: ``flash_fwd`` forward, ``flash_bwd``
+    backward (kernels on CUDA tensors, plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None):
+        out, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -113,4 +308,4 @@ def flash_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """Model layout in/out: q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)."""
-    return flash_fwd(q, k, v, causal=causal, window=window)[0]
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -1,12 +1,20 @@
-"""Fused RMSNorm over the last axis: the CUDA kernel on the card, its plain
-PyTorch version on the CPU.
+"""Fused RMSNorm over the last axis, forward and backward: the CUDA kernels on
+the card, their plain PyTorch versions on the CPU, and the
+``autograd.Function`` that joins them.
 
-The kernel (``csrc/rmsnorm.cu``) replaces the Pallas TPU kernel
-``rmsnorm_fwd`` of ``src/repro/kernels/rmsnorm/kernel.py``.  It is memory
-bound on the H100 (one read and one write of each row, ~4 flop per element);
-its design — one warp per row, 16-byte vector accesses, an f32 shuffle
-reduction — aims at full-width memory transactions and nothing else.
-``launches`` counts the kernel's launches (never the plain version's calls).
+The kernels replace the Pallas TPU kernels ``rmsnorm_fwd``
+(``csrc/rmsnorm.cu``) and ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``) of
+``src/repro/kernels/rmsnorm/kernel.py``.  Both are memory bound on the H100
+(one read of each input row, one write of each output row, ~4-10 flop per
+element); their design — one warp per row, 16-byte vector accesses, f32
+shuffle reductions — aims at full-width memory transactions.  The backward
+forms dw in two stages (per-block f32 partial sums, then a hand-written
+column reduction in block order), so it is deterministic.
+
+``rms_norm_fused`` goes through :class:`RMSNormFused` on both devices: any
+leading shape, reshaped to (N, D); the backward casts the f32 dw to w's
+dtype, as the reference's ``ops.py`` does.  ``launches`` and
+``bwd_launches`` count kernel launches (never the plain versions' calls).
 """
 
 from __future__ import annotations
@@ -17,12 +25,29 @@ import torch
 
 from .. import build
 
-__all__ = ["rms_norm_fused", "rms_norm_plain"]
+__all__ = [
+    "RMSNormFused",
+    "rms_norm_bwd",
+    "rms_norm_bwd_plain",
+    "rms_norm_fused",
+    "rms_norm_fwd",
+    "rms_norm_plain",
+]
 
-#: kernel launches since the counter was last set to 0
+#: rmsnorm_fwd kernel launches since the counter was last set to 0
 launches = 0
+#: rmsnorm_bwd kernel launches since the counter was last set to 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: warps per block of the backward kernel; each keeps a (D,) f32 slice of dw
+#: in shared memory, which one block may use up to 227 KB of on an H100
+_BWD_WARPS = 8
+_SMEM_LIMIT = 232_448
+#: the rows are cut into at most this many blocks (2 per SM of an H100) of
+#: at least 16 rows, each writing one (D,) row of f32 dw partial sums
+_BWD_MAX_BLOCKS = 264
+_BWD_MIN_ROWS = 16
 
 
 def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -33,7 +58,22 @@ def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
-def _kernel():
+def rms_norm_bwd_plain(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's arithmetic in plain PyTorch, f32 inside:
+    ``dx = (dy·w − x̂·mean(dy·w·x̂))·r`` in x's dtype and ``dw = Σ dy·x̂`` in
+    f32, for x, dy (N, D) and w (D,)."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dxhat = dyf * w.float()
+    inner = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (dxhat - xhat * inner) * r
+    return dx.to(x.dtype), (dyf * xhat).sum(dim=0)
+
+
+def _fwd_kernel():
     fn = build.library("rmsnorm").rmsnorm_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -42,20 +82,38 @@ def _kernel():
     return fn
 
 
-def rms_norm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Fused RMSNorm over the last axis; any leading shape."""
+def _bwd_kernel():
+    fn = build.library("rmsnorm_bwd").rmsnorm_bwd
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 6 + [i, ll, i, ctypes.c_float, i, ll, p]
+        fn.restype = i
+    return fn
+
+
+def _check_rows(x2d: torch.Tensor, w: torch.Tensor, *more: torch.Tensor) -> None:
+    d = x2d.shape[-1]
+    if x2d.dtype not in _DTYPES or any(t.dtype != x2d.dtype for t in (w, *more)):
+        raise TypeError("rmsnorm kernels take f32/bf16 tensors of one dtype, got "
+                        + "/".join(str(t.dtype) for t in (x2d, w, *more)))
+    if w.shape != (d,) or not w.is_contiguous() or any(
+        t.stride() != (d, 1) or t.shape != x2d.shape for t in (x2d, *more)
+    ):
+        raise ValueError(f"rmsnorm kernels need row-major (N, {d}) rows and contiguous w ({d},)")
+
+
+def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis, any leading shape: the forward kernel on
+    CUDA tensors, its plain version on CPU tensors."""
     if not build.on_cuda(x, w):
         return rms_norm_plain(x, w, eps)
     d = x.shape[-1]
     x2d = x.reshape(-1, d)
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"rmsnorm kernel takes f32/bf16 x and w of one dtype, got {x.dtype}/{w.dtype}")
-    if w.shape != (d,) or not w.is_contiguous() or x2d.stride() != (d, 1):
-        raise ValueError(f"rmsnorm kernel needs row-major x (..., {d}) and contiguous w ({d},)")
+    _check_rows(x2d, w)
     y = torch.empty_like(x2d)
     if x2d.shape[0] == 0:
         return y.reshape(x.shape)
-    err = _kernel()(
+    err = _fwd_kernel()(
         x2d.data_ptr(), w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], x2d.shape[0], d,
         eps, torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -63,3 +121,59 @@ def rms_norm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
     global launches
     launches += 1
     return y.reshape(x.shape)
+
+
+def rms_norm_bwd(
+    x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dw f32) for x, dy (N, D) and w (D,): the backward
+    kernel on CUDA tensors, its plain version on CPU tensors."""
+    if not build.on_cuda(x, w, dy):
+        return rms_norm_bwd_plain(x, w, dy, eps)
+    _check_rows(x, w, dy)
+    n, d = x.shape
+    if _BWD_WARPS * d * 4 > _SMEM_LIMIT:
+        raise ValueError(f"rmsnorm_bwd kernel: D = {d} is too wide for its shared-memory dw slices")
+    dx = torch.empty_like(x)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return dx, dw.zero_()
+    n_blocks = min(-(-n // _BWD_MIN_ROWS), _BWD_MAX_BLOCKS)
+    rows_per_block = -(-n // n_blocks)
+    partial = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
+    err = _bwd_kernel()(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dw.data_ptr(), _DTYPES[x.dtype], n, d, eps, n_blocks, rows_per_block,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, "rmsnorm_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dx, dw
+
+
+class RMSNormFused(torch.autograd.Function):
+    """Differentiable fused RMSNorm over the last axis (any leading shape):
+    ``rms_norm_fwd`` forward, ``rms_norm_bwd`` backward on the rows reshaped
+    to (N, D); dw comes back in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        y = rms_norm_fwd(x, w, eps)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        d = x.shape[-1]
+        dx, dw = rms_norm_bwd(
+            x.reshape(-1, d), w, dy.reshape(-1, d).contiguous(), ctx.eps
+        )
+        return dx.reshape(x.shape), dw.to(w.dtype), None
+
+
+def rms_norm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Fused RMSNorm over the last axis; any leading shape."""
+    return RMSNormFused.apply(x, w, eps)

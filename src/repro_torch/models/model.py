@@ -11,33 +11,54 @@ Public surface:
     cache_specs(cfg, batch, max_seq)          -> PSpec tree (decode cache)
     cache_axes(cfg, batch, max_seq)           -> logical-axes tree of the cache
     init_cache(cfg, batch, max_seq, device)   -> zeroed decode cache
+    param_counts(cfg)                         -> (total, active) parameter counts
     forward(cfg, params, batch)               -> logits (B, S, padded_vocab)
+    loss_fn(cfg, params, batch)               -> (loss, metrics)
     prefill(cfg, params, batch, cache)        -> (cache, last_logits)
     decode_step(cfg, params, cache, tokens)   -> (cache, logits)
 
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
 decode update the K/V tensors of the cache they are given in place and return
-that cache with a new ``pos``.  ``loss_fn`` comes with the training slice.
+that cache with a new ``pos``.
+
+In ``mode="train"`` each stacked unit runs under ``cfg.remat``: ``"none"``
+keeps every activation; ``"full"`` is ``torch.utils.checkpoint`` per unit
+(only the unit's input is kept, its forward runs again in the backward);
+``"dots"`` is selective checkpointing that keeps the outputs of the weight
+matmuls (``aten.mm``, the reference's "dots with no batch dims") and
+recomputes everything else, attention and norms included.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .blocks import block_apply, block_cache_specs, block_specs
 from .config import ArchConfig
-from .layers import PSpec, axes_tree, materialize, rms_norm, rotary_embedding, tree_map
+from .layers import (
+    PSpec,
+    axes_tree,
+    materialize,
+    rms_norm,
+    rotary_embedding,
+    tree_leaves,
+    tree_map,
+)
 
 __all__ = [
     "model_specs",
     "init_params",
+    "param_counts",
     "cache_specs",
     "cache_axes",
     "init_cache",
     "decoder_pattern",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
 ]
@@ -93,6 +114,36 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device: str | torch
     return materialize(model_specs(cfg), generator, device)
 
 
+def param_counts(cfg: ArchConfig) -> tuple[int, int]:
+    """(total, active) — active scales expert weights by top_k / n_experts and
+    excludes embedding/lm_head (6·N·D convention counts matmul params)."""
+    total = 0
+    active = 0
+
+    def walk(tree, keys):
+        nonlocal total, active
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, keys + (k,))
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                walk(v, keys)
+        elif isinstance(tree, PSpec):
+            n = 1
+            for dim in tree.shape:
+                n *= int(dim)
+            total += n
+            if "embed" in keys or "lm_head" in keys:
+                return
+            if cfg.moe is not None and "moe" in keys and any(k in ("wi", "wg", "wo") for k in keys):
+                active += int(n * cfg.moe.top_k / cfg.moe.n_experts)
+            else:
+                active += n
+
+    walk(model_specs(cfg), ())
+    return total, active
+
+
 def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> dict[str, Any]:
     _check_family(cfg)
     n_scan, pattern, tail = _split_stack(cfg)
@@ -123,17 +174,62 @@ def _stack_trees(trees: list[Any]) -> Any:
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
+def _unstack(tree: Any, n: int) -> list[Any]:
+    """A tree of stacked (n, ...) leaves -> n trees of per-unit views, one
+    ``unbind`` per leaf: its backward is a single ``stack``, where indexing
+    ``x[i]`` per unit would add a zero-filled copy of the whole stacked leaf
+    per unit to the gradient."""
+    if tree is None:
+        return [None] * n
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    units = []
+    for i in range(n):
+        it = iter(p[i] for p in parts)
+        units.append(tree_map(lambda _: next(it), tree))
+    return units
+
+
+def _keep_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep weight matmul
+    outputs, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """Wrap one stacked unit's forward ``fn(h) -> h`` in ``cfg.remat``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda h: ckpt.checkpoint(fn, h, use_reentrant=False)
+    if cfg.remat == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _keep_matmuls)
+        return lambda h: ckpt.checkpoint(fn, h, use_reentrant=False, context_fn=context)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None):
     """Run the stacked units (a loop over the leading ``scan`` axis), then the
     tail.  Returns (h, {"scan", "tail"} caches): the given caches, updated in
-    place, or — for a prefill without caches — freshly stacked ones."""
+    place, or — for a prefill without caches — freshly stacked ones; None in
+    ``mode="train"``, where each unit runs under ``cfg.remat``."""
     n_scan, pattern, tail_kinds = _split_stack(cfg)
     p_scan = params["scan"]
+    n_units = n_scan if p_scan is not None else 0
     c_scan = caches["scan"] if caches is not None else None
     fresh_scan = []
-    for i in range(n_scan if p_scan is not None else 0):
-        unit_p = tree_map(lambda x: x[i], p_scan)
-        unit_c = tree_map(lambda x: x[i], c_scan)
+    for i, unit_p in enumerate(_unstack(p_scan, n_units)):
+        if mode == "train":
+
+            def unit(x, unit_p=unit_p):
+                for j, kind in enumerate(pattern):
+                    x, _ = block_apply(cfg, kind, unit_p[j], x, rope=rope, mode=mode)
+                return x
+
+            h = _remat(cfg, unit)(h)
+            continue
+        unit_c = tree_map(lambda x: x[i], c_scan)  # views: written in place
         unit_new = []
         for j, kind in enumerate(pattern):
             c = unit_c[j] if unit_c is not None else None
@@ -173,14 +269,66 @@ def _rope(cfg, s: int, device):
     return rotary_embedding(torch.arange(s, device=device), cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def forward(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Full-sequence forward. Returns logits (B, S, padded_vocab)."""
+def _hidden(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Full-sequence forward up to and including the final norm."""
     h = _embed_tokens(params, batch["tokens"])
     rope = _rope(cfg, h.shape[1], h.device)
     h, _ = _apply_stack(cfg, params, h, rope=rope, mode="train")
     # the final norm is always the unfused rms_norm, whatever norm_impl says
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, h)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """Full-sequence forward. Returns logits (B, S, padded_vocab)."""
+    return _logits(cfg, params, _hidden(cfg, params, batch))
+
+
+def _ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
+    """(Σ ce, Σ z, Σ valid) over one logits block; f32, padded vocab masked."""
+    lf = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        vmask = torch.arange(cfg.padded_vocab, device=lf.device) < cfg.vocab_size
+        lf = lf.masked_fill(~vmask, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.clamp_min(0).long()[..., None])[..., 0]
+    valid = (targets >= 0).float()
+    return (
+        ((lse - gold) * valid).sum(),
+        z_coef * (lse.square() * valid).sum(),
+        valid.sum(),
+    )
+
+
+def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: float = 1e-4):
+    """Mean next-token cross-entropy over the valid targets (``targets >= 0``)
+    plus the z-loss; returns (loss, metrics).  With ``cfg.loss_chunk`` dividing
+    the sequence, the logits and CE of each chunk are computed under
+    ``torch.utils.checkpoint``, so the (B, S, V) logits never materialize.
+    Dense stacks carry no auxiliary loss (``aux`` is 0)."""
+    targets = batch["targets"]
+    chunk = cfg.loss_chunk
+    h = _hidden(cfg, params, batch)
+    s = targets.shape[1]
+    if chunk and s % chunk == 0 and s > chunk:
+
+        def body(hb, tb):
+            return torch.stack(_ce_terms(cfg, _logits(cfg, params, hb), tb, z_coef))
+
+        sums = sum(
+            ckpt.checkpoint(body, h[:, i : i + chunk], targets[:, i : i + chunk],
+                            use_reentrant=False)
+            for i in range(0, s, chunk)
+        )
+        ce_sum, z_sum, n_valid = sums.unbind(0)
+    else:
+        ce_sum, z_sum, n_valid = _ce_terms(cfg, _logits(cfg, params, h), targets, z_coef)
+    n_valid = n_valid.clamp_min(1.0)
+    ce = ce_sum / n_valid
+    z_loss = z_sum / n_valid
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + z_loss + aux_coef * aux
+    metrics = {"loss": loss, "ce": ce, "aux": aux, "z_loss": z_loss, "tokens": n_valid}
+    return loss, metrics
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):

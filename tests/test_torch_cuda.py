@@ -55,3 +55,105 @@ def test_rmsnorm_kernel_matches_plain(gen, dtype, n, d):
     assert rn_ops.launches == before + 1
     ref = rn_ops.rms_norm_plain(x, w, 1e-5)
     torch.testing.assert_close(y.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-4}  # tests/test_kernels_flash.py:62
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", [
+    (2, 512, 512, 32, 8, 64, True, None),    # the training heads, GQA group 4
+    (1, 300, 300, 8, 2, 64, True, None),     # ragged S = T
+    (2, 256, 256, 4, 4, 32, True, 128),      # sliding window
+    (1, 128, 256, 2, 1, 64, False, None),    # cross-shape, MQA
+    (1, 100, 100, 4, 2, 128, True, None),    # ragged, wide head
+    (1, 200, 200, 4, 2, 64, False, 48),      # window without causality
+])
+def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, window):
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=causal, window=window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (fa_ops.dq_launches, fa_ops.dkv_launches)
+    dq = fa_ops.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa_ops.dq_launches, fa_ops.dkv_launches) == (before[0] + 1, before[1] + 1)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
+    assert dk.shape == dv.shape == (b, t, kv, hd)
+    ref_dq = fa_ops.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
+    ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
+                                                window=window)
+    tol = BWD_TOL[dtype]
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_flash_autograd_runs_the_kernels(gen):
+    q, k, v = (torch.randn((1, 256, s, 64), generator=gen, device="cuda").bfloat16()
+               .requires_grad_() for s in (8, 2, 2))
+    before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches)
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches) == tuple(
+        n + 1 for n in before)
+    for g, x in zip(grads, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(4096, 2048), (300, 2048), (16384, 64), (7, 100), (33, 7)])
+def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d):
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((d,), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    before = rn_ops.bwd_launches
+    dx, dw = rn_ops.rms_norm_bwd(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert rn_ops.bwd_launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == torch.float32 and dw.shape == (d,)
+    ref_dx, ref_dw = rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5)
+    tol_dx, tol_dw = (2e-2, 3e-2) if dtype == torch.bfloat16 else (2e-5, 2e-4)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=tol_dx, rtol=tol_dx)
+    torch.testing.assert_close(dw, ref_dw, atol=tol_dw, rtol=tol_dw)
+    # the two-stage dw reduction has a fixed order: bit-identical on a rerun
+    assert torch.equal(rn_ops.rms_norm_bwd(x, w, dy, 1e-5)[1], dw)
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_kernel_path_loss_gives_every_leaf_a_gradient(gen, qk_norm):
+    """A loss through ``attn_impl="pallas"`` / ``norm_impl="fused"`` on the
+    card differentiates through the kernels: every parameter leaf gets a
+    finite, nonzero gradient, within f32 tolerance of the plain path's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as PM
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    base = get_smoke_config("llama3.2-1b").replace(head_dim=32, dtype="float32",
+                                                   use_qk_norm=qk_norm)
+    params = PM.init_params(base, gen, device="cuda")
+    tokens = torch.randint(0, base.vocab_size, (2, 128), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], dim=1)
+    batch = {"tokens": tokens, "targets": targets}
+    grads = {}
+    for impl, cfg in (("kernel", base.replace(attn_impl="pallas", norm_impl="fused")),
+                      ("plain", base.replace(attn_impl="chunked", norm_impl="ref"))):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        before = (fa_ops.launches, fa_ops.dq_launches, rn_ops.bwd_launches)
+        loss, _ = PM.loss_fn(cfg, live, batch)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        after = (fa_ops.launches, fa_ops.dq_launches, rn_ops.bwd_launches)
+        moved = [a > b for a, b in zip(after, before)]
+        assert all(moved) if impl == "kernel" else not any(moved), (impl, before, after)
+    for g, ref in zip(grads["kernel"], grads["plain"]):
+        assert bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+        rel = ((g - ref).norm() / ref.norm()).item()
+        assert rel < 1e-3, rel
