@@ -31,7 +31,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "check", "library", "on_cuda"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")
+SOURCES = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "rglru", "rwkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -7,6 +7,10 @@
 // max, denominator and accumulator; KV head h / group; scale hd**-0.5 applied
 // to the f32 scores; out in the input dtype and lse = m + log(l) in f32.
 //
+// Head dims 32, 64, 128 and 256 (recurrentgemma-9b's MQA heads); at 256 the
+// dynamic shared memory is 172,928 B of the 232,448 B a block may use and the
+// accumulator 64 f32 registers per thread.
+//
 // What bounds it on the H100: at the serving shapes (S = T = 512, 32 heads,
 // hd 64) the work is ~1.1 GFLOP against ~5 MB of traffic, so a tensor-core
 // kernel would be memory bound at ~1.6 us.  This first version does its
@@ -196,6 +200,7 @@ int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
+    case 256: return launch<T, 256>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -53,7 +53,10 @@ dq_launches = 0
 dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+#: head dims of the forward kernel; the backward kernels stop at 128 (the
+#: family with 256-wide heads, recurrentgemma-9b, does not train on one card)
+_HEAD_DIMS = (32, 64, 128, 256)
+_BWD_HEAD_DIMS = (32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -144,16 +147,16 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, causal: bool, window: int | None):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, window, *more) -> None:
+def _check(q, k, v, window, *more, head_dims=_HEAD_DIMS) -> None:
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     tensors = (q, k, v, *more)
     if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in tensors):
         raise TypeError("flash kernels take f32/bf16 tensors of one dtype, got "
                         + "/".join(str(x.dtype) for x in tensors))
-    if hd not in _HEAD_DIMS or k.shape != (b, t, n_kv, hd) or v.shape != k.shape:
+    if hd not in head_dims or k.shape != (b, t, n_kv, hd) or v.shape != k.shape:
         raise ValueError(f"flash kernel shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}; head_dim must be one of {_HEAD_DIMS}")
+                         f"v {tuple(v.shape)}; head_dim must be one of {head_dims}")
     if any(x.shape != q.shape for x in more):
         raise ValueError(f"flash kernel: do must match q {tuple(q.shape)}")
     if h % n_kv or min(x.stride(-1) for x in tensors) != 1:
@@ -240,7 +243,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, window: int | 
     delta (B,H,S): the dq kernel on CUDA tensors, its plain version on CPU."""
     if not build.on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
-    _check(q, k, v, window, do)
+    _check(q, k, v, window, do, head_dims=_BWD_HEAD_DIMS)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.shape[1] == 0 or k.shape[1] == 0:
         return dq.zero_()
@@ -255,7 +258,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window: int |
     tensors, its plain version on CPU."""
     if not build.on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
-    _check(q, k, v, window, do)
+    _check(q, k, v, window, do, head_dims=_BWD_HEAD_DIMS)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if q.shape[1] == 0 or k.shape[1] == 0:

@@ -8,11 +8,14 @@ all at once (closed-loop drain) or as an open-loop Poisson arrival process
 report next to every measured timer.
 
 ``--full`` serves the published width of the architecture (default: its smoke
-config); ``--attn-impl pallas --norm-impl fused`` select the hand-written
-flash-attention and RMSNorm kernels (the reference's names for its kernels).
+config); ``--attn-impl pallas --norm-impl fused --seq-impl pallas`` select the
+hand-written flash-attention, RMSNorm and RG-LRU / WKV-6 kernels (the
+reference's names for its kernels).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --attn-impl pallas --norm-impl fused --prompt-len 512,300 --report
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6-1.6b \\
+        --attn-impl pallas --norm-impl fused --seq-impl pallas
 """
 
 from __future__ import annotations
@@ -65,20 +68,23 @@ def run_serving(
     smoke: bool = True,
     attn_impl: str | None = None,
     norm_impl: str | None = None,
+    seq_impl: str | None = None,
     dtype: str | None = None,
     device: str | torch.device = "cuda",
 ) -> ServeSession:
     """Build a :class:`~repro_torch.serving.ServeSession` and serve ``n_requests``.
 
     ``prompt_len`` is one length or several, cycled over the requests.
-    ``attn_impl`` / ``norm_impl`` / ``dtype`` override the config's fields.
+    ``attn_impl`` / ``norm_impl`` / ``seq_impl`` / ``dtype`` override the
+    config's fields.
     Weights are random, drawn from a generator on ``device`` seeded with
     ``seed``.  With ``arrival_rate`` (requests/second) the submissions follow
     an open-loop Poisson process driven against the wall clock; otherwise
     everything is submitted upfront and drained.  Returns the engine.
     """
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    overrides = {"attn_impl": attn_impl, "norm_impl": norm_impl, "dtype": dtype}
+    overrides = {"attn_impl": attn_impl, "norm_impl": norm_impl, "seq_impl": seq_impl,
+                 "dtype": dtype}
     cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -143,6 +149,8 @@ def main(argv=None) -> int:
                     help="attention implementation; 'pallas' = the CUDA flash kernel")
     ap.add_argument("--norm-impl", choices=["ref", "fused"], default=None,
                     help="rmsnorm implementation; 'fused' = the CUDA RMSNorm kernel")
+    ap.add_argument("--seq-impl", choices=["parallel", "ref", "pallas"], default=None,
+                    help="rglru/rwkv recurrence in prefill; 'pallas' = the CUDA kernels")
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--report", action="store_true")
@@ -159,6 +167,7 @@ def main(argv=None) -> int:
             smoke=args.smoke,
             attn_impl=args.attn_impl,
             norm_impl=args.norm_impl,
+            seq_impl=args.seq_impl,
             dtype=args.dtype,
             device=args.device,
         )

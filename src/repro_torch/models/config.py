@@ -69,6 +69,11 @@ class ArchConfig:
     #: rmsnorm implementation: "ref" (unfused, default) | "fused" (Pallas
     #: kernel; interpret-mode on CPU via default_interpret)
     norm_impl: str = "ref"
+    #: recurrence implementation of the rglru / rwkv blocks in train and
+    #: prefill (decode always takes one step in plain PyTorch): "parallel"
+    #: (default; the reference blocks' associative scan / chunked WKV-6) |
+    #: "ref" (sequential) | "pallas" (the CUDA kernels; plain versions on CPU)
+    seq_impl: str = "parallel"
     #: pad vocab up to a multiple of this for sharding (logits masked to true vocab)
     vocab_pad_to: int = 256
     #: §Perf knobs (EXPERIMENTS.md): pre-reshard embedding/lm_head before the

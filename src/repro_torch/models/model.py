@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port (dense decoder stacks).
+"""Model API of the PyTorch port (dense, hybrid and SSM decoder stacks).
 
 Parameters are the reference's pytree as plain nested dicts/tuples of
 tensors: per-layer weights stacked along a leading ``"scan"`` axis of pattern
@@ -18,8 +18,8 @@ Public surface:
     decode_step(cfg, params, cache, tokens)   -> (cache, logits)
 
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
-decode update the K/V tensors of the cache they are given in place and return
-that cache with a new ``pos``.
+decode update the tensors of the cache they are given in place (K/V, ring
+slots, recurrent states) and return that cache with a new ``pos``.
 
 In ``mode="train"`` each stacked unit runs under ``cfg.remat``: ``"none"``
 keeps every activation; ``"full"`` is ``torch.utils.checkpoint`` per unit

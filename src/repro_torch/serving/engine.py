@@ -33,7 +33,7 @@ PyTorch port: the model runs eagerly on ``device`` (``"cuda"`` unless the
 caller passes ``"cpu"``).  PyTorch returns before the card finishes, so the
 ``serve/prefill`` and ``serve/decode`` scopes end with a device synchronise —
 without it the timers would measure the launch and the serving controller
-would steer on it.  Only dense families are served so far.
+would steer on it.  The dense, hybrid and SSM families are served.
 """
 
 from __future__ import annotations
@@ -201,7 +201,7 @@ class ServeSession:
     ----------
     cfg / params:
         Model configuration and weights (the families
-        :mod:`repro_torch.models.model` serves; dense so far), with every
+        :mod:`repro_torch.models.model` serves: dense, hybrid, SSM), with every
         weight on ``device``.
     session:
         A :class:`repro_torch.timing.TimingSession` — the primary wiring.  Supplies

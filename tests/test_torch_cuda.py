@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rwkv6 import ops as wk_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +32,8 @@ def gen():
     (256, 256, 4, 4, 32, True, 128),
     (128, 256, 2, 1, 64, False, None),
     (100, 100, 4, 2, 128, True, None),
+    (512, 512, 16, 1, 256, True, 2048),      # recurrentgemma-9b: MQA, hd 256
+    (300, 300, 16, 1, 256, True, 128),       # hd 256, ragged, the window bites
 ])
 def test_flash_kernel_matches_plain(gen, dtype, s, t, h, kv, hd, causal, window):
     q = torch.randn((2, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -157,3 +161,80 @@ def test_kernel_path_loss_gives_every_leaf_a_gradient(gen, qk_norm):
         assert bool(torch.isfinite(g).all()) and g.abs().sum() > 0
         rel = ((g - ref).norm() / ref.norm()).item()
         assert rel < 1e-3, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,with_h0,strided", [
+    (1, 2560, 4096, True, False),   # recurrentgemma-9b's prefill shape
+    (1, 300, 4096, False, False),   # ragged S
+    (4, 1024, 4096, True, False),
+    (2, 37, 100, True, True),       # ragged D, inputs read through strides
+])
+def test_rglru_kernel_matches_plain(gen, dtype, b, s, d, with_h0, strided):
+    step = 2 if strided else 1
+    a = torch.sigmoid(torch.randn((b, s * step, d), generator=gen, device="cuda"))
+    a = a.to(dtype)[:, ::step]
+    x = torch.randn((b, s * step, d), generator=gen, device="cuda").to(dtype)[:, ::step]
+    h0 = torch.randn((b, d), generator=gen, device="cuda") if with_h0 else None
+    before = rg_ops.launches
+    y, h = rg_ops.rglru_fwd(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32 and h.shape == (b, d)
+    ref_y, ref_h = rg_ops.rglru_fwd_plain(a, x, h0)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(h, ref_h, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,k,with_state", [
+    (1, 512, 32, 64, True),    # rwkv6-1.6b's prefill shape
+    (1, 300, 32, 64, False),   # ragged S
+    (2, 64, 4, 16, True),      # the smoke head size
+    (1, 100, 2, 32, True),
+])
+def test_wkv6_kernel_matches_plain(gen, dtype, b, s, h, k, with_state):
+    def act():  # read through the strides of a (B, S, H*K) projection's view
+        return torch.randn((b, s, h * k), generator=gen, device="cuda").to(dtype).view(b, s, h, k)
+
+    r, kk, v = act(), act(), act()
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, k), generator=gen, device="cuda")))
+    u = torch.randn((h, k), generator=gen, device="cuda")
+    state = torch.randn((b, h, k, k), generator=gen, device="cuda") if with_state else None
+    before = wk_ops.launches
+    y, s_out = wk_ops.wkv6_fwd(r, kk, v, w, u, state)
+    torch.cuda.synchronize()
+    assert wk_ops.launches == before + 1
+    assert y.dtype == dtype and s_out.dtype == torch.float32
+    ref_y, ref_s = wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(s_out, ref_s, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrence_kernels_refuse_backward(gen, arch):
+    """The recurrence kernels have no backward yet: a loss on the card
+    through ``seq_impl="pallas"`` raises instead of training nothing through
+    the recurrence; ``seq_impl="parallel"`` gives every leaf a gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as PM
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch).replace(dtype="float32", attn_impl="pallas", norm_impl="fused")
+    if cfg.window is not None:
+        cfg = cfg.replace(head_dim=32)  # the smoke head_dim 16 is below the flash kernel's
+    params = PM.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+    for seq_impl in ("pallas", "parallel"):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        loss, _ = PM.loss_fn(cfg.replace(seq_impl=seq_impl), tree_map(lambda _: next(it), params),
+                             batch)
+        if seq_impl == "pallas":
+            with pytest.raises(NotImplementedError, match="no backward kernel"):
+                torch.autograd.grad(loss, leaves)
+        else:
+            grads = torch.autograd.grad(loss, leaves)
+            assert all(bool(torch.isfinite(g).all()) for g in grads)

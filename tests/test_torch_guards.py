@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from repro_torch.bridge import to_numpy, to_torch
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rwkv6 import ops as wk_ops
 from repro_torch.launch.serve import run_serving
 from repro_torch.models import model as PM
+from repro_torch.models.layers import tree_leaves
 from repro_torch.serving import ServeSession
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -141,3 +144,55 @@ def test_kernel_wrappers_refuse_other_devices():
         fa_ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="on cuda or all on cpu"):
         rn_ops.rms_norm_fused(torch.empty((4, 32), device="meta"), torch.ones(32))
+
+
+def test_recurrence_wrappers_refuse_other_devices():
+    """The RG-LRU and WKV-6 wrappers route by device like the others: a mix
+    of devices, or a device that is neither CPU nor CUDA, raises."""
+    a = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="on cuda or all on cpu"):
+        rg_ops.rglru_fwd(a, a)
+    with pytest.raises(ValueError, match="on cuda or all on cpu"):
+        rg_ops.rglru_fwd(torch.zeros((1, 8, 16)), torch.zeros((1, 8, 16)), torch.empty(
+            (1, 16), device="meta"))
+    r = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="on cuda or all on cpu"):
+        wk_ops.wkv6_fwd(r, r, r, r, torch.zeros((2, 16)))
+
+
+def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
+    assert {"recurrentgemma-9b", "rwkv6-1.6b"} <= set(ARCH_IDS)
+    assert get_config("recurrentgemma-9b").family == "hybrid"
+    assert get_config("rwkv6-1.6b").family == "ssm"
+    for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2",
+                 "internvl2-26b"):
+        with pytest.raises(KeyError, match="not yet ported"):
+            get_smoke_config(arch)
+    cfg = get_smoke_config("recurrentgemma-9b")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: MoE, encdec, vlm"):
+        PM.model_specs(cfg.replace(block_pattern=("xattn",)))
+    with pytest.raises(NotImplementedError, match="MoE feed-forward is not yet ported"):
+        from repro_torch.models.config import MoESettings
+
+        PM.model_specs(cfg.replace(moe=MoESettings(n_experts=4, top_k=2, d_expert=32)))
+    with pytest.raises(NotImplementedError, match="family 'vlm' is not yet ported"):
+        PM.model_specs(cfg.replace(family="vlm"))
+    with pytest.raises(ValueError, match="unknown seq_impl"):
+        PM.forward(cfg.replace(seq_impl="bogus", dtype="float32"),
+                   PM.init_params(cfg.replace(dtype="float32"), torch.Generator(), "cpu"),
+                   {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_bridge_round_trips_hybrid_and_ssm_params(arch):
+    """Every leaf of a bf16 hybrid / ssm parameter tree, its f32 leaves
+    (``lam``, ``w0``, ``u``) included, survives numpy and back bit for bit."""
+    cfg = get_smoke_config(arch)
+    params = PM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    leaves = tree_leaves(params)
+    assert {t.dtype for t in leaves} == {torch.bfloat16, torch.float32}
+    back = to_torch(to_numpy(params))
+    for a, b in zip(leaves, tree_leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
