@@ -83,6 +83,16 @@ Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560 and 512 bf16.  Memory is freed between the
 serving and the training phases and before phase 10.
 
+Which design runs where: in bf16, ``flash_fwd`` (phases 2, 4, 8, 12) and
+``flash_bwd_dkv`` (phases 6, 8) are tensor-core kernels (``wgmma`` fed by
+TMA through an mbarrier-guarded shared-memory ring, sm_90a); their f32
+instances (the f32 cases of phases 2 and 6, the f32 model of phase 13) and
+``flash_bwd_dq`` in both dtypes stay f32-FMA kernels on the CUDA cores, as
+do the RMSNorm, RG-LRU and WKV-6 kernels.  Phases 2 and 6 print, for every
+case, the kernel's share of its bound, its time over the library call's,
+and the design, registers a thread (and local spill bytes) and shared
+memory a block of the instance that ran.
+
 Kernel times are medians over CUDA events of back-to-back launches queued
 behind a device-side sleep (so host overhead is not in them), with inputs
 resident in L2 where they fit.  The recurrences' plain versions are Python
@@ -170,6 +180,22 @@ def _bound_ms(n_bytes: float, flops: float, peak: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _shares(ms, bound_ms, library_ms) -> str:
+    """A kernel's share of its bound and its time over the library call's."""
+    return (f"bound_share={bound_ms / ms:.4f} "
+            f"kernel/library={ms / library_ms:.3f}" if library_ms else "")
+
+
+def _kernel_note(fa_ops, kernel, dtype, hd) -> str:
+    """Which design runs (tensor cores for bf16, f32 FMAs for f32) and the
+    instance's registers and shared memory."""
+    info = fa_ops.kernel_info(kernel, dtype, hd)
+    design = "tensor-core (wgmma + TMA)" if _dtype_name(dtype) == "bfloat16" else "f32-FMA"
+    return (f"[{design} kernel: {info['registers']} registers/thread, "
+            f"{info['local_bytes']} B local/thread, {info['smem_bytes']} B shared/block, "
+            f"{info['threads']} threads/block]")
+
+
 def _flash_phase(torch, F, fa_ops, gen):
     llama, hybrid = (32, 8, 64), (16, 1, 256)
     cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
@@ -217,7 +243,8 @@ def _flash_phase(torch, F, fa_ops, gen):
         _print(f"[flash] {name}: max_abs_err={err:.3e} lse_err="
                f"{(lse - ref_lse).abs().max().item():.3e} kernel_ms={ms:.5f} "
                f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}) "
-               f"library_ms={library_ms:.5f}")
+               f"library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)} "
+               f"{_kernel_note(fa_ops, 'flash_fwd', dtype, hd)}")
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
     return rows
 
@@ -588,10 +615,13 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
             rows[kernel].append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=library_ms))
+            note = (_kernel_note(fa_ops, kernel, dtype, hd) if kernel == "flash_bwd_dkv"
+                    else "f32-FMA kernel (both dtypes)")
             _print(f"[{kernel}] {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                    f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
                    f"{moved / 1e6:.1f} MB, {2e-9 * matmuls * b * h * pairs * hd:.1f} GFLOP) "
-                   f"library_ms={library_ms:.5f} (SDPA backward: dq, dk, dv)")
+                   f"library_ms={library_ms:.5f} (SDPA backward: dq, dk, dv) "
+                   f"{_shares(ms, bound_ms, library_ms)} {note}")
         del sdpa_out, qt, kt, vt
     return rows
 

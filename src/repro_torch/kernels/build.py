@@ -10,8 +10,10 @@ tensor's device:
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by its own ``nvcc`` process (all sources at once, in parallel) into
 ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the checkout,
-then loaded with :mod:`ctypes`.  The hash covers the source and the flags, so
-an edited kernel is rebuilt and an unchanged one is loaded as it is.
+then loaded with :mod:`ctypes`.  The hash covers the source, every
+``csrc/*.cuh`` header it includes (``#include "name.cuh"``, followed into
+headers that include others) and the flags, so an edited kernel or helper
+header is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,10 +55,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path] | None = None) -> list[Path]:
+    """``path`` and every local header it includes, each once, in order."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.exists():
+                _sources(header, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:

@@ -5,34 +5,68 @@
 // Replaces the Pallas TPU kernel `flash_fwd` (`_fwd_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py.  Same function: f32 running
 // max, denominator and accumulator; KV head h / group; scale hd**-0.5 applied
-// to the f32 scores; out in the input dtype and lse = m + log(l) in f32.
+// to the f32 scores; out in the input dtype and lse = m + log(l) in f32
+// (natural log).  Head dims 32, 64, 128 and 256 (recurrentgemma-9b's MQA heads).
 //
-// Head dims 32, 64, 128 and 256 (recurrentgemma-9b's MQA heads); at 256 the
-// dynamic shared memory is 172,928 B of the 232,448 B a block may use and the
-// accumulator 64 f32 registers per thread.
+// What bounds it on the H100: at the training shape (B = 4, S = T = 1024,
+// 32/8 heads, hd 64, causal) the work is 17.2 GFLOP against ~34 MB of
+// traffic, so it is bound by the tensor cores (17.4 us at 989 TFLOP/s); at
+// the serving shape (B = 1, S = T = 512) by its ~5 MB of traffic (~1.6 us).
 //
-// What bounds it on the H100: at the serving shapes (S = T = 512, 32 heads,
-// hd 64) the work is ~1.1 GFLOP against ~5 MB of traffic, so a tensor-core
-// kernel would be memory bound at ~1.6 us.  This first version does its
-// products with f32 FMAs from shared memory (no mma/wgmma), so it is bound by
-// shared-memory bandwidth and FMA throughput instead; see PERF.md for its measured time.
+// Two designs, chosen by dtype:
 //
-// Design:
-//  * one block per (query tile of BQ = 32 rows, head, batch row); 128 threads,
-//    four per query row (a "quad" of neighbouring lanes);
-//  * the block walks only the key tiles the mask leaves (causal upper bound,
-//    window lower bound), staging each BK = 64-key tile of K and V in shared
-//    memory as f32; the TPU kernel's sequential grid axis becomes this loop;
-//  * each quad lane scores 16 of the 64 keys, the quad reduces max and sum
-//    with two shuffles, writes its probabilities to a shared tile, and then
-//    each lane accumulates HD / 4 interleaved output columns;
-//  * ragged S and T edges are masked here, so every prefill length runs
-//    through the kernel (the reference's untiled fallback is not needed);
-//  * shared-memory strides are padded (HD + 1, BK + 4) so the quad access
-//    patterns are free of bank conflicts.
+// bf16 -- tensor cores (`flash_fwd_tc_kernel`).  One block per (query tile of
+// 128 rows, head, batch row), two warpgroups of 128 threads, each owning 64
+// query rows:
+//  * loads: TMA (`cp.async.bulk.tensor`) reads the model layout through a 4-d
+//    tensor map (hd, S, heads, batch) into 128-byte-swizzled shared memory
+//    (64-byte at hd 32; hd 128 and 256 in 64-column slabs), filling rows past
+//    S or T with zeros.  Thread 0 issues them: Q once, then K and V tiles
+//    into a ring of STAGES = 2 stages guarded by "full" mbarriers (TMA
+//    completes them with the bytes it wrote) and "empty" ones (all 256
+//    threads release a stage), STAGES - 1 tiles ahead of the compute (a
+//    third stage measured no faster);
+//  * per key tile: S = Q K^T with `wgmma.mma_async` m64nBKk16 (both operands
+//    in shared memory, K-major), the online softmax on the f32 accumulator in
+//    registers (a row lives on a quad of lanes: two shuffles per max), P
+//    rounded to bf16 and fed back as wgmma's register-A operand for
+//    O += P V, with V read from shared memory in the transposed-B (MN-major)
+//    mode -- V is never transposed in memory;
+//  * key tiles: BK = 64, and 128 at hd 128.  At hd <= 64 the smaller tile
+//    keeps a thread near 100 registers, so two blocks share an SM (the
+//    training shape ran faster than with 128-key tiles at 154 registers and
+//    one block); at hd 256 the O accumulator alone is 128 registers a
+//    thread.  The block visits only the tiles the causal and window masks
+//    leave, a warpgroup skips the products of a tile its rows cannot see,
+//    and the element mask runs only on tiles that cut the causal diagonal,
+//    the window edge or the ragged T edge;
+//  * registers: at most ~200 a thread (hd 256), no spills (`-Xptxas -v`;
+//    chip_smoke.py prints them).  A dedicated producer warp would not leave
+//    them: ptxas (CUDA 12.9) counts a block of 2 warpgroups and a warp as 3
+//    warpgroups, caps it at 168 registers a thread and does not allocate
+//    above the launch count after `setmaxnreg.inc`, so that layout spilled
+//    the P fragments at hd 128 and 256 and ran slower (PERF.md);
+//  * the grid is ordered longest causal query tile first; O is normalised
+//    and stored in bf16 with a `qpos < S` guard, lse in f32.
+//  Rounding P to bf16 before P V is the one rounding the f32 reference does
+//  not make (tests/test_torch_flash_tc.py holds an emulation of it against
+//  the reference at the bf16 tolerance).
+//
+// f32 -- CUDA-core FMAs (`flash_fwd_kernel`, kept for the f32 checks, which a
+// bf16 or TF32 tensor core cannot meet at 2e-5): one block per (query tile
+// of 32 rows, head, batch row), 128 threads, four per query row (a "quad");
+// K and V tiles of 64 keys staged in shared memory as f32, each quad lane
+// scoring 16 keys and accumulating hd / 4 output columns; shared-memory
+// strides padded (HD + 1, BK + 4) against bank conflicts.  At hd 256 it needs
+// 172,928 B of shared memory and 64 accumulators a thread.
+//
+// Both mask ragged S and T edges in the kernel, so every prefill length runs
+// through them (the reference's untiled fallback is not needed).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,16 +93,11 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -205,10 +234,287 @@ int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BQ = 128;       // query rows of a block: two warpgroups of 64
+constexpr int THREADS = 256;  // two warpgroups; thread 0 also issues the TMA loads
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int HD>
+struct Tiles {
+  static constexpr int STAGES = 2;  // K/V ring depth
+  static constexpr int BK = HD == 128 ? 128 : 64;  // keys per tile
+  static constexpr int SPAN = HD < 64 ? HD : 64;   // columns of one swizzled slab
+  static constexpr int SLABS = HD / SPAN;
+  static constexpr int ROWB = 2 * SPAN;            // bytes of a slab row = swizzle span
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;     // one K or V tile
+  // 1024 bytes of slack to align the tiles to the 128-byte swizzle's period
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+struct FwdParams {
+  CUtensorMap tq, tk, tv;
+  __nv_bfloat16* o;
+  float* lse;
+  int S, T, H, B, group, n_qt;
+  long long sob, sos, soh;
+  int causal;
+  int window;  // <= 0: no window
+  float scale_log2;  // hd**-0.5 * log2(e): the softmax runs in base 2
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ FwdParams p) {
+  using C = Tiles<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = sq + C::Q_BYTES;              // [STAGES][SLABS][BK][SPAN]
+  uint8_t* sv = sk + C::STAGES * C::KV_BYTES;    // [STAGES][SLABS][BK][SPAN]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + C::STAGES * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + C::STAGES;
+  uint64_t* empty = v_full + C::STAGES;
+
+  const int bh = p.H * p.B;
+  const int q0 = (p.n_qt - 1 - (int)(blockIdx.x / bh)) * BQ;  // longest causal tiles first
+  const int h = (int)(blockIdx.x % bh) % p.H;
+  const int b = (int)(blockIdx.x % bh) / p.H;
+  const int kvh = h / p.group;
+
+  // key tiles that intersect the mask support of this query tile
+  int k_lo = 0;
+  int k_hi = p.T;
+  if (p.causal) k_hi = min(k_hi, q0 + BQ);
+  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  const int kt0 = k_lo / C::BK;
+  const int n_kt = k_hi > k_lo ? (k_hi + C::BK - 1) / C::BK - kt0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 2 * 128);  // every thread releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: Q and K/V tiles 0 .. STAGES - 2 here,
+  // tile it + STAGES - 1 at the top of iteration it, into the stage that
+  // tile it - 1 has released, so tiles load while another is computed.
+  const bool issuer = threadIdx.x == 0;
+  auto load_kv = [&](int it) {
+    const int s = it % C::STAGES;
+    const int k0 = (kt0 + it) * C::BK;
+    mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
+    mbar_expect_tx(k_full + s, C::KV_BYTES);
+    for (int j = 0; j < C::SLABS; ++j)
+      tma_load_4d(sk + s * C::KV_BYTES + j * C::BK * C::ROWB, &p.tk, k_full + s, j * C::SPAN, k0,
+                  kvh, b);
+    mbar_expect_tx(v_full + s, C::KV_BYTES);
+    for (int j = 0; j < C::SLABS; ++j)
+      tma_load_4d(sv + s * C::KV_BYTES + j * C::BK * C::ROWB, &p.tv, v_full + s, j * C::SPAN, k0,
+                  kvh, b);
+  };
+  if (issuer) {
+    mbar_expect_tx(q_full, C::Q_BYTES);
+    for (int j = 0; j < C::SLABS; ++j)
+      tma_load_4d(sq + j * BQ * C::ROWB, &p.tq, q_full, j * C::SPAN, q0, h, b);
+    for (int j = 0; j < C::STAGES - 1 && j < n_kt; ++j) load_kv(j);
+  }
+
+  // each warpgroup owns 64 query rows
+  const int wg = warpgroup_idx();
+  const int tid = threadIdx.x % 128;
+  const int qa = q0 + 64 * wg;                             // first row of this warpgroup
+  const int row0 = qa + 16 * (tid / 32) + (tid % 32) / 4;  // this thread's rows: row0, row0 + 8
+  const int col = 2 * (tid % 4);                           // its first column of each 8
+  // descriptors of this warpgroup's Q rows and of stage 0's K and V tiles
+  const uint64_t q_desc = make_desc(sq + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t k_desc = make_desc(sk, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t v_desc = make_desc(sv, C::BK * C::ROWB, 8 * C::ROWB, C::ROWB);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the base-2 scores
+  float l[2] = {0.f, 0.f};              // this lane's share of the running denominator
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    if (issuer && it + C::STAGES - 1 < n_kt) load_kv(it + C::STAGES - 1);
+    __syncwarp();
+    const int s = it % C::STAGES;
+    const uint32_t phase = (it / C::STAGES) & 1;
+    const int k0 = (kt0 + it) * C::BK;
+    // no row of this warpgroup sees a key of the tile / some element is masked
+    const bool skip = (p.causal && k0 > qa + 63) ||
+                      (p.window > 0 && k0 + C::BK - 1 <= qa - p.window);
+    const bool edge = k0 + C::BK > p.T || (p.causal && k0 + C::BK - 1 > qa) ||
+                      (p.window > 0 && k0 <= qa + 63 - p.window);
+    uint32_t pa[C::BK / 16][4];
+
+    const uint64_t dk = desc_at(k_desc, s * C::KV_BYTES);
+    const uint64_t dv = desc_at(v_desc, s * C::KV_BYTES);
+
+    mbar_wait(k_full + s, phase);
+    if (!skip) {
+      float sc[C::BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<C::BK>(sc, desc_at(q_desc, slab * BQ * C::ROWB + off),
+                        desc_at(dk, slab * C::BK * C::ROWB + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < C::BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = k0 + 8 * i + col + (e & 1);
+            const int qpos = row0 + 8 * (e >> 1);
+            const bool ok = t < p.T && (!p.causal || t <= qpos) &&
+                            (p.window <= 0 || t > qpos - p.window);
+            if (!ok) sc[4 * i + e] = -INFINITY;
+          }
+      }
+
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < C::BK / 8; ++i) {
+        tmax[0] = fmaxf(tmax[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+        tmax[1] = fmaxf(tmax[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+        tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+        const float m_new = fmaxf(m[r], tmax[r] * p.scale_log2);
+        base[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing admissible yet
+        alpha[r] = exp2f(m[r] - base[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < C::BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -base[e >> 1]));
+          sc[4 * i + e] = pv;
+          l[e >> 1] += pv;
+        }
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    }
+
+    mbar_wait(v_full + s, phase);
+    if (!skip) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        wgmma_rs<HD>(o, pa[kk], desc_at(dv, kk * 16 * C::ROWB));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = row0 + 8 * r;
+    if (qpos < p.S) {
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      __nv_bfloat16* orow = p.o + b * p.sob + h * p.soh + (long long)qpos * p.sos + col;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+      if (col == 0) p.lse[((long long)b * p.H + h) * p.S + qpos] = m[r] * LN2 + logf(l[r]);
+    }
+  }
+}
+
+template <int HD>
+int launch(const Params& p, int B, int KV, cudaStream_t stream) {
+  using C = Tiles<HD>;
+  FwdParams f;
+  int err = make_tile_map(&f.tq, p.q, B, p.S, p.H, HD, p.sqb, p.sqs, p.sqh, BQ, C::SPAN);
+  if (!err) err = make_tile_map(&f.tk, p.k, B, p.T, KV, HD, p.skb, p.skt, p.skh, C::BK, C::SPAN);
+  if (!err) err = make_tile_map(&f.tv, p.v, B, p.T, KV, HD, p.svb, p.svt, p.svh, C::BK, C::SPAN);
+  if (err) return err;
+  f.o = static_cast<__nv_bfloat16*>(p.o);
+  f.lse = p.lse;
+  f.S = p.S;
+  f.T = p.T;
+  f.H = p.H;
+  f.B = B;
+  f.group = p.group;
+  f.n_qt = (p.S + BQ - 1) / BQ;
+  f.sob = p.sob;
+  f.sos = p.sos;
+  f.soh = p.soh;
+  f.causal = p.causal;
+  f.window = p.window;
+  f.scale_log2 = p.scale * 1.4426950408889634f;
+  static bool configured = false;  // one attribute call per instance
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  flash_fwd_tc_kernel<HD><<<f.n_qt * p.H * B, THREADS, C::SMEM, stream>>>(f);
+  return (int)cudaGetLastError();
+}
+
+inline int dispatch_hd(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<32>(p, B, KV, stream);
+    case 64: return launch<64>(p, B, KV, stream);
+    case 128: return launch<128>(p, B, KV, stream);
+    case 256: return launch<256>(p, B, KV, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head_dim
-// axis of q, k, v and out must be contiguous.  window <= 0 means none.
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
+// Strides are in elements; the head_dim axis of q, k, v and out must be
+// contiguous, and for bf16 the pointers 16-byte aligned and the strides of
+// q, k, v multiples of 8 elements (TMA; the wrapper checks).  window <= 0
+// means none.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int dtype, int B, int S, int T, int H, int KV, int hd,
@@ -237,6 +543,37 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_hd<float>(p, B, hd, st);
-  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(p, B, hd, st);
+  if (dtype == 1) return tc::dispatch_hd(p, B, KV, hd, st);
   return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+// registers and local (spill) bytes a thread, dynamic shared memory and
+// threads a block, of the kernel instance that a launch of (dtype, hd) runs
+template <int HD>
+int info(int dtype, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = dtype == 1 ? cudaFuncGetAttributes(&a, tc::flash_fwd_tc_kernel<HD>)
+                               : cudaFuncGetAttributes(&a, flash_fwd_kernel<float, HD>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = dtype == 1 ? tc::Tiles<HD>::SMEM : (int)(smem_bytes<HD>());
+  out[3] = dtype == 1 ? tc::THREADS : THREADS;
+  return 0;
+}
+
+}  // namespace
+
+// out[4] = registers a thread, local bytes a thread, dynamic shared memory
+// bytes and threads a block of the kernel that (dtype, hd) launches
+extern "C" int flash_fwd_info(int dtype, int hd, int* out) {
+  switch (hd) {
+    case 32: return info<32>(dtype, out);
+    case 64: return info<64>(dtype, out);
+    case 128: return info<128>(dtype, out);
+    case 256: return info<256>(dtype, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

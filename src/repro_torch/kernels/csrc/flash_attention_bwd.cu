@@ -10,13 +10,38 @@
 //
 // What bounds it on the H100: at the training shape (B = 4, S = T = 1024,
 // 32/8 heads, hd 64, causal) dq needs 25.8 GFLOP and dkv 34.4 GFLOP against
-// ~60 and ~51 MB of traffic, so a tensor-core version would be bound by
-// operations (~26 and ~35 us).  This first version does its products with f32
-// FMAs from shared memory (no mma/wgmma), like the forward kernel, so it is
-// bound by shared-memory bandwidth and FMA throughput instead (PERF.md has its
-// time).
+// ~60 and ~51 MB of traffic, so both are bound by the tensor cores (~26 and
+// ~35 us at 989 TFLOP/s).
 //
-// Design:
+// dkv in bf16 -- tensor cores (`flash_bwd_dkv_tc_kernel`).  One block per
+// (key tile of 128 keys, KV head, batch row), two warpgroups of 128 threads,
+// each owning 64 keys:
+//  * loads: TMA, as in the forward kernel (128-byte swizzle; 64-byte at
+//    hd 32; rows past S or T read as zeros).  Thread 0 loads the block's K
+//    and V once, then streams Q and dO tiles of the group's query heads x the
+//    query tiles the mask leaves through a ring of STAGES = 2 stages guarded
+//    by full/empty mbarriers, STAGES - 1 tiles ahead of the compute (a third
+//    stage measured no faster);
+//  * the scores are computed transposed, keys as wgmma's M dimension:
+//    S^T = K Q^T and dP^T = V dO^T (`wgmma.mma_async`, both operands in
+//    shared memory, K-major); P^T = exp2(S^T * scale * log2 e - lse * log2 e)
+//    and dS^T = P^T (dP^T - delta) on the f32 accumulators; P^T and dS^T,
+//    rounded to bf16, are then already wgmma's register-A operand for
+//    dV += P^T dO and dK += dS^T Q, which read dO and Q from shared memory in
+//    the transposed-B (MN-major) mode: no round trip through shared memory;
+//  * dK and dV accumulate in registers across the whole GQA group and leave
+//    the kernel once, scaled, in bf16, with no atomics.  Query tiles of 64
+//    rows (32 at hd 128, where the two accumulators alone take 128 registers
+//    a thread): at most ~200 registers a thread, no spills (a producer warp
+//    would cap them at 168, see flash_attention.cu); the
+//    element mask runs only on tiles that cut the causal diagonal, the window
+//    edge or a ragged edge; the grid runs the key tiles with the most causal
+//    work first.
+//  Rounding P and dS to bf16 before their products is the rounding the f32
+//  reference does not make (tests/test_torch_flash_tc.py holds an emulation
+//  of it against the reference at the bf16 gradient tolerance).
+//
+// dq (both dtypes) and dkv in f32 -- CUDA-core FMAs from shared memory:
 //  * dq: one block per (query tile of 32 rows, head, batch row), 128 threads,
 //    four per query row.  The block walks only the key tiles of 64 that the
 //    causal/window mask leaves (the TPU kernel's sequential grid axis becomes
@@ -35,6 +60,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -343,14 +370,313 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(bool dkv, const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+int dispatch_dq(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return dkv ? launch_dkv<T, 32>(p, B, KV, stream) : launch_dq<T, 32>(p, B, stream);
-    case 64: return dkv ? launch_dkv<T, 64>(p, B, KV, stream) : launch_dq<T, 64>(p, B, stream);
-    case 128: return dkv ? launch_dkv<T, 128>(p, B, KV, stream) : launch_dq<T, 128>(p, B, stream);
+    case 32: return launch_dq<T, 32>(p, B, stream);
+    case 64: return launch_dq<T, 64>(p, B, stream);
+    case 128: return launch_dq<T, 128>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// f32 only: bf16 dk/dv run the tensor-core kernel below
+int dispatch_dkv_f32(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_dkv<float, 32>(p, B, KV, stream);
+    case 64: return launch_dkv<float, 64>(p, B, KV, stream);
+    case 128: return launch_dkv<float, 128>(p, B, KV, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv in bf16: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int BKV = 128;      // keys of a block: two warpgroups of 64
+constexpr int THREADS = 256;  // two warpgroups; thread 0 also issues the TMA loads
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Tiles {
+  static constexpr int STAGES = 2;  // Q/dO ring depth
+  static constexpr int BQ = HD == 128 ? 32 : 64;  // query rows per streamed tile
+  static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
+  static constexpr int SLABS = HD / SPAN;
+  static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
+  static constexpr int KV_BYTES = BKV * HD * 2;   // the block's K or V
+  static constexpr int Q_BYTES = BQ * HD * 2;     // one Q or dO tile
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * Q_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+struct DkvParams {
+  CUtensorMap tk, tv, tq, tdo;
+  const float* lse;    // (B, H, S) f32, contiguous
+  const float* delta;  // (B, H, S) f32, contiguous
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int S, T, H, KV, B, group;
+  long long sdk[3], sdv[3];  // (batch, sequence, head) element strides
+  int causal;
+  int window;  // <= 0: no window
+  float scale;
+  float scale_log2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_tc_kernel(const __grid_constant__ DkvParams p) {
+  using C = Tiles<HD>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sv = sk + C::KV_BYTES;
+  uint8_t* sqd = sv + C::KV_BYTES;  // [STAGES][Q tile, dO tile], each [SLABS][BQ][SPAN]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sqd + C::STAGES * 2 * C::Q_BYTES);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int kb = p.KV * p.B;
+  const int k0 = (int)(blockIdx.x / kb) * BKV;  // key tiles with the most causal work first
+  const int kvh = (int)(blockIdx.x % kb) % p.KV;
+  const int b = (int)(blockIdx.x % kb) / p.KV;
+
+  // query tiles that intersect the mask support of this key tile
+  int q_lo = 0;
+  int q_hi = p.S;
+  if (p.causal) q_lo = min(k0, p.S);
+  if (p.window > 0) q_hi = min(q_hi, k0 + BKV - 1 + p.window);
+  const int qt0 = q_lo / BQ;
+  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt0 : 0;
+  const int n_it = p.group * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * 128);  // every thread releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: K and V and Q/dO tiles 0 .. STAGES - 2
+  // here, tile it + STAGES - 1 at the top of iteration it, into the stage
+  // that tile it - 1 has released, so tiles load while another is computed.
+  const bool issuer = threadIdx.x == 0;
+  auto load_q = [&](int it) {
+    const int s = it % C::STAGES;
+    const int h = kvh * p.group + it / n_qt;
+    const int q0 = (qt0 + it % n_qt) * BQ;
+    uint8_t* st = sqd + s * 2 * C::Q_BYTES;
+    mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(st + j * BQ * C::ROWB, &p.tq, full + s, j * C::SPAN, q0, h, b);
+      tma_load_4d(st + C::Q_BYTES + j * BQ * C::ROWB, &p.tdo, full + s, j * C::SPAN, q0, h, b);
+    }
+  };
+  if (issuer) {
+    mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(sk + j * BKV * C::ROWB, &p.tk, kv_full, j * C::SPAN, k0, kvh, b);
+      tma_load_4d(sv + j * BKV * C::ROWB, &p.tv, kv_full, j * C::SPAN, k0, kvh, b);
+    }
+    for (int j = 0; j < C::STAGES - 1 && j < n_it; ++j) load_q(j);
+  }
+
+  // each warpgroup owns 64 keys
+  const int wg = warpgroup_idx();
+  const int tid = threadIdx.x % 128;
+  const int ka = k0 + 64 * wg;                           // first key of this warpgroup
+  const int t0 = ka + 16 * (tid / 32) + (tid % 32) / 4;  // this thread's keys: t0, t0 + 8
+  const int col = 2 * (tid % 4);                         // its first query column of each 8
+  // K-major descriptors of this warpgroup's K and V rows and of stage 0's Q
+  // and dO tiles; MN-major ones of stage 0's Q and dO tiles
+  const uint64_t k_desc = make_desc(sk + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t v_desc = make_desc(sv + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t q_desc = make_desc(sqd, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t qt_desc = make_desc(sqd, BQ * C::ROWB, 8 * C::ROWB, C::ROWB);
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    if (issuer && it + C::STAGES - 1 < n_it) load_q(it + C::STAGES - 1);
+    __syncwarp();
+    const int s = it % C::STAGES;
+    const uint32_t phase = (it / C::STAGES) & 1;
+    const int h = kvh * p.group + it / n_qt;
+    const int q0 = (qt0 + it % n_qt) * BQ;
+    // no key of this warpgroup is seen by a row of the tile / some element is masked
+    const bool skip = ka >= p.T || (p.causal && q0 + BQ - 1 < ka) ||
+                      (p.window > 0 && ka + 63 <= q0 - p.window);
+    const bool edge = q0 + BQ > p.S || ka + 64 > p.T || (p.causal && q0 < ka + 63) ||
+                      (p.window > 0 && q0 + BQ - 1 >= ka + p.window);
+
+    // lse (base 2) and delta of this thread's query columns, read while the
+    // tile lands
+    float lse2[BQ / 4], del[BQ / 4];
+    if (!skip) {
+      const long long row = ((long long)b * p.H + h) * p.S;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + 8 * i + col + e;
+          lse2[2 * i + e] = q < p.S ? __ldg(p.lse + row + q) * LOG2E : 0.f;
+          del[2 * i + e] = q < p.S ? __ldg(p.delta + row + q) : 0.f;
+        }
+    }
+
+    const uint64_t dq = desc_at(q_desc, s * 2 * C::Q_BYTES);
+    const uint64_t dqt = desc_at(qt_desc, s * 2 * C::Q_BYTES);
+
+    mbar_wait(full + s, phase);
+    if (!skip) {
+      float sc[BQ / 2], dp[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<BQ>(sc, desc_at(k_desc, slab * BKV * C::ROWB + off),
+                     desc_at(dq, slab * BQ * C::ROWB + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<BQ>(dp, desc_at(v_desc, slab * BKV * C::ROWB + off),
+                     desc_at(dq, C::Q_BYTES + slab * BQ * C::ROWB + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 2 * i + (e & 1);
+          float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lse2[c]));
+          if (edge) {
+            const int t = t0 + 8 * (e >> 1);
+            const int q = q0 + 8 * i + col + (e & 1);
+            const bool ok = q < p.S && t < p.T && (!p.causal || t <= q) &&
+                            (p.window <= 0 || t > q - p.window);
+            if (!ok) pv = 0.f;
+          }
+          sc[4 * i + e] = pv;
+          dp[4 * i + e] = pv * (dp[4 * i + e] - del[c]);
+        }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+          da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+        }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<HD>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + kk * 16 * C::ROWB));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<HD>(dk, da[kk], desc_at(dqt, kk * 16 * C::ROWB));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + 8 * r;
+    if (t < p.T) {
+      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + col;
+      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + col;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dkp + 8 * i) =
+            pack_bf16(dk[4 * i + 2 * r] * p.scale, dk[4 * i + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + 8 * i) =
+            pack_bf16(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch(const Params& p, int B, int KV, cudaStream_t stream) {
+  using C = Tiles<HD>;
+  DkvParams d;
+  int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], BKV,
+                          C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], BKV,
+                        C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], C::BQ,
+                        C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tdo, p.dout, B, p.S, p.H, HD, p.st[DO][0], p.st[DO][1], p.st[DO][2],
+                        C::BQ, C::SPAN);
+  if (err) return err;
+  d.lse = p.lse;
+  d.delta = p.delta;
+  d.dk = static_cast<__nv_bfloat16*>(p.dk);
+  d.dv = static_cast<__nv_bfloat16*>(p.dv);
+  d.S = p.S;
+  d.T = p.T;
+  d.H = p.H;
+  d.KV = KV;
+  d.B = B;
+  d.group = p.group;
+  for (int a = 0; a < 3; ++a) {
+    d.sdk[a] = p.st[DK][a];
+    d.sdv[a] = p.st[DV][a];
+  }
+  d.causal = p.causal;
+  d.window = p.window;
+  d.scale = p.scale;
+  d.scale_log2 = p.scale * LOG2E;
+  static bool configured = false;  // one attribute call per instance
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int n_kt = (p.T + BKV - 1) / BKV;
+  flash_bwd_dkv_tc_kernel<HD><<<n_kt * KV * B, THREADS, C::SMEM, stream>>>(d);
+  return (int)cudaGetLastError();
+}
+
+inline int dispatch_hd(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<32>(p, B, KV, stream);
+    case 64: return launch<64>(p, B, KV, stream);
+    case 128: return launch<128>(p, B, KV, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 
 int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq, void* dk, void* dv, int dtype, int B,
@@ -377,15 +703,19 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   p.window = window;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(dkv, p, B, KV, hd, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(dkv, p, B, KV, hd, st);
+  if (dtype == 0)
+    return dkv ? dispatch_dkv_f32(p, B, KV, hd, st) : dispatch_dq<float>(p, B, hd, st);
+  if (dtype == 1)
+    return dkv ? tc::dispatch_hd(p, B, KV, hd, st) : dispatch_dq<__nv_bfloat16>(p, B, hd, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients).  lse and
-// delta are contiguous (B, H, S) float32.  `strides` holds 21 element strides,
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); dkv in
+// bf16 runs the tensor-core kernel, which needs 16-byte-aligned pointers and
+// q, k, v, do strides that are multiples of 8 elements (TMA; the wrapper
+// checks).  lse and delta are contiguous (B, H, S) float32.  `strides` holds 21 element strides,
 // (batch, sequence, head) for q, k, v, do, dq, dk, dv in that order; the
 // head_dim axis of every tensor must be contiguous.  window <= 0 means none.
 // Each entry point returns cudaGetLastError() after its launch (0 on success).
@@ -404,4 +734,34 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              void* stream) {
   return run(true, q, k, v, dout, lse, delta, nullptr, dk, dv, dtype, B, S, T, H, KV, hd,
              strides, causal, window, scale, stream);
+}
+
+namespace {
+
+// registers and local (spill) bytes a thread, dynamic shared memory and
+// threads a block, of the kernel instance that a launch of (dtype, hd) runs
+template <int HD>
+int info(int dtype, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = dtype == 1 ? cudaFuncGetAttributes(&a, tc::flash_bwd_dkv_tc_kernel<HD>)
+                               : cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = dtype == 1 ? tc::Tiles<HD>::SMEM : (int)(dkv_smem_bytes<HD>());
+  out[3] = dtype == 1 ? tc::THREADS : KV_THREADS;
+  return 0;
+}
+
+}  // namespace
+
+// out[4] = registers a thread, local bytes a thread, dynamic shared memory
+// bytes and threads a block of the kernel that (dtype, hd) launches
+extern "C" int flash_bwd_dkv_info(int dtype, int hd, int* out) {
+  switch (hd) {
+    case 32: return info<32>(dtype, out);
+    case 64: return info<64>(dtype, out);
+    case 128: return info<128>(dtype, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,8 +11,14 @@ the reference wrapper — and mask ragged S and T themselves, so every sequence
 length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
-heads.  This first version of all three uses f32 FMAs from shared memory
-(no tensor cores); PERF.md has their times against their bounds.
+heads.  In bf16 the forward and dkv kernels run on the tensor cores
+(``wgmma`` fed by TMA, sm_90a); dq, and every f32 instance, use f32 FMAs
+from shared memory.  PERF.md has their times against their bounds.
+
+TMA reads a bf16 tensor only from a 16-byte-aligned address with byte
+strides that are multiples of 16 (:func:`tma_strides`); the wrappers raise
+``ValueError`` on a CUDA tensor that breaks this, with no copy and no
+fallback.
 
 ``flash_attention`` goes through :class:`FlashAttention` on both devices, so
 a loss on the card differentiates through the kernels: forward saves q, k, v,
@@ -43,6 +49,8 @@ __all__ = [
     "flash_bwd_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "kernel_info",
+    "tma_strides",
 ]
 
 #: flash_fwd kernel launches since the counter was last set to 0
@@ -165,6 +173,35 @@ def _check(q, k, v, window, *more, head_dims=_HEAD_DIMS) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def tma_strides(shape, strides, dtype: torch.dtype, address: int) -> tuple[int, ...]:
+    """The (batch, sequence, head) element strides that a tensor map of the
+    tensor-core kernels is given for a (B, L, heads, hd) tensor, or
+    ``ValueError`` when TMA cannot read it: the base address must be 16-byte
+    aligned, the head_dim axis contiguous and every other stride a multiple
+    of 16 bytes.  The stride of an axis of extent 1 is never used to address
+    memory, so it is replaced by the tensor's whole span, 16-byte aligned."""
+    if address % 16:
+        raise ValueError(f"TMA needs a 16-byte-aligned base address, got {address:#x}")
+    if strides[3] != 1:
+        raise ValueError(f"TMA needs a contiguous head_dim axis, got strides {tuple(strides)}")
+    out = list(strides[:3])
+    for i in range(3):
+        if shape[i] == 1:
+            out[i] = -(-max(n * st for n, st in zip(shape, strides)) // 16) * 16
+        elif out[i] * dtype.itemsize % 16:
+            raise ValueError(f"TMA needs byte strides that are multiples of 16, got element "
+                             f"strides {tuple(strides)} for shape {tuple(shape)} ({dtype})")
+    return tuple(out)
+
+
+def _strides(x: torch.Tensor) -> tuple[int, ...]:
+    """(batch, sequence, head) strides of a kernel input: as they are for
+    f32 (the CUDA-core kernels), checked for TMA for bf16."""
+    if x.dtype == torch.float32:
+        return x.stride()[:3]
+    return tma_strides(x.shape, x.stride(), x.dtype, x.data_ptr())
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -188,6 +225,21 @@ def _bwd_kernel(name: str):
     return fn
 
 
+def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict[str, int]:
+    """Registers and local (spill) bytes a thread, dynamic shared memory and
+    threads a block of the kernel instance that ``flash_fwd`` or
+    ``flash_bwd_dkv`` launches for ``dtype`` and ``head_dim`` (builds the
+    kernels on first use; needs the card)."""
+    lib = build.library({"flash_fwd": "flash_attention",
+                         "flash_bwd_dkv": "flash_attention_bwd"}[name])
+    fn = getattr(lib, f"{name}_info")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    build.check(fn(_DTYPES[dtype], head_dim, ctypes.addressof(out)), f"{name}_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"), out))
+
+
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -209,7 +261,7 @@ def flash_fwd(
     err = _fwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPES[q.dtype], b, s, t, h, n_kv, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3],
         int(causal), window or 0, hd ** -0.5, _stream(q),
     )
     build.check(err, "flash_fwd")
@@ -227,7 +279,8 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
     delta = delta.float().contiguous()
     dq = outs[0] if name == "flash_bwd_dq" else q
     dk, dv = (outs if name == "flash_bwd_dkv" else (k, v))
-    strides = [n for x in (q, k, v, do, dq, dk, dv) for n in x.stride()[:3]]
+    ins = [_strides(x) if name == "flash_bwd_dkv" else x.stride()[:3] for x in (q, k, v, do)]
+    strides = [n for st in ins + [x.stride()[:3] for x in (dq, dk, dv)] for n in st]
     st = (ctypes.c_longlong * len(strides))(*strides)
     err = _bwd_kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

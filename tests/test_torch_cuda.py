@@ -95,6 +95,95 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, w
         torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _flash_case(gen, b, s, t, h, kv, hd, causal, window, q=None, k=None, v=None):
+    """The bf16 tensor-core forward and dkv kernels against their plain
+    versions on one case, with the launch counters checked."""
+    dtype = torch.bfloat16
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype) if q is None else q
+    k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype) if k is None else k
+    v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype) if v is None else v
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    mask = dict(causal=causal, window=window)
+    with_dkv = hd in fa_ops._BWD_HEAD_DIMS  # the backward kernels stop at hd 128
+    before = (fa_ops.launches, fa_ops.dkv_launches)
+    out, lse = fa_ops.flash_fwd(q, k, v, **mask)
+    ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    if with_dkv:
+        dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, ref_lse, delta, **mask)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.dkv_launches) == (before[0] + 1, before[1] + int(with_dkv))
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    if with_dkv:
+        ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, **mask)
+        for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+            torch.testing.assert_close(got.float(), ref.float(), atol=BWD_TOL[dtype],
+                                       rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("s,t,causal", [
+    (1, 1, True), (63, 63, True), (65, 65, True), (127, 127, True), (129, 129, True),
+    (1, 129, False), (65, 63, False), (63, 65, True), (129, 127, True),
+])
+def test_flash_tc_ragged_below_and_across_one_tile(gen, s, t, causal):
+    """S and T below one tile of the tensor-core kernels (128 queries, 128
+    keys) and not a multiple of it: TMA fills the rows past the end with
+    zeros, which the kernels mask."""
+    _flash_case(gen, 2, s, t, 8, 2, 64, causal, None)
+
+
+@pytest.mark.parametrize("s,t,window", [(200, 300, None), (300, 200, None), (250, 330, 96)])
+def test_flash_tc_causal_diagonal_mid_tile_cross_shape(gen, s, t, window):
+    """S != T: the causal diagonal (and the window edge) cross key and query
+    tiles mid-way."""
+    _flash_case(gen, 1, s, t, 8, 2, 64, True, window)
+    if window is not None:  # the window without causality
+        _flash_case(gen, 1, s, t, 8, 2, 64, False, window)
+
+
+@pytest.mark.parametrize("hd,s", [(32, 97), (32, 161), (256, 77), (256, 300), (128, 190)])
+def test_flash_tc_head_dims_ragged(gen, hd, s):
+    """hd 32 (64-byte swizzle) and 256 (four 64-column slabs, 64-key tiles)
+    at ragged lengths; dkv stops at 128."""
+    h, kv = (16, 1) if hd == 256 else (4, 2)
+    _flash_case(gen, 2, s, s, h, kv, hd, True, 128 if hd == 256 else None)
+
+
+def test_flash_tc_reads_strided_views(gen):
+    """q, k and v as slices of wider buffers (a fused projection): strides
+    that TMA can take are read in place, with no copy."""
+    b, s, h, kv, hd = 2, 150, 8, 2, 64
+    qbuf = torch.randn((b, s, h, 2 * hd), generator=gen, device="cuda").bfloat16()
+    kvbuf = torch.randn((b, s, 2, kv, hd), generator=gen, device="cuda").bfloat16()
+    q, k, v = qbuf[..., hd:], kvbuf[:, :, 0], kvbuf[:, :, 1]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    _flash_case(gen, b, s, s, h, kv, hd, True, None, q=q, k=k, v=v)
+
+
+@pytest.mark.parametrize("how", ["stride", "base"])
+def test_flash_tc_refuses_what_tma_cannot_read(gen, how):
+    """A bf16 CUDA tensor with a row stride that is not a multiple of 16
+    bytes, or a base address that is not 16-byte aligned, is refused with
+    ValueError: no copy, no fallback, no launch."""
+    b, s, h, kv, hd = 1, 64, 4, 2, 64
+    k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").bfloat16()
+    if how == "stride":
+        q = torch.randn((b, s, h, hd + 4), generator=gen, device="cuda").bfloat16()[..., :hd]
+    else:
+        flat = torch.randn((b * s * h * hd + 1,), generator=gen, device="cuda").bfloat16()
+        q = flat[1:].view(b, s, h, hd)
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    lse = torch.zeros((b, h, s), device="cuda")
+    before = (fa_ops.launches, fa_ops.dkv_launches)
+    with pytest.raises(ValueError, match="TMA"):
+        fa_ops.flash_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="TMA"):
+        fa_ops.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
+    assert (fa_ops.launches, fa_ops.dkv_launches) == before
+
+
 def test_flash_autograd_runs_the_kernels(gen):
     q, k, v = (torch.randn((1, 256, s, 64), generator=gen, device="cuda").bfloat16()
                .requires_grad_() for s in (8, 2, 2))

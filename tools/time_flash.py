@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Time the port's bf16 flash kernels on one NVIDIA card, for the
+``repro_torch`` package of a checkout (this one by default):
+
+    python3 tools/time_flash.py [--root CHECKOUT]
+
+``flash_fwd`` at its three path shapes (llama serving B=1 S=T=512, llama
+training B=4 S=T=1024, both 32/8 heads of 64, causal; recurrentgemma-9b
+prefill B=1 S=T=2560, 16/1 heads of 256, window 2048) and ``flash_bwd_dkv``
+at the training shape.  Inputs are seeded normals; each time is the median
+of 7 CUDA-event windows of 20 back-to-back launches queued behind a device
+sleep, as in ``chip_smoke.py``.  Also the host microseconds a forward call
+takes at the serving shape, where the host sets the pace: the wrapper, and
+its C entry point alone (the tensor maps and the launch).  Prints the
+card's name and power limit, then one JSON line: the checkout, the kernels'
+build seconds and the times.
+
+To compare two versions on one card, unpack the other commit with
+``git archive`` into a directory outside this checkout and run the two in
+turns (old, new, new, old), each in its own process: both packages are
+called ``repro_torch``.  Each checkout builds its kernels into its own
+``build/`` directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SHAPES = {  # name: (B, S = T, H, KV, hd, window)
+    "fwd_serve_B1_S512_hd64": (1, 512, 32, 8, 64, None),
+    "fwd_train_B4_S1024_hd64": (4, 1024, 32, 8, 64, None),
+    "fwd_hybrid_B1_S2560_hd256_w2048": (1, 2560, 16, 1, 256, 2048),
+}
+
+
+def _device_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)  # ~20 ms: the host queues every call first
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return sorted(times)[len(times) // 2]
+
+
+def _host_us(torch, fn, reps: int = 7, inner: int = 50) -> float:
+    """Median over ``reps`` host-clock windows of ``inner`` calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        times.append(1e6 * (time.perf_counter() - t0) / inner)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1],
+                        help="checkout whose src/repro_torch is timed")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_flash: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.root.resolve() / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip(), flush=True)
+    build_s = build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    times = {}
+    for name, (b, s, h, kv, hd, window) in SHAPES.items():
+        q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        times[name] = _device_ms(
+            torch, lambda: fa_ops.flash_fwd(q, k, v, causal=True, window=window))
+    q, do = rnd(4, 1024, 32, 64), rnd(4, 1024, 32, 64)
+    k, v = rnd(4, 1024, 8, 64), rnd(4, 1024, 8, 64)
+    out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    times["dkv_train_B4_S1024_hd64"] = _device_ms(
+        torch, lambda: fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None))
+    # host microseconds of a forward call at the serving shape: the wrapper
+    # (checks, outputs, strides, launch) and its C entry point alone (tensor
+    # maps and launch), in windows short enough that the launch queue never
+    # fills, so the device's pace stays out of them
+    q, k, v = rnd(1, 512, 32, 64), rnd(1, 512, 8, 64), rnd(1, 512, 8, 64)
+    out, lse = fa_ops.flash_fwd(q, k, v, causal=True)
+    strides = [n for x in (q, k, v) for n in x.stride()[:3]]
+    if hasattr(fa_ops, "tma_strides"):  # checkouts whose bf16 kernels read q, k, v by TMA
+        strides = [n for x in (q, k, v) for n in fa_ops._strides(x)]
+    entry = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), 1,
+             1, 512, 512, 32, 8, 64, *strides, *out.stride()[:3], 1, 0, 64 ** -0.5,
+             torch.cuda.current_stream().cuda_stream]
+    host = {"wrapper": lambda: fa_ops.flash_fwd(q, k, v, causal=True),
+            "entry_point": lambda: fa_ops._fwd_kernel()(*entry)}
+    host_us = {name: _host_us(torch, fn) for name, fn in host.items()}
+    print(json.dumps({"root": str(args.root), "build_s": round(build_s, 2),
+                      "device": torch.cuda.get_device_name(0), "ms": times,
+                      "fwd_serve_host_us": host_us}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
