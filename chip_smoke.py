@@ -83,22 +83,27 @@ Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560 and 512 bf16.  Memory is freed between the
 serving and the training phases and before phase 10.
 
-Which design runs where: in bf16, ``flash_fwd`` (phases 2, 4, 8, 12) and
-``flash_bwd_dkv`` (phases 6, 8) are tensor-core kernels (``wgmma`` fed by
-TMA through an mbarrier-guarded shared-memory ring, sm_90a); their f32
-instances (the f32 cases of phases 2 and 6, the f32 model of phase 13) and
-``flash_bwd_dq`` in both dtypes stay f32-FMA kernels on the CUDA cores, as
-do the RMSNorm, RG-LRU and WKV-6 kernels.  Phases 2 and 6 print, for every
-case, the kernel's share of its bound, its time over the library call's,
-and the design, registers a thread (and local spill bytes) and shared
-memory a block of the instance that ran.
+Which design runs where: in bf16, ``flash_fwd`` (phases 2, 4, 8, 12),
+``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6, 8) are tensor-core
+kernels (``wgmma`` fed by TMA through an mbarrier-guarded shared-memory
+ring, sm_90a); their f32 instances (the f32 cases of phases 2 and 6, the
+f32 model of phase 13) stay f32-FMA kernels on the CUDA cores, as do the
+RMSNorm, RG-LRU and WKV-6 kernels.  Phases 2 and 6 print, for every case,
+the design, registers a thread (and local spill bytes) and shared memory a
+block of the instance that ran; phase 7 the RMSNorm backward's registers,
+grid and launches per call (one, or two with the column sum of dw).
 
-Kernel times are medians over CUDA events of back-to-back launches queued
-behind a device-side sleep (so host overhead is not in them), with inputs
-resident in L2 where they fit.  The recurrences' plain versions are Python
-loops of small launches, so their times are host-bound.  Bounds use the
-H100 SXM data-sheet peaks: 3.35 TB/s, 989 TFLOP/s for bf16 tensor-core work,
-67 TFLOP/s for f32 CUDA-core work.
+Kernel times are medians over 7 windows of 20 calls queued behind a
+device-side sleep (so host overhead is not in them), each call timed by its
+own pair of CUDA events with a 256 MB write queued before it, outside the
+pair: no call finds its inputs in the 50 MB L2 from the call before.  The
+plain versions and the library calls are timed the same way.  The
+recurrences' plain versions are Python loops of small launches, so their
+times are host-bound.  Bounds use the H100 SXM data-sheet peaks:
+3.35 TB/s, 989 TFLOP/s for bf16 tensor-core work, 67 TFLOP/s for f32
+CUDA-core work.  Every kernel line prints its share of its bound and, where
+a library call computes the same function, its time over that call's; a
+kernel time below its bound fails the run.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -155,22 +160,32 @@ def _print(*args) -> None:
     print(*args, flush=True)
 
 
+# bytes written between timed calls: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+
+
 def _device_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
-    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back calls
-    queued behind a device sleep, per call."""
+    """Median over ``reps`` windows of ``inner`` calls queued behind a device
+    sleep, per call.  Before each call a write of ``L2_FLUSH_BYTES`` evicts
+    the L2, and each call is timed by its own pair of CUDA events, so no
+    call finds its inputs in L2 from the call before and the flush is not
+    in the time."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(inner)]
         torch.cuda._sleep(40_000_000)  # ~20 ms: the host queues every call first
-        start.record()
-        for _ in range(inner):
+        for start, end in events:
+            flush.zero_()
+            start.record()
             fn()
-        end.record()
+            end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(sum(start.elapsed_time(end) for start, end in events) / inner)
+    del flush
     return sorted(times)[len(times) // 2]
 
 
@@ -180,10 +195,12 @@ def _bound_ms(n_bytes: float, flops: float, peak: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _shares(ms, bound_ms, library_ms) -> str:
-    """A kernel's share of its bound and its time over the library call's."""
-    return (f"bound_share={bound_ms / ms:.4f} "
-            f"kernel/library={ms / library_ms:.3f}" if library_ms else "")
+def _shares(ms, bound_ms, library_ms=None) -> str:
+    """A kernel's share of its bound, which no time can beat (the run fails
+    if one does), and its time over the library call's where there is one."""
+    assert ms >= bound_ms, f"a kernel time of {ms} ms reads below its bound of {bound_ms} ms"
+    note = f"bound_share={bound_ms / ms:.4f}"
+    return note + (f" kernel/library={ms / library_ms:.3f}" if library_ms else "")
 
 
 def _kernel_note(fa_ops, kernel, dtype, hd) -> str:
@@ -276,7 +293,7 @@ def _rmsnorm_phase(torch, F, rn_ops, gen):
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
         _print(f"[rmsnorm] ({n}, {d}) bf16: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}) "
-               f"library_ms={library_ms:.5f}")
+               f"library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)}")
     return rows
 
 
@@ -492,7 +509,8 @@ def _rglru_phase(torch, rg_ops, gen):
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
         _print(f"[rglru] {name}: max_abs_err={err:.3e} bit_equal={bit_equal} "
                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
-               f"({bound_by}; {n_bytes / 1e6:.1f} MB) library_ms=None (no single PyTorch call)")
+               f"({bound_by}; {n_bytes / 1e6:.1f} MB) library_ms=None (no single PyTorch call) "
+               f"{_shares(ms, bound_ms)}")
         del a, x, y, h, ref_y, ref_h
     return rows
 
@@ -532,7 +550,7 @@ def _wkv6_phase(torch, wk_ops, gen):
         _print(f"[wkv6] {name}: max_abs_err={err:.3e} state_bit_equal={state_equal} "
                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
                f"({bound_by}; {n_bytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) "
-               f"library_ms=None (no single PyTorch call)")
+               f"library_ms=None (no single PyTorch call) {_shares(ms, bound_ms)}")
         del r, kk, v, w, y, s_out, ref_y, ref_s
     return rows
 
@@ -615,8 +633,7 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
             rows[kernel].append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=library_ms))
-            note = (_kernel_note(fa_ops, kernel, dtype, hd) if kernel == "flash_bwd_dkv"
-                    else "f32-FMA kernel (both dtypes)")
+            note = _kernel_note(fa_ops, kernel, dtype, hd)
             _print(f"[{kernel}] {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                    f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
                    f"{moved / 1e6:.1f} MB, {2e-9 * matmuls * b * h * pairs * hd:.1f} GFLOP) "
@@ -655,9 +672,14 @@ def _rmsnorm_bwd_phase(torch, F, rn_ops, gen):
         rows.append(dict(case=f"({n}, {d}) {name}", max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library_ms))
+        plan = rn_ops.bwd_kernel_info(x, w, dy)
         _print(f"[rmsnorm_bwd] ({n}, {d}) {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
-               f"{moved / 1e6:.1f} MB) library_ms={library_ms:.5f}")
+               f"{moved / 1e6:.1f} MB) library_ms={library_ms:.5f} "
+               f"{_shares(ms, bound_ms, library_ms)} [{plan['launches']} launch(es) a call, "
+               f"{plan['blocks']} blocks of {plan['threads']} threads, {plan['registers']} "
+               f"registers/thread, {plan['local_bytes']} B local/thread, {plan['smem_bytes']} B "
+               f"shared/block]")
         del y, xl, wl
     return rows
 

@@ -13,35 +13,52 @@
 // ~60 and ~51 MB of traffic, so both are bound by the tensor cores (~26 and
 // ~35 us at 989 TFLOP/s).
 //
-// dkv in bf16 -- tensor cores (`flash_bwd_dkv_tc_kernel`).  One block per
-// (key tile of 128 keys, KV head, batch row), two warpgroups of 128 threads,
-// each owning 64 keys:
-//  * loads: TMA, as in the forward kernel (128-byte swizzle; 64-byte at
-//    hd 32; rows past S or T read as zeros).  Thread 0 loads the block's K
-//    and V once, then streams Q and dO tiles of the group's query heads x the
-//    query tiles the mask leaves through a ring of STAGES = 2 stages guarded
-//    by full/empty mbarriers, STAGES - 1 tiles ahead of the compute (a third
-//    stage measured no faster);
+// In bf16 both run on the tensor cores (`wgmma.mma_async`, both products'
+// operands in shared memory or, for the second product, the first one's
+// rounded accumulator as the register-A operand), two warpgroups of 128
+// threads a block, with thread 0 issuing every TMA load (128-byte swizzle;
+// 64-byte at hd 32; rows past S or T read as zeros) into a ring of
+// STAGES = 2 stages guarded by full/empty mbarriers, STAGES - 1 tiles ahead
+// of the compute (a third stage measured no faster for dkv; a producer warp
+// would cap the registers at 168, see flash_attention.cu).  Each kernel runs
+// the element mask only on tiles that cut the causal diagonal, the window
+// edge or a ragged edge, skips tiles that no row of a warpgroup sees, and
+// orders its grid with the most causal work first.
+//
+// dq in bf16 (`flash_bwd_dq_tc_kernel`): the forward's structure with a
+// second score product and no online softmax.  One block per (query tile of
+// 128 rows, head, batch row), each warpgroup owning 64 rows; the heads of a
+// batch row are adjacent block indices, so a GQA group's blocks read the
+// same K/V tiles from L2:
+//  * thread 0 loads the block's Q and dO tiles once, then streams the K and
+//    V tiles of 64 keys that the causal/window mask leaves;
+//  * S = Q K^T and dP = dO V^T (both operands K-major), issued together and
+//    waited for once; P = exp2(S * scale * log2 e - lse * log2 e) and
+//    dS = P (dP - delta) on the f32 accumulators, with each thread's two
+//    rows' lse and delta read once per block;
+//  * dS, rounded to bf16, is wgmma's register-A operand for dQ += dS K,
+//    which reads the same K stage in the transposed-B (MN-major) mode;
+//  * dQ accumulates in f32 registers over the whole key walk and leaves
+//    once, scaled, in bf16, with no atomics.
+//
+// dkv in bf16 (`flash_bwd_dkv_tc_kernel`).  One block per (key tile of 128
+// keys, KV head, batch row), each warpgroup owning 64 keys:
+//  * thread 0 loads the block's K and V once, then streams Q and dO tiles
+//    of the group's query heads x the query tiles the mask leaves;
 //  * the scores are computed transposed, keys as wgmma's M dimension:
-//    S^T = K Q^T and dP^T = V dO^T (`wgmma.mma_async`, both operands in
-//    shared memory, K-major); P^T = exp2(S^T * scale * log2 e - lse * log2 e)
-//    and dS^T = P^T (dP^T - delta) on the f32 accumulators; P^T and dS^T,
-//    rounded to bf16, are then already wgmma's register-A operand for
-//    dV += P^T dO and dK += dS^T Q, which read dO and Q from shared memory in
-//    the transposed-B (MN-major) mode: no round trip through shared memory;
+//    S^T = K Q^T and dP^T = V dO^T (K-major); P^T and dS^T, rounded to
+//    bf16, are then already wgmma's register-A operand for dV += P^T dO and
+//    dK += dS^T Q, which read dO and Q in the transposed-B (MN-major) mode:
+//    no round trip through shared memory;
 //  * dK and dV accumulate in registers across the whole GQA group and leave
 //    the kernel once, scaled, in bf16, with no atomics.  Query tiles of 64
 //    rows (32 at hd 128, where the two accumulators alone take 128 registers
-//    a thread): at most ~200 registers a thread, no spills (a producer warp
-//    would cap them at 168, see flash_attention.cu); the
-//    element mask runs only on tiles that cut the causal diagonal, the window
-//    edge or a ragged edge; the grid runs the key tiles with the most causal
-//    work first.
+//    a thread): at most ~200 registers a thread, no spills.
 //  Rounding P and dS to bf16 before their products is the rounding the f32
 //  reference does not make (tests/test_torch_flash_tc.py holds an emulation
 //  of it against the reference at the bf16 gradient tolerance).
 //
-// dq (both dtypes) and dkv in f32 -- CUDA-core FMAs from shared memory:
+// In f32 -- CUDA-core FMAs from shared memory:
 //  * dq: one block per (query tile of 32 rows, head, batch row), 128 threads,
 //    four per query row.  The block walks only the key tiles of 64 that the
 //    causal/window mask leaves (the TPU kernel's sequential grid axis becomes
@@ -369,17 +386,16 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dq(const Params& p, int B, int hd, cudaStream_t stream) {
+// f32 only: bf16 dq and dk/dv run the tensor-core kernels below
+int dispatch_dq_f32(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_dq<T, 32>(p, B, stream);
-    case 64: return launch_dq<T, 64>(p, B, stream);
-    case 128: return launch_dq<T, 128>(p, B, stream);
+    case 32: return launch_dq<float, 32>(p, B, stream);
+    case 64: return launch_dq<float, 64>(p, B, stream);
+    case 128: return launch_dq<float, 128>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// f32 only: bf16 dk/dv run the tensor-core kernel below
 int dispatch_dkv_f32(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch_dkv<float, 32>(p, B, KV, stream);
@@ -397,12 +413,13 @@ namespace tc {
 
 using namespace hopper;
 
-constexpr int BKV = 128;      // keys of a block: two warpgroups of 64
+constexpr int BKV = 128;      // dkv: keys of a block, two warpgroups of 64
+constexpr int BQ = 128;       // dq: query rows of a block, two warpgroups of 64
 constexpr int THREADS = 256;  // two warpgroups; thread 0 also issues the TMA loads
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
-struct Tiles {
+struct DkvTiles {
   static constexpr int STAGES = 2;  // Q/dO ring depth
   static constexpr int BQ = HD == 128 ? 32 : 64;  // query rows per streamed tile
   static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
@@ -430,7 +447,7 @@ struct DkvParams {
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_tc_kernel(const __grid_constant__ DkvParams p) {
-  using C = Tiles<HD>;
+  using C = DkvTiles<HD>;
   constexpr int BQ = C::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -622,8 +639,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 template <int HD>
-int launch(const Params& p, int B, int KV, cudaStream_t stream) {
-  using C = Tiles<HD>;
+int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
+  using C = DkvTiles<HD>;
   DkvParams d;
   int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], BKV,
                           C::SPAN);
@@ -667,11 +684,256 @@ int launch(const Params& p, int B, int KV, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-inline int dispatch_hd(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// dq in bf16: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct DqTiles {
+  static constexpr int STAGES = 2;  // K/V ring depth
+  static constexpr int BK = 64;     // keys per streamed tile
+  static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
+  static constexpr int SLABS = HD / SPAN;
+  static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
+  static constexpr int Q_BYTES = BQ * HD * 2;     // the block's Q or dO
+  static constexpr int KV_BYTES = BK * HD * 2;    // one K or V tile
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+struct DqParams {
+  CUtensorMap tq, tdo, tk, tv;
+  const float* lse;    // (B, H, S) f32, contiguous
+  const float* delta;  // (B, H, S) f32, contiguous
+  __nv_bfloat16* dq;
+  int S, T, H, B, group, n_qt;
+  long long sdq[3];  // (batch, sequence, head) element strides
+  int causal;
+  int window;  // <= 0: no window
+  float scale;
+  float scale_log2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ DqParams p) {
+  using C = DqTiles<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sdo = sq + C::Q_BYTES;
+  uint8_t* skv = sdo + C::Q_BYTES;  // [STAGES][K tile, V tile], each [SLABS][BK][SPAN]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(skv + C::STAGES * 2 * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int bh = p.H * p.B;
+  const int q0 = (p.n_qt - 1 - (int)(blockIdx.x / bh)) * BQ;  // longest causal tiles first
+  const int h = (int)(blockIdx.x % bh) % p.H;  // a GQA group's heads side by side
+  const int b = (int)(blockIdx.x % bh) / p.H;
+  const int kvh = h / p.group;
+
+  // key tiles that intersect the mask support of this query tile
+  int k_lo = 0;
+  int k_hi = p.T;
+  if (p.causal) k_hi = min(k_hi, q0 + BQ);
+  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  const int kt0 = k_lo / BK;
+  const int n_kt = k_hi > k_lo ? (k_hi + BK - 1) / BK - kt0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * 128);  // every thread releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: Q, dO and K/V tiles 0 .. STAGES - 2
+  // here, tile it + STAGES - 1 at the top of iteration it, into the stage
+  // that tile it - 1 has released, so tiles load while another is computed.
+  const bool issuer = threadIdx.x == 0;
+  auto load_kv = [&](int it) {
+    const int s = it % C::STAGES;
+    const int k0 = (kt0 + it) * BK;
+    uint8_t* st = skv + s * 2 * C::KV_BYTES;
+    mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::KV_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(st + j * BK * C::ROWB, &p.tk, full + s, j * C::SPAN, k0, kvh, b);
+      tma_load_4d(st + C::KV_BYTES + j * BK * C::ROWB, &p.tv, full + s, j * C::SPAN, k0, kvh, b);
+    }
+  };
+  if (issuer) {
+    mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(sq + j * BQ * C::ROWB, &p.tq, q_full, j * C::SPAN, q0, h, b);
+      tma_load_4d(sdo + j * BQ * C::ROWB, &p.tdo, q_full, j * C::SPAN, q0, h, b);
+    }
+    for (int j = 0; j < C::STAGES - 1 && j < n_kt; ++j) load_kv(j);
+  }
+
+  // each warpgroup owns 64 query rows
+  const int wg = warpgroup_idx();
+  const int tid = threadIdx.x % 128;
+  const int qa = q0 + 64 * wg;                             // first row of this warpgroup
+  const int row0 = qa + 16 * (tid / 32) + (tid % 32) / 4;  // this thread's rows: row0, row0 + 8
+  const int col = 2 * (tid % 4);                           // its first column of each 8
+  // K-major descriptors of this warpgroup's Q and dO rows and of stage 0's
+  // K tile; an MN-major one of stage 0's K tile (V lies KV_BYTES after K)
+  const uint64_t q_desc = make_desc(sq + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t do_desc = make_desc(sdo + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t k_desc = make_desc(skv, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t kt_desc = make_desc(skv, BK * C::ROWB, 8 * C::ROWB, C::ROWB);
+
+  // lse (base 2) and delta of this thread's two rows, read while Q lands
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    const long long at = ((long long)b * p.H + h) * p.S + q;
+    lse2[r] = q < p.S ? __ldg(p.lse + at) * LOG2E : 0.f;
+    del[r] = q < p.S ? __ldg(p.delta + at) : 0.f;
+  }
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    if (issuer && it + C::STAGES - 1 < n_kt) load_kv(it + C::STAGES - 1);
+    __syncwarp();
+    const int s = it % C::STAGES;
+    const uint32_t phase = (it / C::STAGES) & 1;
+    const int k0 = (kt0 + it) * BK;
+    // no row of this warpgroup sees a key of the tile / some element is masked
+    // (rows past S need no mask: their dq is never written)
+    const bool skip = qa >= p.S || (p.causal && k0 > qa + 63) ||
+                      (p.window > 0 && k0 + BK - 1 <= qa - p.window);
+    const bool edge = k0 + BK > p.T || (p.causal && k0 + BK - 1 > qa) ||
+                      (p.window > 0 && k0 <= qa + 63 - p.window);
+
+    const uint64_t dk = desc_at(k_desc, s * 2 * C::KV_BYTES);
+    const uint64_t dv = desc_at(k_desc, s * 2 * C::KV_BYTES + C::KV_BYTES);
+    const uint64_t dkt = desc_at(kt_desc, s * 2 * C::KV_BYTES);
+
+    mbar_wait(full + s, phase);
+    if (!skip) {
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<BK>(sc, desc_at(q_desc, slab * BQ * C::ROWB + off),
+                     desc_at(dk, slab * BK * C::ROWB + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<BK>(dp, desc_at(do_desc, slab * BQ * C::ROWB + off),
+                     desc_at(dv, slab * BK * C::ROWB + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lse2[r]));
+          if (edge) {
+            const int t = k0 + 8 * i + col + (e & 1);
+            const int q = row0 + 8 * r;
+            const bool ok = t < p.T && (!p.causal || t <= q) &&
+                            (p.window <= 0 || t > q - p.window);
+            if (!ok) pv = 0.f;
+          }
+          dp[4 * i + e] = pv * (dp[4 * i + e] - del[r]);
+        }
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<HD>(dq, da[kk], desc_at(dkt, kk * 16 * C::ROWB));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row0 + 8 * r;
+    if (q < p.S) {
+      __nv_bfloat16* dqp = p.dq + b * p.sdq[0] + h * p.sdq[2] + (long long)q * p.sdq[1] + col;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dqp + 8 * i) =
+            pack_bf16(dq[4 * i + 2 * r] * p.scale, dq[4 * i + 2 * r + 1] * p.scale);
+    }
+  }
+}
+
+template <int HD>
+int launch_dq(const Params& p, int B, int KV, cudaStream_t stream) {
+  using C = DqTiles<HD>;
+  DqParams d;
+  int err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], BQ,
+                          C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tdo, p.dout, B, p.S, p.H, HD, p.st[DO][0], p.st[DO][1], p.st[DO][2],
+                        BQ, C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], C::BK,
+                        C::SPAN);
+  if (!err)
+    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], C::BK,
+                        C::SPAN);
+  if (err) return err;
+  d.lse = p.lse;
+  d.delta = p.delta;
+  d.dq = static_cast<__nv_bfloat16*>(p.dq);
+  d.S = p.S;
+  d.T = p.T;
+  d.H = p.H;
+  d.B = B;
+  d.group = p.group;
+  d.n_qt = (p.S + BQ - 1) / BQ;
+  for (int a = 0; a < 3; ++a) d.sdq[a] = p.st[DQ][a];
+  d.causal = p.causal;
+  d.window = p.window;
+  d.scale = p.scale;
+  d.scale_log2 = p.scale * LOG2E;
+  static bool configured = false;  // one attribute call per instance
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  flash_bwd_dq_tc_kernel<HD><<<d.n_qt * p.H * B, THREADS, C::SMEM, stream>>>(d);
+  return (int)cudaGetLastError();
+}
+
+inline int dispatch_hd(bool dkv, const Params& p, int B, int KV, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<32>(p, B, KV, stream);
-    case 64: return launch<64>(p, B, KV, stream);
-    case 128: return launch<128>(p, B, KV, stream);
+    case 32: return dkv ? launch_dkv<32>(p, B, KV, stream) : launch_dq<32>(p, B, KV, stream);
+    case 64: return dkv ? launch_dkv<64>(p, B, KV, stream) : launch_dq<64>(p, B, KV, stream);
+    case 128: return dkv ? launch_dkv<128>(p, B, KV, stream) : launch_dq<128>(p, B, KV, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -704,16 +966,15 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dkv ? dispatch_dkv_f32(p, B, KV, hd, st) : dispatch_dq<float>(p, B, hd, st);
-  if (dtype == 1)
-    return dkv ? tc::dispatch_hd(p, B, KV, hd, st) : dispatch_dq<__nv_bfloat16>(p, B, hd, st);
+    return dkv ? dispatch_dkv_f32(p, B, KV, hd, st) : dispatch_dq_f32(p, B, hd, st);
+  if (dtype == 1) return tc::dispatch_hd(dkv, p, B, KV, hd, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); dkv in
-// bf16 runs the tensor-core kernel, which needs 16-byte-aligned pointers and
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); bf16
+// runs the tensor-core kernels, which need 16-byte-aligned pointers and
 // q, k, v, do strides that are multiples of 8 elements (TMA; the wrapper
 // checks).  lse and delta are contiguous (B, H, S) float32.  `strides` holds 21 element strides,
 // (batch, sequence, head) for q, k, v, do, dq, dk, dv in that order; the
@@ -741,27 +1002,45 @@ namespace {
 // registers and local (spill) bytes a thread, dynamic shared memory and
 // threads a block, of the kernel instance that a launch of (dtype, hd) runs
 template <int HD>
-int info(int dtype, int* out) {
+int info(bool dkv, int dtype, int* out) {
   cudaFuncAttributes a;
-  cudaError_t err = dtype == 1 ? cudaFuncGetAttributes(&a, tc::flash_bwd_dkv_tc_kernel<HD>)
-                               : cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>);
+  cudaError_t err;
+  if (dtype == 1)
+    err = dkv ? cudaFuncGetAttributes(&a, tc::flash_bwd_dkv_tc_kernel<HD>)
+              : cudaFuncGetAttributes(&a, tc::flash_bwd_dq_tc_kernel<HD>);
+  else
+    err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>)
+              : cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<float, HD>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = dtype == 1 ? tc::Tiles<HD>::SMEM : (int)(dkv_smem_bytes<HD>());
-  out[3] = dtype == 1 ? tc::THREADS : KV_THREADS;
+  if (dtype == 1) {
+    out[2] = dkv ? tc::DkvTiles<HD>::SMEM : tc::DqTiles<HD>::SMEM;
+    out[3] = tc::THREADS;
+  } else {
+    out[2] = (int)(dkv ? dkv_smem_bytes<HD>() : dq_smem_bytes<HD>());
+    out[3] = dkv ? KV_THREADS : DQ_THREADS;
+  }
   return 0;
+}
+
+int info_hd(bool dkv, int dtype, int hd, int* out) {
+  switch (hd) {
+    case 32: return info<32>(dkv, dtype, out);
+    case 64: return info<64>(dkv, dtype, out);
+    case 128: return info<128>(dkv, dtype, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // out[4] = registers a thread, local bytes a thread, dynamic shared memory
 // bytes and threads a block of the kernel that (dtype, hd) launches
+extern "C" int flash_bwd_dq_info(int dtype, int hd, int* out) {
+  return info_hd(false, dtype, hd, out);
+}
+
 extern "C" int flash_bwd_dkv_info(int dtype, int hd, int* out) {
-  switch (hd) {
-    case 32: return info<32>(dtype, out);
-    case 64: return info<64>(dtype, out);
-    case 128: return info<128>(dtype, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return info_hd(true, dtype, hd, out);
 }

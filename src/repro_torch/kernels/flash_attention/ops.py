@@ -11,9 +11,9 @@ the reference wrapper — and mask ragged S and T themselves, so every sequence
 length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
-heads.  In bf16 the forward and dkv kernels run on the tensor cores
-(``wgmma`` fed by TMA, sm_90a); dq, and every f32 instance, use f32 FMAs
-from shared memory.  PERF.md has their times against their bounds.
+heads.  In bf16 all three kernels run on the tensor cores (``wgmma`` fed
+by TMA, sm_90a); every f32 instance uses f32 FMAs from shared memory.  PERF.md has their times against
+their bounds.
 
 TMA reads a bf16 tensor only from a 16-byte-aligned address with byte
 strides that are multiples of 16 (:func:`tma_strides`); the wrappers raise
@@ -227,10 +227,10 @@ def _bwd_kernel(name: str):
 
 def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict[str, int]:
     """Registers and local (spill) bytes a thread, dynamic shared memory and
-    threads a block of the kernel instance that ``flash_fwd`` or
-    ``flash_bwd_dkv`` launches for ``dtype`` and ``head_dim`` (builds the
-    kernels on first use; needs the card)."""
-    lib = build.library({"flash_fwd": "flash_attention",
+    threads a block of the kernel instance that ``flash_fwd``,
+    ``flash_bwd_dq`` or ``flash_bwd_dkv`` launches for ``dtype`` and
+    ``head_dim`` (builds the kernels on first use; needs the card)."""
+    lib = build.library({"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_attention_bwd",
                          "flash_bwd_dkv": "flash_attention_bwd"}[name])
     fn = getattr(lib, f"{name}_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -279,7 +279,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
     delta = delta.float().contiguous()
     dq = outs[0] if name == "flash_bwd_dq" else q
     dk, dv = (outs if name == "flash_bwd_dkv" else (k, v))
-    ins = [_strides(x) if name == "flash_bwd_dkv" else x.stride()[:3] for x in (q, k, v, do)]
+    ins = [_strides(x) for x in (q, k, v, do)]
     strides = [n for st in ins + [x.stride()[:3] for x in (dq, dk, dv)] for n in st]
     st = (ctypes.c_longlong * len(strides))(*strides)
     err = _bwd_kernel(name)(

@@ -8,8 +8,10 @@ The kernels replace the Pallas TPU kernels ``rmsnorm_fwd``
 (one read of each input row, one write of each output row, ~4-10 flop per
 element); their design — one warp per row, 16-byte vector accesses, f32
 shuffle reductions — aims at full-width memory transactions.  The backward
+keeps each row in registers between its two sums and the dx write (rows of
+up to 2048 bf16 or 1024 f32 elements; wider rows take a looped kernel) and
 forms dw in two stages (per-block f32 partial sums, then a hand-written
-column reduction in block order), so it is deterministic.
+column reduction in a fixed order), so it is deterministic.
 
 ``rms_norm_fused`` goes through :class:`RMSNormFused` on both devices: any
 leading shape, reshaped to (N, D); the backward casts the f32 dw to w's
@@ -27,6 +29,7 @@ from .. import build
 
 __all__ = [
     "RMSNormFused",
+    "bwd_kernel_info",
     "rms_norm_bwd",
     "rms_norm_bwd_plain",
     "rms_norm_fused",
@@ -40,14 +43,13 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: warps per block of the backward kernel; each keeps a (D,) f32 slice of dw
+#: warps per block of the backward kernel; each keeps a (D,) f32 slot of dw
 #: in shared memory, which one block may use up to 227 KB of on an H100
 _BWD_WARPS = 8
 _SMEM_LIMIT = 232_448
-#: the rows are cut into at most this many blocks (2 per SM of an H100) of
-#: at least 16 rows, each writing one (D,) row of f32 dw partial sums
-_BWD_MAX_BLOCKS = 264
-_BWD_MIN_ROWS = 16
+#: the backward kernel's blocks per SM at most, each writing one (D,) row of
+#: f32 dw partial sums (the kernel picks its grid from the card's occupancy)
+_BWD_BLOCKS_PER_SM = 4
 
 
 def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -85,10 +87,14 @@ def _fwd_kernel():
 def _bwd_kernel():
     fn = build.library("rmsnorm_bwd").rmsnorm_bwd
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i, ll, i, ctypes.c_float, i, ll, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i, ctypes.c_longlong, i, ctypes.c_float, i, p]
         fn.restype = i
     return fn
+
+
+def _bwd_max_blocks(x: torch.Tensor) -> int:
+    return _BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _check_rows(x2d: torch.Tensor, w: torch.Tensor, *more: torch.Tensor) -> None:
@@ -138,18 +144,36 @@ def rms_norm_bwd(
     dw = torch.empty((d,), dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dw.zero_()
-    n_blocks = min(-(-n // _BWD_MIN_ROWS), _BWD_MAX_BLOCKS)
-    rows_per_block = -(-n // n_blocks)
-    partial = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
+    max_blocks = _bwd_max_blocks(x)
+    partial = torch.empty((max_blocks, d), dtype=torch.float32, device=x.device)
     err = _bwd_kernel()(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), _DTYPES[x.dtype], n, d, eps, n_blocks, rows_per_block,
+        dw.data_ptr(), _DTYPES[x.dtype], n, d, eps, max_blocks,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "rmsnorm_bwd")
     global bwd_launches
     bwd_launches += 1
     return dx, dw
+
+
+def bwd_kernel_info(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> dict[str, int]:
+    """What ``rms_norm_bwd`` launches for these CUDA tensors: registers and
+    local (spill) bytes a thread, dynamic shared memory and threads a block,
+    blocks of the row kernel, and launches (1, or 2 with the column sum of
+    the dw partials); builds the kernels on first use."""
+    _check_rows(x, w, dy)
+    fn = build.library("rmsnorm_bwd").rmsnorm_bwd_info
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 4 + [i, ctypes.c_longlong, i, i, p]
+    fn.restype = i
+    out = (ctypes.c_int * 6)()
+    n, d = x.shape
+    # dx is allocated like x, so its alignment is x's
+    build.check(fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(), x.data_ptr(), _DTYPES[x.dtype],
+                   n, d, _bwd_max_blocks(x), ctypes.addressof(out)), "rmsnorm_bwd_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "blocks", "launches"),
+                    out))
 
 
 class RMSNormFused(torch.autograd.Function):

@@ -96,7 +96,7 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, w
 
 
 def _flash_case(gen, b, s, t, h, kv, hd, causal, window, q=None, k=None, v=None):
-    """The bf16 tensor-core forward and dkv kernels against their plain
+    """The bf16 tensor-core forward, dq and dkv kernels against their plain
     versions on one case, with the launch counters checked."""
     dtype = torch.bfloat16
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype) if q is None else q
@@ -104,20 +104,24 @@ def _flash_case(gen, b, s, t, h, kv, hd, causal, window, q=None, k=None, v=None)
     v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype) if v is None else v
     do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
     mask = dict(causal=causal, window=window)
-    with_dkv = hd in fa_ops._BWD_HEAD_DIMS  # the backward kernels stop at hd 128
-    before = (fa_ops.launches, fa_ops.dkv_launches)
+    with_bwd = hd in fa_ops._BWD_HEAD_DIMS  # the backward kernels stop at hd 128
+    before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches)
     out, lse = fa_ops.flash_fwd(q, k, v, **mask)
     ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
     delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
-    if with_dkv:
+    if with_bwd:
+        dq = fa_ops.flash_bwd_dq(q, k, v, do, ref_lse, delta, **mask)
         dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, ref_lse, delta, **mask)
     torch.cuda.synchronize()
-    assert (fa_ops.launches, fa_ops.dkv_launches) == (before[0] + 1, before[1] + int(with_dkv))
+    assert (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches) == (
+        before[0] + 1, before[1] + int(with_bwd), before[2] + int(with_bwd))
     torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
-    if with_dkv:
+    if with_bwd:
+        ref_dq = fa_ops.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, **mask)
         ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, **mask)
-        for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+        assert dq.dtype == dtype and dq.shape == q.shape
+        for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
             torch.testing.assert_close(got.float(), ref.float(), atol=BWD_TOL[dtype],
                                        rtol=BWD_TOL[dtype])
 
@@ -145,7 +149,7 @@ def test_flash_tc_causal_diagonal_mid_tile_cross_shape(gen, s, t, window):
 @pytest.mark.parametrize("hd,s", [(32, 97), (32, 161), (256, 77), (256, 300), (128, 190)])
 def test_flash_tc_head_dims_ragged(gen, hd, s):
     """hd 32 (64-byte swizzle) and 256 (four 64-column slabs, 64-key tiles)
-    at ragged lengths; dkv stops at 128."""
+    at ragged lengths; dq and dkv stop at 128."""
     h, kv = (16, 1) if hd == 256 else (4, 2)
     _flash_case(gen, 2, s, s, h, kv, hd, True, 128 if hd == 256 else None)
 
@@ -176,12 +180,14 @@ def test_flash_tc_refuses_what_tma_cannot_read(gen, how):
         q = flat[1:].view(b, s, h, hd)
     do = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
     lse = torch.zeros((b, h, s), device="cuda")
-    before = (fa_ops.launches, fa_ops.dkv_launches)
+    before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches)
     with pytest.raises(ValueError, match="TMA"):
         fa_ops.flash_fwd(q, k, v, causal=True)
     with pytest.raises(ValueError, match="TMA"):
+        fa_ops.flash_bwd_dq(q, k, v, do, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="TMA"):
         fa_ops.flash_bwd_dkv(q, k, v, do, lse, lse, causal=True)
-    assert (fa_ops.launches, fa_ops.dkv_launches) == before
+    assert (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches) == before
 
 
 def test_flash_autograd_runs_the_kernels(gen):
@@ -199,11 +205,21 @@ def test_flash_autograd_runs_the_kernels(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(4096, 2048), (300, 2048), (16384, 64), (7, 100), (33, 7)])
-def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d):
-    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("n,d,offset", [
+    (4096, 2048, 0), (300, 2048, 0), (16384, 64, 0), (7, 100, 0), (33, 7, 0),
+    (512, 4096, 0),   # glm4-9b and minitron-8b d_model: the looped kernel in bf16
+    (300, 5120, 0),   # qwen3-14b d_model
+    (2048, 128, 0),   # qwen3's qk-norm over head_dim
+    (300, 2048, 1),   # rows one element past a 16-byte boundary: one element a lane
+])
+def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d, offset):
+    def rows():
+        flat = torch.randn((n * d + offset,), generator=gen, device="cuda").to(dtype)
+        return flat[offset:].view(n, d)
+
+    x = rows()
     w = torch.randn((d,), generator=gen, device="cuda").to(dtype)
-    dy = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    dy = rows()
     before = rn_ops.bwd_launches
     dx, dw = rn_ops.rms_norm_bwd(x, w, dy, 1e-5)
     torch.cuda.synchronize()

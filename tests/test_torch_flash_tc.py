@@ -1,9 +1,9 @@
 """PyTorch port, the tensor-core flash kernels' rounding on the CPU.
 
-The bf16 ``flash_fwd`` and ``flash_bwd_dkv`` kernels run their products on
-the tensor cores, which round what the f32 reference keeps in f32: P to bf16
-before ``P·V`` (forward), P and dS to bf16 before ``dV += Pᵀ·dO`` and
-``dK += dSᵀ·Q`` (dkv).  A plain f32 emulation of that rounding, in this file
+The bf16 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` kernels run
+their products on the tensor cores, which round what the f32 reference keeps
+in f32: P to bf16 before ``P·V`` (forward), dS to bf16 before ``dQ += dS·K``
+(dq), P and dS to bf16 before ``dV += Pᵀ·dO`` and ``dK += dSᵀ·Q`` (dkv).  A plain f32 emulation of that rounding, in this file
 only, is held against the reference's Pallas kernels in interpret mode (its
 untiled fallback where S or T is not a multiple of 128) at the repo's
 unchanged bf16 tolerances: out 2e-2, lse 2e-5, gradients 3e-2.  The shapes
@@ -13,6 +13,8 @@ Also here, as pure functions of what they read: the wrappers' TMA guard
 (shape, strides, dtype, address) and the kernel build's library name, which
 must change when a header a kernel source includes changes.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -93,22 +95,39 @@ def tc_fwd_emulated(q, k, v, *, causal, window):
     return out.to(torch.bfloat16), lse
 
 
-def tc_dkv_emulated(q, k, v, do, lse, delta, *, causal, window):
-    """The bf16 dkv kernel's arithmetic: f32 P = exp(s·scale − lse) and
-    dS = P (dP − delta), both rounded to bf16 before their products; dk and dv
-    summed over the GQA group in f32, returned in bf16."""
+def _probs_and_ds(q, k, v, do, lse, delta, causal, window):
+    """f32 P = exp(s·scale − lse) and dS = P (dP − delta), (B, KV, G, S, T),
+    as the backward kernels form them on their accumulators."""
     b, s, h, hd = q.shape
     n_kv = k.shape[2]
     g = h // n_kv
     scores, _ = _masked_scores(q, k, causal, window)
     p = torch.exp(scores - lse.float().reshape(b, n_kv, g, s, 1))
-    dog = do.float().reshape(b, s, n_kv, g, hd)
-    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
-    ds = p * (dp - delta.float().reshape(b, n_kv, g, s, 1))
-    qg = q.float().reshape(b, s, n_kv, g, hd)
+    dp = torch.einsum("bskgd,btkd->bkgst", do.float().reshape(b, s, n_kv, g, hd), v.float())
+    return p, p * (dp - delta.float().reshape(b, n_kv, g, s, 1))
+
+
+def tc_dkv_emulated(q, k, v, do, lse, delta, *, causal, window):
+    """The bf16 dkv kernel's arithmetic: f32 P and dS, both rounded to bf16
+    before their products; dk and dv summed over the GQA group in f32,
+    returned in bf16."""
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    qg = q.float().reshape(b, s, n_kv, h // n_kv, hd)
+    dog = do.float().reshape(b, s, n_kv, h // n_kv, hd)
     dk = torch.einsum("bkgst,bskgd->btkd", _bf16(ds), qg) * hd ** -0.5
     dv = torch.einsum("bkgst,bskgd->btkd", _bf16(p), dog)
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def tc_dq_emulated(q, k, v, do, lse, delta, *, causal, window):
+    """The bf16 dq kernel's arithmetic: f32 P and dS, dS rounded to bf16
+    before dQ = dS·K·hd**-0.5 is summed in f32; returned in bf16."""
+    b, s, h, hd = q.shape
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window)
+    dq = torch.einsum("bkgst,btkd->bskgd", _bf16(ds), k.float()) * hd ** -0.5
+    return dq.reshape(b, s, h, hd).to(torch.bfloat16)
 
 
 def _tiles(*lengths):
@@ -176,38 +195,70 @@ DKV_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", DKV_CASES)
-def test_tc_dkv_rounding_meets_bf16_gradient_tolerance(b, s, t, h, kv, hd, causal, window):
-    """dk, dv of the emulation against ``jax.grad`` through the reference's
-    flash wrapper (its Pallas backward kernels where S and T tile, autodiff
-    of its chunked attention elsewhere), from the reference's lse and out."""
-    (q, k, v, do), (tq, tk, tv, tdo) = _inputs(
+@functools.lru_cache(maxsize=None)
+def _bwd_case(b, s, t, h, kv, hd, causal, window):
+    """One backward case's inputs, shared by the dkv and dq tests: the torch
+    q, k, v, do, the reference's lse and delta, and its (dq, dk, dv) from
+    ``jax.grad`` through its flash wrapper (its Pallas backward kernels where
+    S and T tile, autodiff of its chunked attention elsewhere)."""
+    (q, k, v, do), torch_inputs = _inputs(
         21, [(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd), (b, s, h, hd)])
 
-    def loss(k_, v_):
-        out = jax_flash(q, k_, v_, causal=causal, window=window, interpret=True)
+    def loss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, causal=causal, window=window, interpret=True)
         return jnp.sum(out.astype(jnp.float32) * do.astype(jnp.float32))
 
-    ref_dk, ref_dv = jax.grad(loss, argnums=(0, 1))(k, v)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
     out = jax_flash(q, k, v, causal=causal, window=window, interpret=True)
     lse = to_torch(np.asarray(_jax_lse(q, k, v, causal, window)))
     delta = torch.from_numpy(np.array(
         jnp.sum(do.astype(jnp.float32) * out.astype(jnp.float32), axis=-1))).transpose(1, 2)
+    return torch_inputs, lse, delta, grads
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", DKV_CASES)
+def test_tc_dkv_rounding_meets_bf16_gradient_tolerance(b, s, t, h, kv, hd, causal, window):
+    """dk, dv of the emulation against ``jax.grad`` through the reference's
+    flash wrapper, from the reference's lse and out."""
+    (tq, tk, tv, tdo), lse, delta, (_, ref_dk, ref_dv) = _bwd_case(
+        b, s, t, h, kv, hd, causal, window)
     dk, dv = tc_dkv_emulated(tq, tk, tv, tdo, lse, delta, causal=causal, window=window)
     assert dk.shape == dv.shape == (b, t, kv, hd)
     np.testing.assert_allclose(_np(dk), _np(ref_dk), atol=GRAD_TOL, rtol=GRAD_TOL)
     np.testing.assert_allclose(_np(dv), _np(ref_dv), atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
-def test_tc_emulation_rounds_where_the_plain_version_does_not():
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", DKV_CASES)
+def test_tc_dq_rounding_meets_bf16_gradient_tolerance(b, s, t, h, kv, hd, causal, window):
+    """dq of the emulation against ``jax.grad`` with respect to q through the
+    reference's flash wrapper, on the dkv test's cases and inputs."""
+    (tq, tk, tv, tdo), lse, delta, (ref_dq, _, _) = _bwd_case(
+        b, s, t, h, kv, hd, causal, window)
+    dq = tc_dq_emulated(tq, tk, tv, tdo, lse, delta, causal=causal, window=window)
+    assert dq.shape == (b, s, h, hd) and dq.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(dq), _np(ref_dq), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq"])
+def test_tc_emulation_rounds_where_the_plain_version_does_not(kernel):
     """The emulation is not the plain version under another name: it differs
-    from it (by bf16 rounding of P) while both stay within tolerance."""
-    _, (tq, tk, tv) = _inputs(22, [(1, 256, 4, 64), (1, 256, 1, 64), (1, 256, 1, 64)])
-    out, lse = tc_fwd_emulated(tq, tk, tv, causal=True, window=None)
+    from it (by bf16 rounding of P before P·V, or of dS before dS·K) while
+    both stay within tolerance."""
+    _, (tq, tk, tv, tdo) = _inputs(
+        22, [(1, 256, 4, 64), (1, 256, 1, 64), (1, 256, 1, 64), (1, 256, 4, 64)])
     plain_out, plain_lse = fa_ops.flash_fwd_plain(tq, tk, tv, causal=True, window=None)
-    assert not torch.equal(out, plain_out)
-    torch.testing.assert_close(out.float(), plain_out.float(), atol=OUT_TOL, rtol=OUT_TOL)
-    torch.testing.assert_close(lse, plain_lse, atol=LSE_TOL, rtol=LSE_TOL)
+    if kernel == "flash_fwd":
+        out, lse = tc_fwd_emulated(tq, tk, tv, causal=True, window=None)
+        assert not torch.equal(out, plain_out)
+        torch.testing.assert_close(out.float(), plain_out.float(), atol=OUT_TOL, rtol=OUT_TOL)
+        torch.testing.assert_close(lse, plain_lse, atol=LSE_TOL, rtol=LSE_TOL)
+        return
+    delta = (tdo.float() * plain_out.float()).sum(-1).transpose(1, 2)
+    args = (tq, tk, tv, tdo, plain_lse, delta)
+    dq = tc_dq_emulated(*args, causal=True, window=None)
+    plain_dq = fa_ops.flash_bwd_dq_plain(*args, causal=True, window=None)
+    assert not torch.equal(dq, plain_dq)
+    torch.testing.assert_close(dq.float(), plain_dq.float(), atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------

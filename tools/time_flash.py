@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash kernels on one NVIDIA card, for the
-``repro_torch`` package of a checkout (this one by default):
+"""Time the port's bf16 flash kernels and its RMSNorm backward on one NVIDIA
+card, for the ``repro_torch`` package of a checkout (this one by default):
 
     python3 tools/time_flash.py [--root CHECKOUT]
 
 ``flash_fwd`` at its three path shapes (llama serving B=1 S=T=512, llama
 training B=4 S=T=1024, both 32/8 heads of 64, causal; recurrentgemma-9b
-prefill B=1 S=T=2560, 16/1 heads of 256, window 2048) and ``flash_bwd_dkv``
-at the training shape.  Inputs are seeded normals; each time is the median
-of 7 CUDA-event windows of 20 back-to-back launches queued behind a device
-sleep, as in ``chip_smoke.py``.  Also the host microseconds a forward call
+prefill B=1 S=T=2560, 16/1 heads of 256, window 2048); ``flash_bwd_dq``
+and ``flash_bwd_dkv`` at the training shape and at ``chip_smoke.py``'s
+ragged S=T=300 and window-128 cases; ``rmsnorm_bwd`` at ``chip_smoke.py``'s
+cases ((4096, 2048), the training path, (300, 2048), (16384, 64) bf16 and
+(7, 100) f32).  Inputs are seeded normals; each time is ``chip_smoke.py``'s
+cold-L2 time: the median of 7 windows of 20 calls queued behind a device
+sleep, each call timed by its own CUDA events after a 256 MB write that
+evicts the L2.  Also the host microseconds a forward call
 takes at the serving shape, where the host sets the pace: the wrapper, and
 its C entry point alone (the tensor maps and the launch).  Prints the
 card's name and power limit, then one JSON line: the checkout, the kernels'
 build seconds and the times.
 
 To compare two versions on one card, unpack the other commit with
-``git archive`` into a directory outside this checkout and run the two in
-turns (old, new, new, old), each in its own process: both packages are
-called ``repro_torch``.  Each checkout builds its kernels into its own
-``build/`` directory.
+``git archive`` into another directory (one that ``.gitignore`` lists, such
+as ``build/parent``, when the run happens on a copy of this checkout) and
+run the two in turns (old, new, new, old), each in its own process: both
+packages are called ``repro_torch``.  Each checkout builds its kernels into
+its own ``build/`` directory; the timer is always this checkout's.
 """
 
 from __future__ import annotations
@@ -36,23 +41,17 @@ SHAPES = {  # name: (B, S = T, H, KV, hd, window)
     "fwd_train_B4_S1024_hd64": (4, 1024, 32, 8, 64, None),
     "fwd_hybrid_B1_S2560_hd256_w2048": (1, 2560, 16, 1, 256, 2048),
 }
-
-
-def _device_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)  # ~20 ms: the host queues every call first
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return sorted(times)[len(times) // 2]
+BWD_CASES = {  # name: (B, S = T, window), 32/8 heads of 64, causal
+    "train_B4_S1024": (4, 1024, None),
+    "ragged_B4_S300": (4, 300, None),
+    "window128_B4_S1024": (4, 1024, 128),
+}
+RMSNORM_BWD_CASES = {  # name: (N, D, dtype name)
+    "rmsnorm_bwd_4096x2048_bf16": (4096, 2048, "bfloat16"),
+    "rmsnorm_bwd_300x2048_bf16": (300, 2048, "bfloat16"),
+    "rmsnorm_bwd_16384x64_bf16": (16384, 64, "bfloat16"),
+    "rmsnorm_bwd_7x100_f32": (7, 100, "float32"),
+}
 
 
 def _host_us(torch, fn, reps: int = 7, inner: int = 50) -> float:
@@ -80,9 +79,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_flash: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import _device_ms  # this checkout's timer, whichever package is timed
+
     sys.path.insert(0, str(args.root.resolve() / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -98,12 +101,22 @@ def main() -> int:
         q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
         times[name] = _device_ms(
             torch, lambda: fa_ops.flash_fwd(q, k, v, causal=True, window=window))
-    q, do = rnd(4, 1024, 32, 64), rnd(4, 1024, 32, 64)
-    k, v = rnd(4, 1024, 8, 64), rnd(4, 1024, 8, 64)
-    out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    times["dkv_train_B4_S1024_hd64"] = _device_ms(
-        torch, lambda: fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None))
+    for name, (b, s, window) in BWD_CASES.items():
+        q, do = rnd(b, s, 32, 64), rnd(b, s, 32, 64)
+        k, v = rnd(b, s, 8, 64), rnd(b, s, 8, 64)
+        out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=window)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        grads_of = (q, k, v, do, lse, delta)
+        times[f"dq_{name}_hd64"] = _device_ms(
+            torch, lambda: fa_ops.flash_bwd_dq(*grads_of, causal=True, window=window))
+        times[f"dkv_{name}_hd64"] = _device_ms(
+            torch, lambda: fa_ops.flash_bwd_dkv(*grads_of, causal=True, window=window))
+    for name, (n, d, dtype) in RMSNORM_BWD_CASES.items():
+        dtype = getattr(torch, dtype)
+        x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
+        dy = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        times[name] = _device_ms(torch, lambda: rn_ops.rms_norm_bwd(x, w, dy, 1e-5))
     # host microseconds of a forward call at the serving shape: the wrapper
     # (checks, outputs, strides, launch) and its C entry point alone (tensor
     # maps and launch), in windows short enough that the launch queue never
