@@ -77,21 +77,40 @@ caught):
     24 x prefills, RMSNorm 72 x (prefills + decode steps) (ln1, the group
     norm and ln2), RG-LRU and flash 0; held against the plain path;
 15. profile a warm window of that engine; then the same architecture in f32
-    at full depth, kernel path against plain path at 2e-4.
+    at full depth, kernel path against plain path at 2e-4;
+16. head_dim 16, the smoke configs' (``_smoke_phase``): serve the
+    llama3.2-1b and recurrentgemma-9b smoke configs (bf16) through
+    ``attn_impl="pallas"``, ``norm_impl="fused"``, ``seq_impl="pallas"``,
+    4 requests of 128-token prompts each, with exact launch counts and the
+    prefill logits held against the plain path at the repo's bf16 model
+    tolerance; train the llama3.2-1b smoke config 3 steps (bf16, batch
+    2 x 128) with exact flash forward/dq/dkv launch counts; one
+    loss-and-gradient step against the plain path in bf16 (as phase 8) and
+    one in f32 (each leaf to 1e-3).
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
-heads, window 2048) at S=T=2560 and 512 bf16.  Memory is freed between the
+heads, window 2048) at S=T=2560 and 512 bf16.  Phases 2 and 6 also hold the
+flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T=128; 4/2 heads
+causal and 4/1 heads with window 16; bf16 and f32), elementwise at the
+kernel tolerances.  Memory is freed between the
 serving and the training phases and before phase 10.
 
-Which design runs where: in bf16, ``flash_fwd`` (phases 2, 4, 8, 12),
-``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6, 8) are tensor-core
-kernels (``wgmma`` fed by TMA through an mbarrier-guarded shared-memory
-ring, sm_90a); their f32 instances (the f32 cases of phases 2 and 6, the
-f32 model of phase 13) stay f32-FMA kernels on the CUDA cores, as do the
-RMSNorm, RG-LRU and WKV-6 kernels.  Phases 2 and 6 print, for every case,
-the design, registers a thread (and local spill bytes) and shared memory a
-block of the instance that ran; phase 7 the RMSNorm backward's registers,
-grid and launches per call (one, or two with the column sum of dw).
+Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
+(phases 2, 4, 8, 12), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6, 8)
+are tensor-core kernels (``wgmma`` fed by TMA through an mbarrier-guarded
+shared-memory ring, sm_90a); their f32 instances (the f32 cases of phases 2
+and 6, the f32 model of phase 13, the f32 gradient step of phase 16) and
+their bf16 instances at head_dim 16 (phases 2, 6 and 16) are f32-FMA
+kernels on the CUDA cores, as are the RMSNorm, RG-LRU and WKV-6 kernels.
+Phases 2 and 6 print, for every case, the design (as the kernel library
+reports it), registers a thread (and local spill bytes) and shared memory a
+block of the instance that ran; phase 7 the
+RMSNorm backward's registers, grid and launches per call (one, or two with
+the column sum of dw).  RG-LRU is one chunked pass with a decoupled
+look-back (one launch a call, after a memset of its look-back words), WKV-6
+three chunked launches (chunk states, their carry, chunk outputs) counted as
+one call; phases 10 and 11 assert one counted launch a call and print each
+case's grid.
 
 Kernel times are medians over 7 windows of 20 calls queued behind a
 device-side sleep (so host overhead is not in them), each call timed by its
@@ -154,6 +173,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 # kernel path vs plain path on the card, bf16: loss and gradient norm to the
 # bf16 gradient tolerance, each leaf's gradient to 10% in relative norm
 TRAIN_RTOL, LEAF_RTOL = 3e-2, 0.1
+# the smoke configs' phase (head_dim 16): prompt and sequence length, steps
+SMOKE_SEQ, SMOKE_STEPS = 128, 3
 
 
 def _print(*args) -> None:
@@ -204,13 +225,19 @@ def _shares(ms, bound_ms, library_ms=None) -> str:
 
 
 def _kernel_note(fa_ops, kernel, dtype, hd) -> str:
-    """Which design runs (tensor cores for bf16, f32 FMAs for f32) and the
-    instance's registers and shared memory."""
+    """Which design runs, as the kernel library reports it (tensor cores or
+    f32 FMAs), and the instance's registers and shared memory."""
     info = fa_ops.kernel_info(kernel, dtype, hd)
-    design = "tensor-core (wgmma + TMA)" if _dtype_name(dtype) == "bfloat16" else "f32-FMA"
+    design = "tensor-core (wgmma + TMA)" if info["tensor_cores"] else "f32-FMA"
     return (f"[{design} kernel: {info['registers']} registers/thread, "
             f"{info['local_bytes']} B local/thread, {info['smem_bytes']} B shared/block, "
             f"{info['threads']} threads/block]")
+
+
+# the smoke configs' attention at phase 16's shapes (batch 2 x SMOKE_SEQ):
+# llama3.2-1b's 4/2 heads causal, recurrentgemma-9b's 4/1 with window 16
+SMOKE_GQA, SMOKE_MQA = (4, 2, 16), (4, 1, 16)
+SMOKE_CASE = f"smoke hd=16 causal B=2 S=T={SMOKE_SEQ} bfloat16"
 
 
 def _flash_phase(torch, F, fa_ops, gen):
@@ -225,6 +252,12 @@ def _flash_phase(torch, F, fa_ops, gen):
         ("hybrid", "hybrid path hd=256 MQA S=T=2560 window=2048 bf16", 1, 2560, hybrid, 2048,
          torch.bfloat16),
         ("", "hybrid hd=256 MQA S=T=512 window=2048 bf16", 1, 512, hybrid, 2048, torch.bfloat16),
+    ] + [
+        ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
+         heads, window, dtype)
+        for name, heads, window in (("causal", SMOKE_GQA, None),
+                                    ("MQA window=16", SMOKE_MQA, 16))
+        for dtype in (torch.bfloat16, torch.float32)
     ]
     rows = []
     for role, name, b, s, (h, kv, hd), window, dtype in cases:
@@ -317,25 +350,27 @@ def _hold(torch, got, want, tol):
     return (got - want).abs().max().item()
 
 
-def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol):
-    """Serve ``arch`` at full width through the kernels; the launch counts
-    must equal ``per_prefill[k] x prefills + per_call[k] x (prefills + decode
-    steps)`` for every kernel ``k`` (0 where neither names it)."""
+def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol, *,
+                 smoke=False, n_requests=N_REQUESTS, max_new=MAX_NEW, n_slots=N_SLOTS):
+    """Serve ``arch`` at full width (its smoke config with ``smoke``) through
+    the kernels; the launch counts must equal ``per_prefill[k] x prefills +
+    per_call[k] x (prefills + decode steps)`` for every kernel ``k`` (0 where
+    neither names it)."""
     import numpy as np
 
     from repro_torch.launch.serve import make_requests, run_serving
     from repro_torch.models import model as M
     from repro_torch.timing import TimingSession
 
-    tag = f"[serve {arch}]"
+    tag = f"[serve {arch}{' smoke' if smoke else ''}]"
     sess = TimingSession()
     torch.cuda.reset_peak_memory_stats()
     _zero_counters(K)
     t0 = time.perf_counter()
     with sess:
         engine = run_serving(
-            arch, N_REQUESTS, prompt_lens, MAX_NEW,
-            n_slots=N_SLOTS, seed=SEED, session=sess, smoke=False,
+            arch, n_requests, prompt_lens, max_new,
+            n_slots=n_slots, seed=SEED, session=sess, smoke=smoke,
             attn_impl="pallas", norm_impl="fused", seq_impl="pallas", dtype="bfloat16",
             device="cuda",
         )
@@ -351,14 +386,14 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol)
     n_decode, decode_s = _scope(sess, "serve/decode")
     stats = engine.stats()
     results = sorted(engine.completed, key=lambda r: r.rid)
-    assert len(results) == N_REQUESTS and stats["shed"] == 0.0, stats
-    assert all(r.status == "completed" and len(r.tokens) == MAX_NEW for r in results)
-    assert n_prefill == N_REQUESTS, n_prefill
+    assert len(results) == n_requests and stats["shed"] == 0.0, stats
+    assert all(r.status == "completed" and len(r.tokens) == max_new for r in results)
+    assert n_prefill == n_requests, n_prefill
     expected = {name: per_prefill.get(name, 0) * n_prefill
                 + per_call.get(name, 0) * (n_prefill + n_decode) for name, _, _ in COUNTERS}
     assert launches == expected, (launches, expected, n_prefill, n_decode)
-    _print(f"{tag} {N_REQUESTS} requests, prompts {prompt_lens}, max_new {MAX_NEW}, "
-           f"{N_SLOTS} slots: wall_s={wall:.3f} prefills={n_prefill} decode_steps={n_decode} "
+    _print(f"{tag} {n_requests} requests, prompts {prompt_lens}, max_new {max_new}, "
+           f"{n_slots} slots: wall_s={wall:.3f} prefills={n_prefill} decode_steps={n_decode} "
            f"launches={launches}")
     _print(f"{tag} tokens_per_s={stats['throughput_tokens_per_s']:.3f} "
            f"p95_ttft_s={stats['p95_ttft_s']:.5f} p95_latency_s={stats['p95_latency_s']:.5f} "
@@ -367,7 +402,7 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol)
 
     # the served model against itself on the plain path, on the card
     plain = cfg.replace(attn_impl="chunked", norm_impl="ref", seq_impl="parallel")
-    requests = make_requests(cfg.vocab_size, N_REQUESTS, prompt_lens, MAX_NEW,
+    requests = make_requests(cfg.vocab_size, n_requests, prompt_lens, max_new,
                              np.random.default_rng(SEED))
     exact = 0
     worst = 0.0
@@ -400,7 +435,7 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol)
                    if len(paths) == 3 else "")
     _print(f"{tag} prefill logits vs plain path: max_abs_diff={worst:.4f} "
            f"max_rel_l2={worst_rel:.4e} (tolerance {tol}{spread_note}); first token equal "
-           f"on {exact}/{N_REQUESTS}")
+           f"on {exact}/{n_requests}")
     return launches, engine, sess
 
 
@@ -492,14 +527,16 @@ def _rglru_phase(torch, rg_ops, gen):
         a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device=DEVICE)).to(dtype)
         x = torch.randn((b, s, d), generator=gen, device=DEVICE).to(dtype)
         h0 = torch.randn((b, d), generator=gen, device=DEVICE) if with_h0 else None
+        before = rg_ops.launches
         y, h = rg_ops.rglru_fwd(a, x, h0)
         torch.cuda.synchronize()
+        assert rg_ops.launches == before + 1, (name, rg_ops.launches - before)
         ref_y, ref_h = rg_ops.rglru_fwd_plain(a, x, h0)
         tol = KERNEL_TOL[_dtype_name(dtype)]
         torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(h, ref_h, atol=2e-5, rtol=2e-5)
         err = max((y.float() - ref_y.float()).abs().max().item(), (h - ref_h).abs().max().item())
-        bit_equal = torch.equal(y, ref_y) and torch.equal(h, ref_h)
+        bit_equal = torch.equal(y, ref_y) and torch.equal(h, ref_h)  # printed, not asserted
         ms = _device_ms(torch, lambda: rg_ops.rglru_fwd(a, x, h0))
         plain_ms = _device_ms(torch, lambda: rg_ops.rglru_fwd_plain(a, x, h0), reps=3, inner=2)
         n_bytes = sum(t.numel() * t.element_size() for t in (a, x, y, h)) + (
@@ -507,10 +544,12 @@ def _rglru_phase(torch, rg_ops, gen):
         bound_ms, bound_by = _bound_ms(n_bytes, 2.0 * b * s * d, "f32")
         rows.append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        blocks, threads = rg_ops.kernel_plan(b, s, d)
         _print(f"[rglru] {name}: max_abs_err={err:.3e} bit_equal={bit_equal} "
                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
                f"({bound_by}; {n_bytes / 1e6:.1f} MB) library_ms=None (no single PyTorch call) "
-               f"{_shares(ms, bound_ms)}")
+               f"{_shares(ms, bound_ms)} [1 counted launch a call: one kernel of {blocks} "
+               f"blocks x {threads} threads, after a memset of its look-back words]")
         del a, x, y, h, ref_y, ref_h
     return rows
 
@@ -529,15 +568,17 @@ def _wkv6_phase(torch, wk_ops, gen):
         w = torch.exp(-torch.exp(torch.randn((b, s, h, k), generator=gen, device=DEVICE)))
         u = 0.5 * torch.randn((h, k), generator=gen, device=DEVICE)
         state = torch.randn((b, h, k, k), generator=gen, device=DEVICE)
+        before = wk_ops.launches
         y, s_out = wk_ops.wkv6_fwd(r, kk, v, w, u, state)
         torch.cuda.synchronize()
+        assert wk_ops.launches == before + 1, (name, wk_ops.launches - before)
         ref_y, ref_s = wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state)
         tol = KERNEL_TOL[_dtype_name(dtype)]
         torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(s_out, ref_s, atol=2e-5, rtol=2e-5)
         err = max((y.float() - ref_y.float()).abs().max().item(),
                   (s_out - ref_s).abs().max().item())
-        state_equal = torch.equal(s_out, ref_s)
+        state_equal = torch.equal(s_out, ref_s)  # printed, not asserted
         ms = _device_ms(torch, lambda: wk_ops.wkv6_fwd(r, kk, v, w, u, state))
         plain_ms = _device_ms(torch, lambda: wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state),
                               reps=3, inner=2)
@@ -547,10 +588,13 @@ def _wkv6_phase(torch, wk_ops, gen):
         bound_ms, bound_by = _bound_ms(n_bytes, flops, "f32")
         rows.append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        plan = ", ".join(f"{part} {blocks} x {threads} ({smem} B shared)"
+                         for part, blocks, threads, smem in wk_ops.kernel_plan(b, s, h, k))
         _print(f"[wkv6] {name}: max_abs_err={err:.3e} state_bit_equal={state_equal} "
                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
                f"({bound_by}; {n_bytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP) "
-               f"library_ms=None (no single PyTorch call) {_shares(ms, bound_ms)}")
+               f"library_ms=None (no single PyTorch call) {_shares(ms, bound_ms)} "
+               f"[1 counted launch a call: 3 kernels, blocks x threads: {plan}]")
         del r, kk, v, w, y, s_out, ref_y, ref_s
     return rows
 
@@ -560,15 +604,21 @@ def _dtype_name(dtype) -> str:
 
 
 def _flash_bwd_phase(torch, F, fa_ops, gen):
-    cases = [  # (name, B, S=T, window, dtype)
-        ("path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, None, torch.bfloat16),
-        ("ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, None, torch.bfloat16),
-        ("window=128 B=4 S=T=1024 bf16", TRAIN_BATCH, TRAIN_SEQ, 128, torch.bfloat16),
-        ("f32 B=4 S=T=1024 causal", TRAIN_BATCH, TRAIN_SEQ, None, torch.float32),
+    llama = (32, 8, 64)
+    cases = [  # (name, B, S=T, (H, KV, hd), window, dtype)
+        ("path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, llama, None, torch.bfloat16),
+        ("ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, llama, None, torch.bfloat16),
+        ("window=128 B=4 S=T=1024 bf16", TRAIN_BATCH, TRAIN_SEQ, llama, 128, torch.bfloat16),
+        ("f32 B=4 S=T=1024 causal", TRAIN_BATCH, TRAIN_SEQ, llama, None, torch.float32),
+    ] + [
+        (f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ, heads,
+         window, dtype)
+        for name, heads, window in (("causal", SMOKE_GQA, None),
+                                    ("MQA window=16", SMOKE_MQA, 16))
+        for dtype in (torch.bfloat16, torch.float32)
     ]
-    h, kv, hd = 32, 8, 64
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for name, b, s, window, dtype in cases:
+    for name, b, s, (h, kv, hd), window, dtype in cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
         k = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
         v = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
@@ -711,23 +761,28 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def _train_phase(torch, K):
-    from repro_torch.configs import get_config
+def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Train llama3.2-1b (its smoke config with ``smoke``) through the
+    kernels; the launch counts must equal the per-step counts x steps."""
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import TimerLogger
     from repro_torch.launch.train import TrainSettings, run_training
     from repro_torch.models import model as M
     from repro_torch.timing import TimingSession
 
-    cfg = get_config("llama3.2-1b").replace(
+    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b").replace(
         attn_impl="pallas", norm_impl="fused", remat="dots", dtype="bfloat16")
     n_layers = cfg.n_layers
-    assert (n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-            cfg.vocab_size, cfg.tied_embeddings) == (16, 2048, 32, 8, 64, 128256, True), cfg
+    shape = (n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+             cfg.vocab_size, cfg.tied_embeddings)
+    assert shape == ((2, 64, 4, 2, 16, 256, True) if smoke
+                     else (16, 2048, 32, 8, 64, 128256, True)), cfg
+    tag = "[train smoke]" if smoke else "[train]"
     with tempfile.TemporaryDirectory() as tmp:
         log_path = os.path.join(tmp, "train.jsonl")
         settings = TrainSettings(
-            arch=cfg.name, smoke=False, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-            seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED, report_every=0,
+            arch="llama3.2-1b", smoke=smoke, steps=steps, global_batch=batch,
+            seq_len=seq, data_mode="copy", seed=SEED, report_every=0,
             log_path=log_path, device=DEVICE,
         )
         sess = TimingSession()
@@ -744,30 +799,33 @@ def _train_phase(torch, K):
     per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
                 "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers,
                 "rmsnorm_bwd": 2 * n_layers, "rglru_fwd": 0, "wkv6_fwd": 0}
-    assert launches == {k: v * TRAIN_STEPS for k, v in per_step.items()}, launches
-    assert summary["iterations"] == TRAIN_STEPS and len(records) == TRAIN_STEPS, summary
+    assert launches == {k: v * steps for k, v in per_step.items()}, launches
+    assert summary["iterations"] == steps and len(records) == steps, summary
     losses = [r["extra"]["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), losses
     cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
     step_s = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
     median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     active = M.param_counts(cfg)[1]
     mfu = 6.0 * active * tokens / median_s / PEAK_FLOPS["bf16_tensor"]
-    _print(f"[train] llama3.2-1b full width, bf16, remat dots, batch {TRAIN_BATCH} x seq "
-           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps: wall_s={wall:.3f} launches={launches} "
+    _print(f"{tag} llama3.2-1b {'smoke config' if smoke else 'full width'}, bf16, remat dots, "
+           f"batch {batch} x seq {seq}, {steps} steps: wall_s={wall:.3f} launches={launches} "
            f"(per step {per_step})")
-    _print(f"[train] losses={[round(x, 5) for x in losses]} "
+    _print(f"{tag} losses={[round(x, 5) for x in losses]} "
            f"grad_norm={summary['final_metrics']['grad_norm']:.5f}")
+    if smoke:  # a toy model's step times are launch overhead
+        return launches, cfg
     _print(f"[train] step_s={[round(x, 5) for x in step_s]} median_s(steps 2-6)={median_s:.5f} "
-           f"tokens_per_s(EVOL, all steps)={TRAIN_STEPS * tokens / cum[-1]:.1f} "
+           f"tokens_per_s(EVOL, all steps)={steps * tokens / cum[-1]:.1f} "
            f"tokens_per_s(median step)={tokens / median_s:.1f} "
            f"mfu(6*{active}*tokens vs 989 TFLOP/s)={mfu:.4f} "
            f"max_memory_allocated_GB={peak_gb:.3f}")
     return launches, cfg
 
 
-def _train_compare_phase(torch, cfg):
+def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         loss_rtol=TRAIN_RTOL, leaf_rtol=LEAF_RTOL, label="[train]"):
     """One loss-and-gradient step, kernel path vs plain path, same weights and
     batch, on the card."""
     from repro_torch.data import SyntheticConfig, SyntheticLM
@@ -776,7 +834,7 @@ def _train_compare_phase(torch, cfg):
     from repro_torch.optim import global_norm
 
     params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
-    batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+    batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, seq, batch_size, mode="copy",
                                         seed=SEED)).batch_at(0)
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
@@ -794,14 +852,14 @@ def _train_compare_phase(torch, cfg):
         for tag, g in (("kernel", a), ("plain", b)):
             assert bool(torch.isfinite(g).all()) and g.abs().max().item() > 0, (tag, name)
         rel[name] = ((a.float() - b.float()).norm() / b.float().norm()).item()
-    assert abs(loss_k - loss_p) <= TRAIN_RTOL * abs(loss_p), (loss_k, loss_p)
-    assert abs(gn_k - gn_p) <= TRAIN_RTOL * gn_p, (gn_k, gn_p)
+    assert abs(loss_k - loss_p) <= loss_rtol * abs(loss_p), (loss_k, loss_p)
+    assert abs(gn_k - gn_p) <= loss_rtol * gn_p, (gn_k, gn_p)
     worst = max(rel, key=rel.get)
-    assert rel[worst] < LEAF_RTOL, rel
-    _print(f"[train] one step on the card, kernel vs plain path: loss {loss_k:.6f} vs "
+    assert rel[worst] < leaf_rtol, rel
+    _print(f"{label} one step on the card, kernel vs plain path: loss {loss_k:.6f} vs "
            f"{loss_p:.6f}; grad_norm {gn_k:.6f} vs {gn_p:.6f}; every leaf finite and nonzero; "
-           f"worst leaf relative error {rel[worst]:.3e} ({worst}; limit {LEAF_RTOL})")
-    _print("[train] relative error by leaf: "
+           f"worst leaf relative error {rel[worst]:.3e} ({worst}; limit {leaf_rtol})")
+    _print(f"{label} relative error by leaf: "
            + ", ".join(f"{k}={v:.2e}" for k, v in rel.items()))
     return params, batch
 
@@ -837,6 +895,51 @@ def _train_profile_phase(torch, cfg, params, batch):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         _print(f"[profile-train]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} "
                f"{e.key[:90]}")
+
+
+def _smoke_phase(torch, K):
+    """Head_dim 16 through the flash kernels: serve the llama3.2-1b and
+    recurrentgemma-9b smoke configs (bf16, 2 layers / 4 layers of d_model 64
+    with 4 heads of 16; recurrentgemma's MQA with window 16) through all the
+    kernels, 4 requests of SMOKE_SEQ-token prompts, 8 new tokens, 2 slots,
+    with exact launch counts (one flash forward per attention layer and
+    prefill, one RG-LRU per recurrent layer and prefill, two RMSNorms per
+    layer and call) and every prefill's logits against the plain path at the
+    repo's bf16 model tolerance (tests/test_model_pallas_path.py: these
+    configs, 128 tokens, atol 0.1, rtol 0.05); then train the llama3.2-1b
+    smoke config SMOKE_STEPS steps (bf16, remat dots, batch 2 x SMOKE_SEQ)
+    with exact flash forward/dq/dkv and RMSNorm launch counts and finite
+    losses, and hold one loss-and-gradient step against the plain path in
+    bf16 (the training phase's TRAIN_RTOL and LEAF_RTOL) and in f32 (loss
+    and gradient norm to 1e-4 relative, each leaf to 1e-3 in relative norm,
+    as tests/test_torch_cuda.py's every-leaf test).  The kernels' own
+    instances at these shapes are held elementwise in phases 2 and 6."""
+    from repro_torch.configs import get_smoke_config
+
+    launches = {}
+    for arch in ("llama3.2-1b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        kinds = cfg.layer_kinds()
+        assert cfg.resolved_head_dim == 16, cfg
+        launches[arch], engine, _ = _serve_phase(
+            torch, K, arch, (SMOKE_SEQ,),
+            {"flash_fwd": sum(kind.startswith("attn") for kind in kinds),
+             "rglru_fwd": kinds.count("rglru")},
+            {"rmsnorm_fwd": 2 * cfg.n_layers},
+            (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, 16, cfg.vocab_size,
+             cfg.window),
+            ("elementwise", MODEL_ATOL), smoke=True, n_requests=4, max_new=8, n_slots=2)
+        del engine
+    launches["train"], cfg = _train_phase(torch, K, smoke=True, steps=SMOKE_STEPS, batch=2,
+                                          seq=SMOKE_SEQ)
+    _train_compare_phase(torch, cfg, batch_size=2, seq=SMOKE_SEQ, label="[train smoke bf16]")
+    _train_compare_phase(torch, cfg.replace(dtype="float32"), batch_size=2, seq=SMOKE_SEQ,
+                         loss_rtol=1e-4, leaf_rtol=1e-3, label="[train smoke f32]")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        _print(f"[smoke] {name} at head_dim 16: "
+               + ", ".join(f"{_dtype_name(dtype)} {_kernel_note(K.fa, name, dtype, 16)}"
+                           for dtype in (torch.bfloat16, torch.float32)))
+    return launches
 
 
 def main() -> int:
@@ -911,27 +1014,38 @@ def main() -> int:
     del engine, sess
     _free(torch)
     _f32_phase(torch, "rwkv6-1.6b", 24, PROMPT_LENS)
+    _free(torch)
+    smoke_launches = _smoke_phase(torch, K)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
     # training path (phase 8); the backward kernels on the training path; the
     # recurrence kernels and, under "hybrid", flash at head_dim 256 on the
-    # serving paths of phases 12 and 14
+    # serving paths of phases 12 and 14; under "smoke", the flash kernels at
+    # head_dim 16 on phase 16's paths
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
+    # the head_dim-16 kernels on phase 16's paths: launches by path, and the
+    # bf16 causal case of phases 2 and 6 at their shapes
+    smoke = lambda name, rows: dict(  # noqa: E731
+        launches={path: n[name] for path, n in smoke_launches.items()},
+        **pick(next(r for r in rows if r["case"] == SMOKE_CASE)))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
              launches=launches["flash_fwd"], **pick(_role(flash, "serve")),
              train=dict(launches=train_launches["flash_fwd"], **pick(_role(flash, "train"))),
-             hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid")))),
+             hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid"))),
+             smoke=smoke("flash_fwd", flash)),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
-             launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0])),
+             launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
+             smoke=smoke("flash_bwd_dq", flash_bwd["flash_bwd_dq"])),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
-             launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0])),
+             launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
+             smoke=smoke("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"])),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),

@@ -6,7 +6,8 @@
 // src/repro/kernels/flash_attention/kernel.py.  Same function: f32 running
 // max, denominator and accumulator; KV head h / group; scale hd**-0.5 applied
 // to the f32 scores; out in the input dtype and lse = m + log(l) in f32
-// (natural log).  Head dims 32, 64, 128 and 256 (recurrentgemma-9b's MQA heads).
+// (natural log).  Head dims 16 (the smoke configs), 32, 64, 128 and 256
+// (recurrentgemma-9b's MQA heads).
 //
 // What bounds it on the H100: at the training shape (B = 4, S = T = 1024,
 // 32/8 heads, hd 64, causal) the work is 17.2 GFLOP against ~34 MB of
@@ -53,7 +54,8 @@
 //  the reference at the bf16 tolerance).
 //
 // f32 -- CUDA-core FMAs (`flash_fwd_kernel`, kept for the f32 checks, which a
-// bf16 or TF32 tensor core cannot meet at 2e-5): one block per (query tile
+// bf16 or TF32 tensor core cannot meet at 2e-5; it also serves bf16 at hd 16,
+// the smoke configs' head_dim, which no timed path runs): one block per (query tile
 // of 32 rows, head, batch row), 128 threads, four per query row (a "quad");
 // K and V tiles of 64 keys staged in shared memory as f32, each quad lane
 // scoring 16 keys and accumulating hd / 4 output columns; shared-memory
@@ -93,11 +95,16 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -226,6 +233,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 template <typename T>
 int dispatch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch<T, 16>(p, B, stream);
     case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
@@ -485,13 +493,10 @@ int launch(const Params& p, int B, int KV, cudaStream_t stream) {
   f.causal = p.causal;
   f.window = p.window;
   f.scale_log2 = p.scale * 1.4426950408889634f;
-  static bool configured = false;  // one attribute call per instance
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // set on every launch: the attribute holds for the current device only
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   flash_fwd_tc_kernel<HD><<<f.n_qt * p.H * B, THREADS, C::SMEM, stream>>>(f);
   return (int)cudaGetLastError();
 }
@@ -510,11 +515,11 @@ inline int dispatch_hd(const Params& p, int B, int KV, int hd, cudaStream_t stre
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel).
-// Strides are in elements; the head_dim axis of q, k, v and out must be
-// contiguous, and for bf16 the pointers 16-byte aligned and the strides of
-// q, k, v multiples of 8 elements (TMA; the wrapper checks).  window <= 0
-// means none.
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel,
+// or the CUDA-core one at hd 16).  Strides are in elements; the head_dim axis
+// of q, k, v and out must be contiguous, and for the tensor-core kernel the
+// pointers 16-byte aligned and the strides of q, k, v multiples of 8 elements
+// (TMA; the wrapper checks).  window <= 0 means none.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int dtype, int B, int S, int T, int H, int KV, int hd,
@@ -543,33 +548,42 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_hd<float>(p, B, hd, st);
-  if (dtype == 1) return tc::dispatch_hd(p, B, KV, hd, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper::tensor_core_hd(hd)) return tc::dispatch_hd(p, B, KV, hd, st);
+  return hd == 16 ? launch<__nv_bfloat16, 16>(p, B, st) : (int)cudaErrorInvalidValue;
 }
 
 namespace {
 
 // registers and local (spill) bytes a thread, dynamic shared memory and
-// threads a block, of the kernel instance that a launch of (dtype, hd) runs
+// threads a block, of the kernel instance that a launch of (dtype, hd) runs,
+// and whether it is a tensor-core kernel
 template <int HD>
 int info(int dtype, int* out) {
+  constexpr bool tc_hd = hopper::tensor_core_hd(HD);
   cudaFuncAttributes a;
-  cudaError_t err = dtype == 1 ? cudaFuncGetAttributes(&a, tc::flash_fwd_tc_kernel<HD>)
-                               : cudaFuncGetAttributes(&a, flash_fwd_kernel<float, HD>);
+  cudaError_t err;
+  if (dtype == 0) err = cudaFuncGetAttributes(&a, flash_fwd_kernel<float, HD>);
+  else if constexpr (tc_hd) err = cudaFuncGetAttributes(&a, tc::flash_fwd_tc_kernel<HD>);
+  else err = cudaFuncGetAttributes(&a, flash_fwd_kernel<__nv_bfloat16, HD>);
   if (err != cudaSuccess) return (int)err;
+  const bool tensor_cores = dtype == 1 && tc_hd;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = dtype == 1 ? tc::Tiles<HD>::SMEM : (int)(smem_bytes<HD>());
-  out[3] = dtype == 1 ? tc::THREADS : THREADS;
+  out[2] = tensor_cores ? tc::Tiles<HD>::SMEM : (int)(smem_bytes<HD>());
+  out[3] = tensor_cores ? tc::THREADS : THREADS;
+  out[4] = tensor_cores;
   return 0;
 }
 
 }  // namespace
 
-// out[4] = registers a thread, local bytes a thread, dynamic shared memory
-// bytes and threads a block of the kernel that (dtype, hd) launches
+// out[5] = registers a thread, local bytes a thread, dynamic shared memory
+// bytes and threads a block of the kernel that (dtype, hd) launches, and 1
+// if it is a tensor-core kernel (the wrapper then checks strides for TMA)
 extern "C" int flash_fwd_info(int dtype, int hd, int* out) {
   switch (hd) {
+    case 16: return info<16>(dtype, out);
     case 32: return info<32>(dtype, out);
     case 64: return info<64>(dtype, out);
     case 128: return info<128>(dtype, out);

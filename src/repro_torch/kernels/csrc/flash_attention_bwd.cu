@@ -58,7 +58,9 @@
 //  reference does not make (tests/test_torch_flash_tc.py holds an emulation
 //  of it against the reference at the bf16 gradient tolerance).
 //
-// In f32 -- CUDA-core FMAs from shared memory:
+// In f32, and in bf16 at hd 16 (the smoke configs' head_dim, which no timed
+// path runs; a 16-column tile is below the tensor-core kernels' 64-byte
+// swizzle slab) -- CUDA-core FMAs from shared memory:
 //  * dq: one block per (query tile of 32 rows, head, batch row), 128 threads,
 //    four per query row.  The block walks only the key tiles of 64 that the
 //    causal/window mask leaves (the TPU kernel's sequential grid axis becomes
@@ -386,9 +388,11 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// f32 only: bf16 dq and dk/dv run the tensor-core kernels below
+// f32 (and bf16 at hd 16, in `run`): bf16 dq and dk/dv at hd >= 32 run the
+// tensor-core kernels below
 int dispatch_dq_f32(const Params& p, int B, int hd, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch_dq<float, 16>(p, B, stream);
     case 32: return launch_dq<float, 32>(p, B, stream);
     case 64: return launch_dq<float, 64>(p, B, stream);
     case 128: return launch_dq<float, 128>(p, B, stream);
@@ -398,6 +402,7 @@ int dispatch_dq_f32(const Params& p, int B, int hd, cudaStream_t stream) {
 
 int dispatch_dkv_f32(const Params& p, int B, int KV, int hd, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch_dkv<float, 16>(p, B, KV, stream);
     case 32: return launch_dkv<float, 32>(p, B, KV, stream);
     case 64: return launch_dkv<float, 64>(p, B, KV, stream);
     case 128: return launch_dkv<float, 128>(p, B, KV, stream);
@@ -672,13 +677,10 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
   d.window = p.window;
   d.scale = p.scale;
   d.scale_log2 = p.scale * LOG2E;
-  static bool configured = false;  // one attribute call per instance
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // set on every launch: the attribute holds for the current device only
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   const int n_kt = (p.T + BKV - 1) / BKV;
   flash_bwd_dkv_tc_kernel<HD><<<n_kt * KV * B, THREADS, C::SMEM, stream>>>(d);
   return (int)cudaGetLastError();
@@ -918,13 +920,10 @@ int launch_dq(const Params& p, int B, int KV, cudaStream_t stream) {
   d.window = p.window;
   d.scale = p.scale;
   d.scale_log2 = p.scale * LOG2E;
-  static bool configured = false;  // one attribute call per instance
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // set on every launch: the attribute holds for the current device only
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   flash_bwd_dq_tc_kernel<HD><<<d.n_qt * p.H * B, THREADS, C::SMEM, stream>>>(d);
   return (int)cudaGetLastError();
 }
@@ -967,14 +966,17 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dkv ? dispatch_dkv_f32(p, B, KV, hd, st) : dispatch_dq_f32(p, B, hd, st);
-  if (dtype == 1) return tc::dispatch_hd(dkv, p, B, KV, hd, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hopper::tensor_core_hd(hd)) return tc::dispatch_hd(dkv, p, B, KV, hd, st);
+  if (hd != 16) return (int)cudaErrorInvalidValue;
+  return dkv ? launch_dkv<__nv_bfloat16, 16>(p, B, KV, st)
+             : launch_dq<__nv_bfloat16, 16>(p, B, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); bf16
-// runs the tensor-core kernels, which need 16-byte-aligned pointers and
+// at hd >= 32 runs the tensor-core kernels, which need 16-byte-aligned pointers and
 // q, k, v, do strides that are multiples of 8 elements (TMA; the wrapper
 // checks).  lse and delta are contiguous (B, H, S) float32.  `strides` holds 21 element strides,
 // (batch, sequence, head) for q, k, v, do, dq, dk, dv in that order; the
@@ -1000,32 +1002,40 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
 namespace {
 
 // registers and local (spill) bytes a thread, dynamic shared memory and
-// threads a block, of the kernel instance that a launch of (dtype, hd) runs
+// threads a block, of the kernel instance that a launch of (dtype, hd) runs,
+// and whether it is a tensor-core kernel
 template <int HD>
 int info(bool dkv, int dtype, int* out) {
+  constexpr bool tc_hd = hopper::tensor_core_hd(HD);
   cudaFuncAttributes a;
   cudaError_t err;
-  if (dtype == 1)
+  if (dtype == 0)
+    err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>)
+              : cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<float, HD>);
+  else if constexpr (tc_hd)
     err = dkv ? cudaFuncGetAttributes(&a, tc::flash_bwd_dkv_tc_kernel<HD>)
               : cudaFuncGetAttributes(&a, tc::flash_bwd_dq_tc_kernel<HD>);
   else
-    err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>)
-              : cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<float, HD>);
+    err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<__nv_bfloat16, HD>)
+              : cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<__nv_bfloat16, HD>);
   if (err != cudaSuccess) return (int)err;
+  const bool tensor_cores = dtype == 1 && tc_hd;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  if (dtype == 1) {
+  if (tensor_cores) {
     out[2] = dkv ? tc::DkvTiles<HD>::SMEM : tc::DqTiles<HD>::SMEM;
     out[3] = tc::THREADS;
   } else {
     out[2] = (int)(dkv ? dkv_smem_bytes<HD>() : dq_smem_bytes<HD>());
     out[3] = dkv ? KV_THREADS : DQ_THREADS;
   }
+  out[4] = tensor_cores;
   return 0;
 }
 
 int info_hd(bool dkv, int dtype, int hd, int* out) {
   switch (hd) {
+    case 16: return info<16>(dkv, dtype, out);
     case 32: return info<32>(dkv, dtype, out);
     case 64: return info<64>(dkv, dtype, out);
     case 128: return info<128>(dkv, dtype, out);
@@ -1035,8 +1045,9 @@ int info_hd(bool dkv, int dtype, int hd, int* out) {
 
 }  // namespace
 
-// out[4] = registers a thread, local bytes a thread, dynamic shared memory
-// bytes and threads a block of the kernel that (dtype, hd) launches
+// out[5] = registers a thread, local bytes a thread, dynamic shared memory
+// bytes and threads a block of the kernel that (dtype, hd) launches, and 1
+// if it is a tensor-core kernel (the wrapper then checks strides for TMA)
 extern "C" int flash_bwd_dq_info(int dtype, int hd, int* out) {
   return info_hd(false, dtype, hd, out);
 }

@@ -31,6 +31,12 @@
 
 namespace hopper {
 
+// The head dims whose bf16 instances are the tensor-core kernels.  At head
+// dim 16 (a 32-byte row, below the 64-byte swizzle slab of their tiles) and
+// in f32 the flash kernels are the f32-FMA ones; the launchers dispatch on
+// this and the *_info exports report it.
+constexpr bool tensor_core_hd(int hd) { return hd >= 32; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -12,13 +12,14 @@ length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
 heads.  In bf16 all three kernels run on the tensor cores (``wgmma`` fed
-by TMA, sm_90a); every f32 instance uses f32 FMAs from shared memory.  PERF.md has their times against
-their bounds.
+by TMA, sm_90a) at head_dim 32 to 256; every f32 instance, and the bf16 one
+at head_dim 16 (the smoke configs'), uses f32 FMAs from shared memory.
+PERF.md has their times against their bounds.
 
 TMA reads a bf16 tensor only from a 16-byte-aligned address with byte
 strides that are multiples of 16 (:func:`tma_strides`); the wrappers raise
-``ValueError`` on a CUDA tensor that breaks this, with no copy and no
-fallback.
+``ValueError`` on a CUDA tensor that the tensor-core kernels get and that
+breaks this, with no copy and no fallback.
 
 ``flash_attention`` goes through :class:`FlashAttention` on both devices, so
 a loss on the card differentiates through the kernels: forward saves q, k, v,
@@ -33,6 +34,7 @@ dq and dkv.  Gradients come back in the inputs' dtypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -63,8 +65,8 @@ dkv_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the forward kernel; the backward kernels stop at 128 (the
 #: family with 256-wide heads, recurrentgemma-9b, does not train on one card)
-_HEAD_DIMS = (32, 64, 128, 256)
-_BWD_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+_BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -194,10 +196,10 @@ def tma_strides(shape, strides, dtype: torch.dtype, address: int) -> tuple[int, 
     return tuple(out)
 
 
-def _strides(x: torch.Tensor) -> tuple[int, ...]:
-    """(batch, sequence, head) strides of a kernel input: as they are for
-    f32 (the CUDA-core kernels), checked for TMA for bf16."""
-    if x.dtype == torch.float32:
+def _strides(x: torch.Tensor, tensor_cores: bool) -> tuple[int, ...]:
+    """(batch, sequence, head) strides of a kernel input: checked for TMA
+    for a tensor-core kernel, as they are for the CUDA-core ones."""
+    if not tensor_cores:
         return x.stride()[:3]
     return tma_strides(x.shape, x.stride(), x.dtype, x.data_ptr())
 
@@ -225,19 +227,22 @@ def _bwd_kernel(name: str):
     return fn
 
 
+@functools.cache
 def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict[str, int]:
     """Registers and local (spill) bytes a thread, dynamic shared memory and
     threads a block of the kernel instance that ``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv`` launches for ``dtype`` and
-    ``head_dim`` (builds the kernels on first use; needs the card)."""
+    ``head_dim``, and ``tensor_cores``: 1 for a tensor-core kernel, whose
+    inputs the wrapper checks for TMA (builds the kernels on first use;
+    needs the card)."""
     lib = build.library({"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_attention_bwd",
                          "flash_bwd_dkv": "flash_attention_bwd"}[name])
     fn = getattr(lib, f"{name}_info")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     build.check(fn(_DTYPES[dtype], head_dim, ctypes.addressof(out)), f"{name}_info")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads"), out))
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "tensor_cores"), out))
 
 
 def flash_fwd(
@@ -258,10 +263,11 @@ def flash_fwd(
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if s == 0:
         return out, lse
+    tc = kernel_info("flash_fwd", q.dtype, hd)["tensor_cores"]
     err = _fwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPES[q.dtype], b, s, t, h, n_kv, hd,
-        *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3],
+        *(n for x in (q, k, v) for n in _strides(x, tc)), *out.stride()[:3],
         int(causal), window or 0, hd ** -0.5, _stream(q),
     )
     build.check(err, "flash_fwd")
@@ -279,7 +285,8 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
     delta = delta.float().contiguous()
     dq = outs[0] if name == "flash_bwd_dq" else q
     dk, dv = (outs if name == "flash_bwd_dkv" else (k, v))
-    ins = [_strides(x) for x in (q, k, v, do)]
+    tc = kernel_info(name, q.dtype, hd)["tensor_cores"]
+    ins = [_strides(x, tc) for x in (q, k, v, do)]
     strides = [n for st in ins + [x.stride()[:3] for x in (dq, dk, dv)] for n in st]
     st = (ctypes.c_longlong * len(strides))(*strides)
     err = _bwd_kernel(name)(

@@ -8,13 +8,16 @@ maps.  The reference evaluates all prefixes with ``jax.lax.associative_scan``
 with the same combine and the initial state folded into the first element.
 On the card the recurrence is the CUDA kernel ``rglru_fwd``
 (``csrc/rglru.cu``), which replaces the Pallas TPU kernel ``rglru_pallas``
-of ``src/repro/kernels/rglru/kernel.py``: one thread per channel walks time
-with the state in a register.
+of ``src/repro/kernels/rglru/kernel.py``: one pass over (128-step chunk,
+32-channel slab) blocks, each folding its chunk into one affine map and
+taking the state entering it from the chunks before by a decoupled
+look-back.
 
 ``rglru_fwd`` launches the kernel on CUDA tensors (inside an
 ``autograd.Function`` whose backward raises: there is no backward kernel
 yet) and returns its plain version on CPU tensors, where autograd sees plain
-torch ops.  ``launches`` counts kernel launches only.
+torch ops.  ``launches`` counts kernel launches only (one per call; the
+call also clears the look-back's words with one memset).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .. import build
 from .ref import linear_recurrence_ref
 
 __all__ = [
+    "kernel_plan",
     "linear_recurrence",
     "linear_recurrence_assoc",
     "linear_recurrence_ref",
@@ -63,18 +67,31 @@ def linear_recurrence_assoc(
 def rglru_fwd_plain(
     a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain version: the sequential f32 recurrence, step by step
-    in the kernel's order (a rounded product, then a rounded sum)."""
+    """The kernel's plain version: the sequential f32 recurrence, step by
+    step.  The kernel composes chunks of steps in another order, so the two
+    agree within the f32 tolerance and not bit for bit."""
     return linear_recurrence_ref(a, b, h0)
 
 
-def _kernel():
-    fn = build.library("rglru").rglru_fwd
-    if fn.argtypes is None:
+def _lib():
+    lib = build.library("rglru")
+    if lib.rglru_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 5 + [i] * 4 + [ll] * 4 + [p]
-        fn.restype = i
-    return fn
+        lib.rglru_fwd.argtypes = [p] * 6 + [i] * 4 + [ll] * 4 + [p]
+        lib.rglru_fwd.restype = i
+        lib.rglru_fwd_scratch.argtypes = [i] * 3
+        lib.rglru_fwd_scratch.restype = ll
+        lib.rglru_fwd_grid.argtypes = [i] * 3 + [p]
+        lib.rglru_fwd_grid.restype = i
+    return lib
+
+
+def kernel_plan(b: int, s: int, d: int) -> tuple[int, int]:
+    """(blocks, threads a block) of the launch at (B, S, D) (loads the
+    kernels; needs the card)."""
+    out = (ctypes.c_int * 2)()
+    build.check(_lib().rglru_fwd_grid(b, s, d, ctypes.addressof(out)), "rglru_fwd_grid")
+    return out[0], out[1]
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> None:
@@ -97,9 +114,12 @@ def _launch(a, b, h0):
     h_out = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
     if s == 0 or bsz == 0 or d == 0:
         return y, (h_out.zero_() if h0 is None else h_out.copy_(h0))
-    err = _kernel()(
+    lib = _lib()
+    scratch = torch.empty(lib.rglru_fwd_scratch(bsz, s, d), dtype=torch.int64,
+                          device=a.device)
+    err = lib.rglru_fwd(
         a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_out.data_ptr(), _DTYPES[a.dtype], bsz, s, d,
+        h_out.data_ptr(), scratch.data_ptr(), _DTYPES[a.dtype], bsz, s, d,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1),
         torch.cuda.current_stream(a.device).cuda_stream,
     )

@@ -15,12 +15,15 @@ no overflow; underflow saturates to 0 which is exact in the limit.
 
 On the card the recurrence is the CUDA kernel ``wkv6_fwd``
 (``csrc/rwkv6.cu``), which replaces the Pallas TPU kernel ``wkv6_pallas``
-of ``src/repro/kernels/rwkv6/kernel.py``: one block per (batch row, head)
-walks time with the state in registers, reading the inputs in the model's
-(B, S, H, K) layout through their strides.  ``wkv6_fwd`` launches it on CUDA
-tensors (inside an ``autograd.Function`` whose backward raises: there is no
-backward kernel yet) and returns its plain version on CPU tensors.
-``launches`` counts kernel launches only.
+of ``src/repro/kernels/rwkv6/kernel.py``: this chunked form in three
+launches over (time chunk, batch row x head) grids -- each chunk's decay and
+state contribution, the carry of the state across chunks, then each chunk's
+outputs -- reading the inputs in the model's (B, S, H, K) layout through
+their strides.  ``wkv6_fwd`` launches it on CUDA tensors (inside an
+``autograd.Function`` whose backward raises: there is no backward kernel
+yet) and returns its plain version on CPU tensors.  ``launches`` counts
+calls that launched the kernel (one per call, for its three launches), never
+the plain version's.
 """
 
 from __future__ import annotations
@@ -32,14 +35,16 @@ import torch
 from .. import build
 from .ref import wkv6_ref
 
-__all__ = ["wkv6", "wkv6_chunked", "wkv6_fwd", "wkv6_fwd_plain", "wkv6_ref"]
+__all__ = ["kernel_plan", "wkv6", "wkv6_chunked", "wkv6_fwd", "wkv6_fwd_plain", "wkv6_ref"]
 
-#: wkv6_fwd kernel launches since the counter was last set to 0
+#: wkv6_fwd kernel calls (three launches each) since the counter was last set to 0
 launches = 0
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_SIZES = (16, 32, 64)
+#: the kernels' grids put batch row x head on the y axis, which CUDA caps
+_MAX_BATCH_HEADS = 65535
 _NO_BACKWARD = ("wkv6_fwd has no backward kernel (ROADMAP Queue 1: training of the "
                 "hybrid and SSM families adds the reverse-scan kernels); train through "
                 "seq_impl='parallel'")
@@ -97,18 +102,32 @@ def wkv6_chunked(
 
 def wkv6_fwd_plain(r, k, v, w, u, state=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: the sequential f32 recurrence, step by
-    step; its state update is the kernel's (a rounded sum of two rounded
-    products)."""
+    step.  The kernel sums in chunks, in another order, so the two agree
+    within the f32 tolerance and not bit for bit."""
     return wkv6_ref(r, k, v, w, u, state)
 
 
-def _kernel():
-    fn = build.library("rwkv6").wkv6_fwd
-    if fn.argtypes is None:
+def _lib():
+    lib = build.library("rwkv6")
+    if lib.wkv6_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 6 + [p, p]
-        fn.restype = i
-    return fn
+        lib.wkv6_fwd.argtypes = [p] * 9 + [i] * 6 + [p, p]
+        lib.wkv6_fwd.restype = i
+        lib.wkv6_fwd_scratch.argtypes = [i] * 4
+        lib.wkv6_fwd_scratch.restype = ctypes.c_longlong
+        lib.wkv6_fwd_grid.argtypes = [i] * 4 + [p]
+        lib.wkv6_fwd_grid.restype = i
+    return lib
+
+
+def kernel_plan(b: int, s: int, h: int, k: int) -> list[tuple[str, int, int, int]]:
+    """(name, blocks, threads a block, dynamic shared memory bytes a block) of
+    the three launches of one call at (B, S, H, K) (loads the kernels; needs
+    the card)."""
+    out = (ctypes.c_int * 9)()
+    build.check(_lib().wkv6_fwd_grid(b, s, h, k, ctypes.addressof(out)), "wkv6_fwd_grid")
+    names = ("chunk states", "carry", "chunk outputs")
+    return [(name, *out[3 * n: 3 * n + 3]) for n, name in enumerate(names)]
 
 
 def _check(r, k, v, w, u, state) -> None:
@@ -121,6 +140,9 @@ def _check(r, k, v, w, u, state) -> None:
                          f"v {tuple(v.shape)}, w {tuple(w.shape)}; K = V in {_HEAD_SIZES}")
     if min(x.stride(-1) for x in (r, k, v, w)) != 1:
         raise ValueError("wkv6 kernel needs a contiguous channel axis in r, k, v, w")
+    if b * h > _MAX_BATCH_HEADS:
+        raise ValueError(f"wkv6 kernel takes at most {_MAX_BATCH_HEADS} batch rows x heads "
+                         f"(its grid's second axis), got {b} x {h}")
     if u.dtype != torch.float32 or u.shape != (h, dk) or not u.is_contiguous():
         raise ValueError(f"wkv6 kernel needs a contiguous f32 u ({h}, {dk}), got "
                          f"{u.dtype} {tuple(u.shape)}")
@@ -139,10 +161,14 @@ def _launch(r, k, v, w, u, state):
         return y, (s_out.zero_() if state is None else s_out.copy_(state))
     strides = [n for x in (r, k, v, w) for n in (x.stride(0), x.stride(1), x.stride(2))]
     st = (ctypes.c_longlong * len(strides))(*strides)
-    err = _kernel()(
+    lib = _lib()
+    scratch = torch.empty(lib.wkv6_fwd_scratch(b, s, h, dk), dtype=torch.float32,
+                          device=r.device)
+    err = lib.wkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-        _DTYPES[r.dtype], _DTYPES[w.dtype], b, s, h, dk, ctypes.addressof(st),
+        scratch.data_ptr(), _DTYPES[r.dtype], _DTYPES[w.dtype], b, s, h, dk,
+        ctypes.addressof(st),
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     build.check(err, "wkv6_fwd")

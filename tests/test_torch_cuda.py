@@ -34,6 +34,9 @@ def gen():
     (100, 100, 4, 2, 128, True, None),
     (512, 512, 16, 1, 256, True, 2048),      # recurrentgemma-9b: MQA, hd 256
     (300, 300, 16, 1, 256, True, 128),       # hd 256, ragged, the window bites
+    (128, 128, 4, 2, 16, True, None),        # the smoke configs' hd 16
+    (128, 128, 4, 1, 16, True, 16),          # recurrentgemma-9b smoke: MQA, window 16
+    (37, 37, 4, 2, 16, True, None),          # hd 16, ragged S
 ])
 def test_flash_kernel_matches_plain(gen, dtype, s, t, h, kv, hd, causal, window):
     q = torch.randn((2, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -72,6 +75,9 @@ BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-4}  # tests/test_kernels_flas
     (1, 128, 256, 2, 1, 64, False, None),    # cross-shape, MQA
     (1, 100, 100, 4, 2, 128, True, None),    # ragged, wide head
     (1, 200, 200, 4, 2, 64, False, 48),      # window without causality
+    (2, 128, 128, 4, 2, 16, True, None),     # the smoke configs' hd 16
+    (1, 128, 128, 4, 1, 16, True, 16),       # hd 16, MQA, window 16
+    (1, 37, 37, 4, 2, 16, True, None),       # hd 16, ragged S
 ])
 def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, window):
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -242,8 +248,7 @@ def test_kernel_path_loss_gives_every_leaf_a_gradient(gen, qk_norm):
     from repro_torch.models import model as PM
     from repro_torch.models.layers import tree_leaves, tree_map
 
-    base = get_smoke_config("llama3.2-1b").replace(head_dim=32, dtype="float32",
-                                                   use_qk_norm=qk_norm)
+    base = get_smoke_config("llama3.2-1b").replace(dtype="float32", use_qk_norm=qk_norm)
     params = PM.init_params(base, gen, device="cuda")
     tokens = torch.randint(0, base.vocab_size, (2, 128), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -316,6 +321,90 @@ def test_wkv6_kernel_matches_plain(gen, dtype, b, s, h, k, with_state):
     torch.testing.assert_close(s_out, ref_s, atol=2e-5, rtol=2e-5)
 
 
+def _decays(gen, shape, decay):
+    """Per-step decays in (0, 1): "mixed" exp(-exp(N(0, 1))) (the card check's
+    draw, one step's log-decay down to about -20), "strong" log-decay about
+    -50 a step, "weak" about -0.0025 a step (the state barely decays)."""
+    z = torch.randn(shape, generator=gen, device="cuda")
+    if decay == "strong":
+        return torch.exp(-50.0 + z)
+    if decay == "weak":
+        return torch.exp(-torch.exp(z - 6.0))
+    return torch.exp(-torch.exp(z))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 31, 33, 65, 127, 129, 300])
+@pytest.mark.parametrize("decay", ["mixed", "strong", "weak"])
+def test_rglru_kernel_chunk_edges(gen, dtype, s, decay):
+    """Lengths around the kernel's 16-step sub-chunks and 128-step chunks, a
+    batch of 4, a ragged channel count, and decays from ~e^-50 to ~1."""
+    b, d = 4, 100
+    a = _decays(gen, (b, s, d), decay).to(dtype)
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    before = rg_ops.launches
+    y, h = rg_ops.rglru_fwd(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg_ops.launches == before + 1
+    ref_y, ref_h = rg_ops.rglru_fwd_plain(a, x, h0)
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(h, ref_h, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 31, 33, 65])
+@pytest.mark.parametrize("k,decay", [(64, "mixed"), (64, "strong"), (64, "weak"),
+                                     (16, "strong"), (32, "weak")])
+def test_wkv6_kernel_chunk_edges(gen, dtype, s, k, decay):
+    """Lengths around the kernel's 32-step chunks, a batch of 4, and decays
+    from ~e^-50 a step (whose pairwise exponents would overflow if factored)
+    to ~1 (the state keeps every step)."""
+    b, h = 4, 3
+    r, kk, v = (torch.randn((b, s, h, k), generator=gen, device="cuda").to(dtype)
+                for _ in range(3))
+    w = _decays(gen, (b, s, h, k), decay)
+    u = torch.randn((h, k), generator=gen, device="cuda")
+    state = torch.randn((b, h, k, k), generator=gen, device="cuda")
+    before = wk_ops.launches
+    y, s_out = wk_ops.wkv6_fwd(r, kk, v, w, u, state)
+    torch.cuda.synchronize()
+    assert wk_ops.launches == before + 1
+    ref_y, ref_s = wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s_out).all())
+    if dtype == torch.float32 and decay == "weak":
+        # decays near 1 keep every step in the state, and the f32 plain loop's
+        # own rounding at elements where the 64-term dot product cancels is
+        # above the f32 tolerance, so no other summation order can meet it
+        # against that loop: y is held against the recurrence in f64, to the
+        # tolerance beyond the plain loop's own error, and that error may
+        # not pass WEAK_SLACK, so the allowance has a fixed ceiling
+        truth = _wkv6_f64(r, kk, v, w, u, state)
+        slack = (ref_y.double() - truth).abs().max().item()
+        assert slack <= WEAK_SLACK, slack
+        torch.testing.assert_close(y.double(), truth, atol=TOL[dtype] + slack, rtol=TOL[dtype])
+    else:
+        torch.testing.assert_close(y.float(), ref_y.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(s_out, ref_s, atol=2e-5, rtol=2e-5)
+
+
+#: ceiling of the f32 plain WKV-6 loop's own error against the f64
+#: recurrence in the decays-near-1 case: 5x the f32 tolerance (|y| reaches
+#: ~250 there, where one f32 ulp is 1.5e-5)
+WEAK_SLACK = 5 * TOL[torch.float32]
+
+
+def _wkv6_f64(r, k, v, w, u, state):
+    """y of the WKV-6 recurrence, step by step in f64."""
+    r, k, v, w, u, s = (x.double() for x in (r, k, v, w, u, state))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + u[None, :, :, None] * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, dim=1)
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
 def test_recurrence_kernels_refuse_backward(gen, arch):
     """The recurrence kernels have no backward yet: a loss on the card
@@ -326,8 +415,6 @@ def test_recurrence_kernels_refuse_backward(gen, arch):
     from repro_torch.models.layers import tree_leaves, tree_map
 
     cfg = get_smoke_config(arch).replace(dtype="float32", attn_impl="pallas", norm_impl="fused")
-    if cfg.window is not None:
-        cfg = cfg.replace(head_dim=32)  # the smoke head_dim 16 is below the flash kernel's
     params = PM.init_params(cfg, gen, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda",
                            dtype=torch.int32)

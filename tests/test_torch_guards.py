@@ -196,3 +196,14 @@ def test_bridge_round_trips_hybrid_and_ssm_params(arch):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def test_wkv6_check_refuses_more_batch_heads_than_its_grid_holds():
+    """The WKV-6 kernels put batch row x head on their grid's y axis, which
+    CUDA caps at 65535: the wrapper's check refuses more, with a ValueError,
+    before any launch."""
+    u = torch.empty((1, 16), device="meta")
+    wk_ops._check(*[torch.empty((65535, 1, 1, 16), device="meta")] * 4, u, None)
+    r = torch.empty((65536, 1, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="at most 65535 batch rows x heads"):
+        wk_ops._check(r, r, r, r, u, None)

@@ -172,3 +172,41 @@ def test_wkv6_dispatch():
         torch.testing.assert_close(outs[impl][1], outs["ref"][1], atol=2e-4, rtol=2e-4)
     with pytest.raises(ValueError, match="unknown wkv6 impl"):
         wk_ops.wkv6(*pt, impl="bogus")
+
+
+# The lengths at which the CUDA kernels' chunking changes (one step; past one
+# 32-step WKV-6 chunk) and a decay of about e^-50 a step, at which the WKV-6
+# kernel's pairwise exponents would overflow if they were factored: the plain
+# versions, which the card checks hold the kernels against, against the
+# interpret-mode Pallas kernels.
+def _strong_decay(rng, shape):
+    return np.exp(-50.0 + rng.standard_normal(shape, dtype=np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [1, 33])
+@pytest.mark.parametrize("decay", ["mixed", "strong"])
+def test_rglru_plain_matches_pallas_kernel_at_chunk_edges(s, decay):
+    b, d = 2, 16
+    (a_j, b_j, h0_j), (a_t, b_t, h0_t) = _rglru_inputs(6, b, s, d, jnp.float32, True)
+    if decay == "strong":
+        a_j, a_t = _pair(_strong_decay(np.random.default_rng(7), (b, s, d)))
+    y_j, f_j = rglru_pallas(a_j, b_j, h0_j, interpret=True)
+    y_t, f_t = rg_ops.rglru_fwd_plain(a_t, b_t, h0_t)
+    _close(y_t, y_j, 1e-5)
+    _close(f_t, f_j, 1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 33])
+@pytest.mark.parametrize("decay", ["mixed", "strong"])
+def test_wkv6_plain_matches_pallas_kernel_at_chunk_edges(s, decay):
+    b, h, k = 2, 2, 16
+    jx, pt = _wkv_inputs(8, b, s, h, k, jnp.float32, True)
+    if decay == "strong":
+        w_j, w_t = _pair(_strong_decay(np.random.default_rng(9), (b, s, h, k)))
+        jx = jx[:3] + (w_j,) + jx[4:]
+        pt = pt[:3] + (w_t,) + pt[4:]
+    y_j, s_j = wkv6_pallas(*jx, interpret=True)
+    y_t, s_t = wk_ops.wkv6_fwd_plain(*pt)
+    assert bool(torch.isfinite(y_t).all()) and bool(torch.isfinite(s_t).all())
+    _close(y_t, y_j, 1e-5)
+    _close(s_t, s_j, 1e-5)

@@ -7,9 +7,11 @@ toolkit:
 Compiles each ``src/repro_torch/kernels/csrc/<SOURCE>.cu`` (all of them by
 default) with the build's flags plus ``-Xptxas -v`` into ``build/report/``,
 one ``nvcc`` per source, all started together, and prints one line per
-kernel: its registers a thread, spill stores and loads in bytes, and how
-many ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile load) instructions its
-SASS holds (``cuobjdump -sass``).  Exits non-zero if a source does not
+kernel: its registers a thread, spill stores and loads in bytes, static
+shared memory in bytes (the dynamic shared memory a launch asks for is the
+source's and ``chip_smoke.py``'s to print), and how many ``HGMMA`` (wgmma)
+and ``UTMALDG`` (TMA tile load) instructions its SASS holds (``cuobjdump
+-sass``).  Exits non-zero if a source does not
 compile or a tensor-core kernel (``*_tc_kernel``) lacks either instruction.
 """
 
@@ -41,18 +43,21 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def _ptxas(log: str) -> dict[str, list[int]]:
-    """mangled kernel name -> [registers, spill store bytes, spill load bytes]"""
+    """mangled kernel name -> [registers, spill store bytes, spill load
+    bytes, static shared memory bytes]"""
     stats: dict[str, list[int]] = {}
     name = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)' for", line)
         if m:
             name = m.group(1)
-            stats[name] = [0, 0, 0]
+            stats[name] = [0, 0, 0, 0]
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            stats[name][1:] = [int(m.group(1)), int(m.group(2))]
+            stats[name][1:3] = [int(m.group(1)), int(m.group(2))]
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             stats[name][0] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                stats[name][3] = int(m.group(1))
     return stats
 
 
@@ -96,12 +101,13 @@ def main() -> int:
         stats, sass = _ptxas(log), _sass(OUT / f"{source}.so")
         mangled = sorted(stats)
         for name, pretty in zip(mangled, _demangle(mangled)):
-            regs, st, ld = stats[name]
+            regs, st, ld, smem = stats[name]
             hgmma, utmaldg = sass.get(name, [0, 0])
             tensor_core = "_tc_kernel" in pretty
             ok &= not tensor_core or (hgmma > 0 and utmaldg > 0)
             print(f"[{source}] {pretty[:110]}: registers={regs} spill_stores={st} "
-                  f"spill_loads={ld} HGMMA={hgmma} UTMALDG={utmaldg}", flush=True)
+                  f"spill_loads={ld} static_smem={smem} HGMMA={hgmma} UTMALDG={utmaldg}",
+                  flush=True)
     return 0 if ok else 1
 
 

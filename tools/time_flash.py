@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash kernels and its RMSNorm backward on one NVIDIA
-card, for the ``repro_torch`` package of a checkout (this one by default):
+"""Time the port's bf16 flash kernels, its RMSNorm backward and its two
+recurrence kernels on one NVIDIA card, for the ``repro_torch`` package of a
+checkout (this one by default):
 
     python3 tools/time_flash.py [--root CHECKOUT]
 
@@ -10,7 +11,11 @@ prefill B=1 S=T=2560, 16/1 heads of 256, window 2048); ``flash_bwd_dq``
 and ``flash_bwd_dkv`` at the training shape and at ``chip_smoke.py``'s
 ragged S=T=300 and window-128 cases; ``rmsnorm_bwd`` at ``chip_smoke.py``'s
 cases ((4096, 2048), the training path, (300, 2048), (16384, 64) bf16 and
-(7, 100) f32).  Inputs are seeded normals; each time is ``chip_smoke.py``'s
+(7, 100) f32); ``rglru_fwd`` at recurrentgemma-9b's prefill shapes (1, 2560,
+4096) f32 and bf16 and (1, 512, 4096) f32, with h0; ``wkv6_fwd`` at
+rwkv6-1.6b's (1, 512, 32, 64) and (1, 300, 32, 64), bf16 r/k/v with an f32
+w and a state (``chip_smoke.py`` phases 10 and 11's draws).  Inputs are
+seeded; each time is ``chip_smoke.py``'s
 cold-L2 time: the median of 7 windows of 20 calls queued behind a device
 sleep, each call timed by its own CUDA events after a 256 MB write that
 evicts the L2.  Also the host microseconds a forward call
@@ -25,12 +30,17 @@ as ``build/parent``, when the run happens on a copy of this checkout) and
 run the two in turns (old, new, new, old), each in its own process: both
 packages are called ``repro_torch``.  Each checkout builds its kernels into
 its own ``build/`` directory; the timer is always this checkout's.
+
+With ``--profile``, also the device time of each kernel a recurrence call
+launches (``torch.profiler``, 20 back-to-back calls at each recurrence case,
+so a warm L2), to show which launch of a call takes its time.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +55,15 @@ BWD_CASES = {  # name: (B, S = T, window), 32/8 heads of 64, causal
     "train_B4_S1024": (4, 1024, None),
     "ragged_B4_S300": (4, 300, None),
     "window128_B4_S1024": (4, 1024, 128),
+}
+RGLRU_CASES = {  # name: (B, S, D, dtype name), with h0
+    "rglru_1x2560x4096_f32": (1, 2560, 4096, "float32"),
+    "rglru_1x2560x4096_bf16": (1, 2560, 4096, "bfloat16"),
+    "rglru_1x512x4096_f32": (1, 512, 4096, "float32"),
+}
+WKV6_CASES = {  # name: (B, S, H, K): bf16 r/k/v, f32 w, u and state
+    "wkv6_1x512x32x64_bf16": (1, 512, 32, 64),
+    "wkv6_1x300x32x64_bf16": (1, 300, 32, 64),
 }
 RMSNORM_BWD_CASES = {  # name: (N, D, dtype name)
     "rmsnorm_bwd_4096x2048_bf16": (4096, 2048, "bfloat16"),
@@ -68,10 +87,34 @@ def _host_us(torch, fn, reps: int = 7, inner: int = 50) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def _kernel_us(torch, fn, calls: int = 20) -> list[tuple[str, float]]:
+    """(kernel, device microseconds a call) of what ``fn`` launches, over
+    ``calls`` back-to-back calls under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    def short(key: str) -> str:  # "void (anonymous namespace)::wkv6_out_kernel<...>(...)"
+        found = re.search(r"(\w+_kernel)(<[^()]*>)?", key)
+        return found.group(0) if found else key[:48]
+
+    return [(short(e.key), e.self_device_time_total / calls)
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1],
                         help="checkout whose src/repro_torch is timed")
+    parser.add_argument("--profile", action="store_true",
+                        help="also break each recurrence call's device time down by kernel")
     args = parser.parse_args()
 
     import torch
@@ -85,7 +128,9 @@ def main() -> int:
     sys.path.insert(0, str(args.root.resolve() / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rwkv6 import ops as wk_ops
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -117,6 +162,26 @@ def main() -> int:
         w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
         dy = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
         times[name] = _device_ms(torch, lambda: rn_ops.rms_norm_bwd(x, w, dy, 1e-5))
+    recurrences = {}
+    for name, (b, s, d, dtype) in RGLRU_CASES.items():
+        dtype = getattr(torch, dtype)
+        a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda")).to(dtype)
+        x = torch.randn((b, s, d), generator=gen, device="cuda").to(dtype)
+        h0 = torch.randn((b, d), generator=gen, device="cuda")
+        recurrences[name] = lambda a=a, x=x, h0=h0: rg_ops.rglru_fwd(a, x, h0)
+    for name, (b, s, h, k) in WKV6_CASES.items():
+        r, kk, v = (rnd(b, s, h, k) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((b, s, h, k), generator=gen, device="cuda")))
+        u = 0.5 * torch.randn((h, k), generator=gen, device="cuda")
+        state = torch.randn((b, h, k, k), generator=gen, device="cuda")
+        recurrences[name] = (lambda r=r, kk=kk, v=v, w=w, u=u, state=state:
+                             wk_ops.wkv6_fwd(r, kk, v, w, u, state))
+    for name, fn in recurrences.items():
+        times[name] = _device_ms(torch, fn)
+    if args.profile:
+        for name, fn in recurrences.items():
+            print(f"[profile] {name}: " + ", ".join(
+                f"{kernel} {us:.3f} us" for kernel, us in _kernel_us(torch, fn)), flush=True)
     # host microseconds of a forward call at the serving shape: the wrapper
     # (checks, outputs, strides, launch) and its C entry point alone (tensor
     # maps and launch), in windows short enough that the launch queue never
@@ -125,7 +190,8 @@ def main() -> int:
     out, lse = fa_ops.flash_fwd(q, k, v, causal=True)
     strides = [n for x in (q, k, v) for n in x.stride()[:3]]
     if hasattr(fa_ops, "tma_strides"):  # checkouts whose bf16 kernels read q, k, v by TMA
-        strides = [n for x in (q, k, v) for n in fa_ops._strides(x)]
+        strides = [n for x in (q, k, v)
+                   for n in fa_ops.tma_strides(x.shape, x.stride(), x.dtype, x.data_ptr())]
     entry = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), 1,
              1, 512, 512, 32, 8, 64, *strides, *out.stride()[:3], 1, 0, 64 ** -0.5,
              torch.cuda.current_stream().cuda_stream]
