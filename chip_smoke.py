@@ -86,7 +86,26 @@ caught):
     tolerance; train the llama3.2-1b smoke config 3 steps (bf16, batch
     2 x 128) with exact flash forward/dq/dkv launch counts; one
     loss-and-gradient step against the plain path in bf16 (as phase 8) and
-    one in f32 (each leaf to 1e-3).
+    one in f32 (each leaf to 1e-3);
+17. checkpoint and resume full-width llama3.2-1b (``_ckpt_phase``), under
+    the temporary directory or, when that has under 25 GB free, the
+    checkout's ``build/`` (the free space of each is printed): the bf16
+    params from the seed go through ``CheckpointManager(keep_n=1)``
+    (``save``, ``wait``, ``restore_latest(device="cuda")``) and every leaf
+    must come back ``torch.equal``, bf16 kept (bytes, blocking, write,
+    validate and load seconds printed); run A trains phase 8's first 3
+    steps (``lr_total_steps=6``, ``ckpt_mode="fixed"``, ``ckpt_every``
+    above 3, a metrics textfile and a status file) and saves the 17.30 GB
+    training state at shutdown (label 3); run B (``steps=6``,
+    ``ckpt_mode="off"``, ``restore=True``) restores it and trains steps
+    4-6.  Each run's launch counts must equal phase 8's per-step counts x
+    its 3 steps; run B's resume summary must show one valid checkpoint and
+    none quarantined, and it writes nothing; both runs' losses are held
+    against phase 8's at the same steps at TRAIN_RTOL (the largest
+    difference and whether they are bitwise equal are printed); the
+    textfile must parse under ``repro_torch.monitor.promparse`` with its
+    ``io_bytes`` sample equal to the checkpoint's array bytes, and the
+    status file must hold run A's last iteration and loss.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560 and 512 bf16.  Phases 2 and 6 also hold the
@@ -133,6 +152,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -175,6 +195,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 TRAIN_RTOL, LEAF_RTOL = 3e-2, 0.1
 # the smoke configs' phase (head_dim 16): prompt and sequence length, steps
 SMOKE_SEQ, SMOKE_STEPS = 128, 3
+# the checkpoint phase: run A trains steps 1-3 of phase 8's 6-step schedule
+# and saves at shutdown (label 3); run B restores it and trains steps 4-6.
+# The checkpoints need a local directory with this much room
+CKPT_STEPS, CKPT_FREE_BYTES = 3, 25e9
 
 
 def _print(*args) -> None:
@@ -761,9 +785,15 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 start=0, tag=None, **extra):
     """Train llama3.2-1b (its smoke config with ``smoke``) through the
-    kernels; the launch counts must equal the per-step counts x steps."""
+    kernels; the launch counts must equal the per-step counts x the steps
+    that ran (``steps - start``: a run restored at label ``start`` runs the
+    rest).  ``extra`` goes to ``TrainSettings``.  Returns the launch counts,
+    the config, the losses of the steps that ran, the summary and the timer
+    database (not the session: its scheduler's routines hold the run's
+    state, 17.3 GB on the card at full width)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import TimerLogger
     from repro_torch.launch.train import TrainSettings, run_training
@@ -777,13 +807,13 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
              cfg.vocab_size, cfg.tied_embeddings)
     assert shape == ((2, 64, 4, 2, 16, 256, True) if smoke
                      else (16, 2048, 32, 8, 64, 128256, True)), cfg
-    tag = "[train smoke]" if smoke else "[train]"
+    tag = tag or ("[train smoke]" if smoke else "[train]")
     with tempfile.TemporaryDirectory() as tmp:
         log_path = os.path.join(tmp, "train.jsonl")
         settings = TrainSettings(
             arch="llama3.2-1b", smoke=smoke, steps=steps, global_batch=batch,
             seq_len=seq, data_mode="copy", seed=SEED, report_every=0,
-            log_path=log_path, device=DEVICE,
+            log_path=log_path, device=DEVICE, **extra,
         )
         sess = TimingSession()
         torch.cuda.reset_peak_memory_stats()
@@ -799,8 +829,10 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
     per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
                 "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers,
                 "rmsnorm_bwd": 2 * n_layers, "rglru_fwd": 0, "wkv6_fwd": 0}
-    assert launches == {k: v * steps for k, v in per_step.items()}, launches
-    assert summary["iterations"] == steps and len(records) == steps, summary
+    ran = steps - start
+    assert launches == {k: v * ran for k, v in per_step.items()}, launches
+    assert summary["iterations"] == steps and len(records) == ran, summary
+    assert [r["iteration"] for r in records] == list(range(start, steps)), records
     losses = [r["extra"]["loss"] for r in records]
     assert all(math.isfinite(x) for x in losses), losses
     cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
@@ -810,18 +842,19 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
     active = M.param_counts(cfg)[1]
     mfu = 6.0 * active * tokens / median_s / PEAK_FLOPS["bf16_tensor"]
     _print(f"{tag} llama3.2-1b {'smoke config' if smoke else 'full width'}, bf16, remat dots, "
-           f"batch {batch} x seq {seq}, {steps} steps: wall_s={wall:.3f} launches={launches} "
-           f"(per step {per_step})")
+           f"batch {batch} x seq {seq}, steps {start + 1}-{steps}: wall_s={wall:.3f} "
+           f"launches={launches} (per step {per_step})")
     _print(f"{tag} losses={[round(x, 5) for x in losses]} "
            f"grad_norm={summary['final_metrics']['grad_norm']:.5f}")
     if smoke:  # a toy model's step times are launch overhead
-        return launches, cfg
-    _print(f"[train] step_s={[round(x, 5) for x in step_s]} median_s(steps 2-6)={median_s:.5f} "
-           f"tokens_per_s(EVOL, all steps)={steps * tokens / cum[-1]:.1f} "
+        return launches, cfg, losses, summary, sess.db
+    _print(f"{tag} step_s={[round(x, 5) for x in step_s]} "
+           f"median_s(steps {start + 2}-{steps})={median_s:.5f} "
+           f"tokens_per_s(EVOL, all steps)={ran * tokens / cum[-1]:.1f} "
            f"tokens_per_s(median step)={tokens / median_s:.1f} "
            f"mfu(6*{active}*tokens vs 989 TFLOP/s)={mfu:.4f} "
            f"max_memory_allocated_GB={peak_gb:.3f}")
-    return launches, cfg
+    return launches, cfg, losses, summary, sess.db
 
 
 def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -930,8 +963,8 @@ def _smoke_phase(torch, K):
              cfg.window),
             ("elementwise", MODEL_ATOL), smoke=True, n_requests=4, max_new=8, n_slots=2)
         del engine
-    launches["train"], cfg = _train_phase(torch, K, smoke=True, steps=SMOKE_STEPS, batch=2,
-                                          seq=SMOKE_SEQ)
+    launches["train"], cfg, *_ = _train_phase(torch, K, smoke=True, steps=SMOKE_STEPS,
+                                              batch=2, seq=SMOKE_SEQ)
     _train_compare_phase(torch, cfg, batch_size=2, seq=SMOKE_SEQ, label="[train smoke bf16]")
     _train_compare_phase(torch, cfg.replace(dtype="float32"), batch_size=2, seq=SMOKE_SEQ,
                          loss_rtol=1e-4, leaf_rtol=1e-3, label="[train smoke f32]")
@@ -940,6 +973,147 @@ def _smoke_phase(torch, K):
                + ", ".join(f"{_dtype_name(dtype)} {_kernel_note(K.fa, name, dtype, 16)}"
                            for dtype in (torch.bfloat16, torch.float32)))
     return launches
+
+
+def _ckpt_root() -> str:
+    """The first local directory with room for a full-width training state:
+    the temporary directory, else the checkout's gitignored ``build/``."""
+    for root in (tempfile.gettempdir(), str(ROOT / "build")):
+        os.makedirs(root, exist_ok=True)
+        usage = shutil.disk_usage(root)
+        _print(f"[ckpt] {root}: total {usage.total / 1e9:.1f} GB, free {usage.free / 1e9:.1f} GB")
+        if usage.free >= CKPT_FREE_BYTES:
+            return root
+    raise RuntimeError(f"no local directory with {CKPT_FREE_BYTES / 1e9:.0f} GB free")
+
+
+def _payload_bytes(ckpt_path: str) -> int:
+    """Array bytes of a checkpoint from its manifest (what ``io_bytes`` counts)."""
+    import numpy as np
+
+    with open(os.path.join(ckpt_path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return sum(math.prod(e["shape"]) * np.dtype(e["stored_dtype"]).itemsize for e in leaves)
+
+
+def _ckpt_phase(torch, K, train_losses):
+    """Phase 17: checkpoint and resume full-width llama3.2-1b (module
+    docstring).  ``train_losses`` are phase 8's six losses."""
+    from repro_torch.checkpoint import CheckpointManager, validate_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.clocks import counter_channel
+    from repro_torch.models import model as M
+    from repro_torch.monitor import parse_exposition
+
+    root = _ckpt_root()
+    _print(f"[ckpt] checkpoints under {root}")
+
+    # 1. the params' round trip through the manager, onto the card
+    cfg = get_config("llama3.2-1b").replace(dtype="bfloat16")
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    named = dict(_named_leaves(params))
+    tmp = tempfile.mkdtemp(prefix="ckpt_params_", dir=root)
+    try:
+        mgr = CheckpointManager(tmp, keep_n=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = mgr.save(0, params)
+        mgr.wait()
+        write_s = time.perf_counter() - t0
+        path = mgr.checkpoints()[-1][1]
+        file_bytes = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+        t0 = time.perf_counter()
+        validate_checkpoint(path)
+        validate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, tree, _ = mgr.restore_latest(device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mgr.close()
+        got = dict(_named_leaves(tree))
+        assert step == 0 and sorted(got) == sorted(named), sorted(got)
+        for name, want in named.items():
+            assert got[name].device.type == "cuda", name
+            assert got[name].dtype == want.dtype == torch.bfloat16, name
+            assert torch.equal(got[name], want), name
+        n_params = sum(t.numel() for t in named.values())
+        del tree, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, named
+    _free(torch)
+    _print(f"[ckpt] params round trip: {n_params} bf16 params, every leaf torch.equal after "
+           f"restore_latest(device='cuda'), bf16 kept; bytes={stats['nbytes']:.0f} "
+           f"(files {file_bytes}) blocking_s={stats['blocking_seconds']:.4f} "
+           f"write_s(save+wait)={write_s:.4f} ({file_bytes / write_s / 1e9:.3f} GB/s) "
+           f"validate_s={validate_s:.4f} ({file_bytes / validate_s / 1e9:.3f} GB/s) "
+           f"restore_s(validate+load onto the card)={restore_s:.4f} "
+           f"load_s(restore - validate)={restore_s - validate_s:.4f}")
+
+    # 2. run A saves at shutdown (label 3), run B restores it and trains on
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_train_", dir=root)
+    textfile, status_path = ckpt_dir + ".prom", ckpt_dir + ".json"
+    try:
+        io_before = counter_channel("io_bytes")
+        launches_a, _, losses_a, summary_a, db_a = _train_phase(
+            torch, K, steps=CKPT_STEPS, tag="[ckpt run A]", lr_total_steps=TRAIN_STEPS,
+            ckpt_dir=ckpt_dir, ckpt_mode="fixed", ckpt_every=1000,
+            metrics_textfile=textfile, status_path=status_path)
+        label = f"step_{CKPT_STEPS:08d}"
+        assert sorted(os.listdir(ckpt_dir)) == [label], os.listdir(ckpt_dir)
+        written = _payload_bytes(os.path.join(ckpt_dir, label))
+        write_timer = db_a.get("CHECKPOINT/adaptcheck::write")
+        shutdown_s = db_a.get("SHUTDOWN/driver::shutdown").seconds()
+        # 3. the monitor surfaces of run A
+        with open(textfile) as f:
+            exp = parse_exposition(f.read())
+        io_bytes = exp.value("repro_counter_total", channel="io_bytes") - io_before
+        assert io_bytes == written, (io_bytes, written)
+        saved = exp.value("repro_checkpoint_write_bytes_total")
+        blocking_s = exp.value("repro_checkpoint_blocking_seconds_total")
+        assert exp.value("repro_checkpoint_saves_total") == 1.0 and write_timer.count == 1
+        with open(status_path) as f:
+            status = json.load(f)["status"]
+        assert status["iteration"] == CKPT_STEPS - 1, status
+        assert status["loss"] == losses_a[-1], (status, losses_a)
+        _free(torch)
+
+        launches_b, _, losses_b, summary_b, db_b = _train_phase(
+            torch, K, steps=TRAIN_STEPS, start=CKPT_STEPS, tag="[ckpt run B]",
+            lr_total_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir, ckpt_mode="off", restore=True)
+        resume = summary_b["resume"]
+        assert (resume["selected_step"], resume["n_valid"], resume["n_quarantined"]) == \
+            (CKPT_STEPS, 1, 0), resume
+        assert sorted(os.listdir(ckpt_dir)) == [label], os.listdir(ckpt_dir)
+        restore_timer = db_b.get("STARTUP/restore").seconds()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        for leftover in (textfile, status_path):
+            if os.path.exists(leftover):
+                os.remove(leftover)
+    _free(torch)
+    # run A is phase 8's first three steps, run B its last three
+    for got, want in ((losses_a, train_losses[:CKPT_STEPS]),
+                      (losses_b, train_losses[CKPT_STEPS:])):
+        for a, b in zip(got, want):
+            assert abs(a - b) <= TRAIN_RTOL * abs(b), (got, want)
+    diff_b = max(abs(a - b) for a, b in zip(losses_b, train_losses[CKPT_STEPS:]))
+    _print(f"[ckpt] run A saved label {CKPT_STEPS} at shutdown: bytes={saved:.0f} "
+           f"(io_bytes sample {io_bytes:.0f} = the checkpoint's array bytes) "
+           f"blocking_s={blocking_s:.4f} CHECKPOINT/adaptcheck::write_s={write_timer.seconds():.4f} "
+           f"ckpt_fraction={summary_a['ckpt_fraction']:.4f} "
+           f"SHUTDOWN_s(blocking save + wait until durable)={shutdown_s:.4f} "
+           f"({written / max(shutdown_s - blocking_s, 1e-9) / 1e9:.3f} GB/s written after the "
+           f"snapshot); textfile parses, status iteration {status['iteration']}")
+    _print(f"[ckpt] run B restored label {resume['selected_step']} (valid {resume['n_valid']}, "
+           f"quarantined {resume['n_quarantined']}): STARTUP/restore_s(validate+load onto the "
+           f"card)={restore_timer:.4f} ({written / restore_timer / 1e9:.3f} GB/s), wrote nothing")
+    _print(f"[ckpt] losses steps 4-6 resumed {[round(x, 6) for x in losses_b]} vs phase 8 "
+           f"{[round(x, 6) for x in train_losses[CKPT_STEPS:]]}: max |diff| {diff_b:.3e} "
+           f"(limit {TRAIN_RTOL} relative), bitwise equal: {losses_b == train_losses[CKPT_STEPS:]}; "
+           f"steps 1-3 of run A bitwise equal to phase 8's: "
+           f"{losses_a == train_losses[:CKPT_STEPS]}")
+    return {"run_a": launches_a, "run_b": launches_b}
 
 
 def main() -> int:
@@ -987,7 +1161,7 @@ def main() -> int:
     flash_bwd = _flash_bwd_phase(torch, F, fa_ops, gen)
     rms_bwd = _rmsnorm_bwd_phase(torch, F, rn_ops, gen)
     torch.cuda.empty_cache()
-    train_launches, cfg = _train_phase(torch, K)
+    train_launches, cfg, train_losses, *_ = _train_phase(torch, K)
     params, batch = _train_compare_phase(torch, cfg)
     _train_profile_phase(torch, cfg, params, batch)
     del params, batch
@@ -1016,13 +1190,16 @@ def main() -> int:
     _f32_phase(torch, "rwkv6-1.6b", 24, PROMPT_LENS)
     _free(torch)
     smoke_launches = _smoke_phase(torch, K)
+    _free(torch)
+    ckpt_launches = _ckpt_phase(torch, K, train_losses)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
     # training path (phase 8); the backward kernels on the training path; the
     # recurrence kernels and, under "hybrid", flash at head_dim 256 on the
     # serving paths of phases 12 and 14; under "smoke", the flash kernels at
-    # head_dim 16 on phase 16's paths
+    # head_dim 16 on phase 16's paths; under "resume", the training kernels
+    # on phase 17's two runs (phase 8's shapes)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -1031,28 +1208,34 @@ def main() -> int:
     smoke = lambda name, rows: dict(  # noqa: E731
         launches={path: n[name] for path, n in smoke_launches.items()},
         **pick(next(r for r in rows if r["case"] == SMOKE_CASE)))
+    resume = lambda name, row: dict(  # noqa: E731
+        launches={run: n[name] for run, n in ckpt_launches.items()}, **pick(row))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
              launches=launches["flash_fwd"], **pick(_role(flash, "serve")),
              train=dict(launches=train_launches["flash_fwd"], **pick(_role(flash, "train"))),
              hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid"))),
-             smoke=smoke("flash_fwd", flash)),
+             smoke=smoke("flash_fwd", flash), resume=resume("flash_fwd", _role(flash, "train"))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
-             smoke=smoke("flash_bwd_dq", flash_bwd["flash_bwd_dq"])),
+             smoke=smoke("flash_bwd_dq", flash_bwd["flash_bwd_dq"]),
+             resume=resume("flash_bwd_dq", flash_bwd["flash_bwd_dq"][0])),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
-             smoke=smoke("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"])),
+             smoke=smoke("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"]),
+             resume=resume("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"][0])),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
-             train=dict(launches=train_launches["rmsnorm_fwd"], **pick(rms[-1]))),
+             train=dict(launches=train_launches["rmsnorm_fwd"], **pick(rms[-1])),
+             resume=resume("rmsnorm_fwd", rms[-1])),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
-             launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0])),
+             launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
+             resume=resume("rmsnorm_bwd", rms_bwd[0])),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -15,7 +15,10 @@ reference's names for its kernels).
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --attn-impl pallas --norm-impl fused --prompt-len 512,300 --report
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6-1.6b \\
-        --attn-impl pallas --norm-impl fused --seq-impl pallas
+        --attn-impl pallas --norm-impl fused --seq-impl pallas --metrics-textfile serve.prom
+
+``--metrics-textfile`` writes one Prometheus exposition page on exit (the
+node_exporter textfile-collector path).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..models import model as M
+from ..monitor import MetricsExporter, serving_payload
 from ..serving import Request, ServeSession, ServiceLevel
 from ..timing import TimingSession
 
@@ -154,6 +158,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--report", action="store_true")
+    ap.add_argument("--metrics-textfile", default=None,
+                    help="write the final Prometheus exposition here "
+                         "(textfile-collector scrape path)")
     args = ap.parse_args(argv)
     sess = TimingSession()
     with sess:
@@ -172,6 +179,12 @@ def main(argv=None) -> int:
             device=args.device,
         )
     print(json.dumps(engine.stats(), indent=1))
+    if args.metrics_textfile:
+        MetricsExporter(
+            sess.db,
+            control_loop=engine.control_loop,
+            serving_fn=serving_payload(engine),
+        ).write_textfile(args.metrics_textfile)
     if args.report:
         print(sess.report())
         print()

@@ -1,13 +1,17 @@
 """Training launcher of the PyTorch port: the scheduler-driven loop with the
-full timing infrastructure and the unified runtime-adaptation control plane.
+full timing infrastructure, the unified runtime-adaptation control plane,
+restart, and monitoring.
 
 Every lifecycle phase is a scheduled routine in a Cactus-style bin, so the
 timer database holds a complete profile with zero manual instrumentation.
 All runtime adaptation goes through ONE :class:`repro_torch.adapt.ControlLoop`
-polled from the ANALYSIS bin: straggler response
+polled from the ANALYSIS bin: AdaptCheck checkpoint admission (paper §3.2,
+via :class:`repro_torch.adapt.CheckpointControl`) and straggler response
 (:class:`repro_torch.adapt.StragglerResponse` over the cross-host step-time
 reduction).  Every decision lands in the ``ADAPT/`` section of the timer
-report.
+report.  With ``--ckpt-dir`` the run restores the newest valid checkpoint
+(onto ``--device``) and writes what AdaptCheck admits; ``--monitor-port``
+serves ``/metrics``, ``/checkpoints`` and the timer views over HTTP.
 
 ``--full`` trains the published width of the architecture (default: its
 smoke config); ``--attn-impl pallas --norm-impl fused`` select the
@@ -17,12 +21,11 @@ loss then differentiates through.  The step runs on ``--device`` (default
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-1b \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024 --report
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
+        --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2
 
-Checkpoint writes, restore and AdaptCheck admission (``ckpt_dir`` and the
-other ``ckpt_*`` settings, ``queue_seconds``), the pipeline-parallel path
-(``pipeline_stages``) and the monitor surfaces (``monitor_port``,
-``metrics_textfile``, ``status_path``) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+The pipeline-parallel path (``pipeline_stages``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -30,14 +33,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import signal
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..adapt import ControlLoop, StragglerResponse
+from ..adapt import CheckpointControl, ControlLoop, StragglerResponse
+from ..checkpoint import CheckpointManager
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core import (
+    AdaptiveCheckpointController,
+    AdaptiveCheckpointPolicy,
     RunState,
     TimerLogger,
     adapt_rows,
@@ -56,6 +64,7 @@ from ..dist.stragglers import StragglerDetector
 from ..kernels import build
 from ..models import model as M
 from ..models.config import ArchConfig, ShapeConfig
+from ..monitor import MetricsExporter, MonitorServer, StatusWriter
 from ..optim import AdamWConfig, init_opt_state
 from ..timing import TimingSession
 from .steps import make_train_step
@@ -64,16 +73,7 @@ __all__ = ["TrainSettings", "run_training", "main"]
 
 #: settings whose code is not yet ported -> the ROADMAP Queue 1 item that ports it
 _NOT_YET_PORTED = {
-    "ckpt_dir": "item 2, checkpointing",
-    "ckpt_mode": "item 2, checkpointing",
-    "ckpt_every": "item 2, checkpointing",
-    "ckpt_max_fraction": "item 2, checkpointing",
-    "ckpt_max_interval_s": "item 2, checkpointing",
-    "queue_seconds": "item 2, checkpointing",
     "pipeline_stages": "item 6, distribution",
-    "monitor_port": "item 7, monitor and soak",
-    "metrics_textfile": "item 7, monitor and soak",
-    "status_path": "item 7, monitor and soak",
 }
 
 
@@ -90,12 +90,23 @@ class TrainSettings:
     ckpt_every: int = 512                # fixed mode
     ckpt_max_fraction: float = 0.05      # adaptive mode
     ckpt_max_interval_s: float = 60.0
+    ckpt_synchronous: bool = False
+    ckpt_delay_s: float = 0.0            # injected write latency (experiments)
+    ckpt_keep_n: int = 3                 # retention: keep the newest N
+    ckpt_keep_every_k: int = 0           # retention: also keep step % k == 0
+    #: preemption grace period: SIGTERM triggers a deadline-bounded emergency
+    #: save through the manager's chained handler (None installs no deadline)
+    save_deadline_s: float | None = None
     queue_seconds: float | None = None
     report_every: int = 25
     log_path: str | None = None
     status_path: str | None = None
     monitor_port: int | None = None
+    #: Prometheus textfile-collector path: the exporter page is atomically
+    #: rewritten on the report cadence and at shutdown (node_exporter style)
     metrics_textfile: str | None = None
+    #: resume from the newest valid checkpoint in ``ckpt_dir`` when one exists
+    restore: bool = True
     seed: int = 0
     data_mode: str = "copy"
     #: LR-schedule horizon; decoupled from `steps` so an interrupted run and
@@ -149,8 +160,11 @@ def run_training(
     registry = param_registry()
     sch = sess.scheduler
     st = RunState(max_iterations=settings.steps)
-    # checkpoint-label convention: the number of optimizer updates applied,
-    # i.e. the next iteration to execute
+    # checkpoint-label convention: every save is labeled with the number of
+    # optimizer updates applied — i.e. the next iteration to execute — so a
+    # resume (`s.iteration = label; DataLoader(start_step=label)`) replays the
+    # trajectory exactly.  The CHECKPOINT bin of iteration i runs *after*
+    # EVOL applied update i, so its label is i + 1, never i.
     st["updates"] = 0
 
     if cfg is None:
@@ -160,14 +174,71 @@ def run_training(
     device = torch.device(settings.device)
     shape = ShapeConfig("train_local", "train", settings.seq_len, settings.global_batch)
 
+    registry.declare("ckpt.max_fraction", settings.ckpt_max_fraction, steerable=True,
+                     doc="AdaptCheck wall-time fraction bound")
+    registry.declare("ckpt.max_interval_s", settings.ckpt_max_interval_s, steerable=True,
+                     doc="AdaptCheck max seconds between checkpoints")
+
+    # --- thorn state shared across routines -------------------------------------
+    manager = None
+    monitor = None
     logger = TimerLogger(settings.log_path, db) if settings.log_path else None
+    status = StatusWriter(settings.status_path, db) if settings.status_path else None
     model_flops = _flops_per_step(cfg, settings.global_batch * settings.seq_len)
 
     # --- the control plane: one loop, every adaptation registered on it ----------
+    ckpt_timer_name = "CHECKPOINT/adaptcheck::write"
+    ckpt_write_scope = sess.scope_handle(ckpt_timer_name)
     loop = sess.control_loop
-    # AdaptCheck admission (CheckpointControl) joins the loop with the
-    # checkpointing slice; until then every ckpt_* setting raises.
-    # Single-process topology: this host feeds its own EVOL step timer into
+    policy = AdaptiveCheckpointPolicy(
+        mode="adaptive" if settings.ckpt_mode == "adaptive" else "fixed",
+        every_iterations=settings.ckpt_every,
+        max_fraction=registry.get("ckpt.max_fraction"),
+        max_interval_seconds=registry.get("ckpt.max_interval_s"),
+        queue_seconds=settings.queue_seconds,
+    )
+    controller = AdaptiveCheckpointController(policy)
+    ckpt_control = CheckpointControl(
+        controller, ckpt_timer=ckpt_timer_name, registry=registry
+    )
+    ckpt_active = bool(settings.ckpt_dir) and settings.ckpt_mode != "off"
+    if ckpt_active:
+        loop.register(ckpt_control)
+
+    def topology_meta() -> dict[str, Any]:
+        """Topology block stamped into every checkpoint's metadata — what a
+        resume into a different stage count re-apportions from.  Only the
+        pipeline path has one, and it comes with ROADMAP Queue 1 item 6
+        (``pipeline_stages`` raises until then), so nothing is stamped."""
+        return {}
+
+    def current_state() -> dict[str, Any]:
+        return {
+            "params": st["params"],
+            "opt_state": st["opt_state"],
+            "data": st["loader"].state(),
+        }
+
+    def durable_save(step: int) -> float:
+        """Checkpoint-before-evict: write AND wait until durable (the barrier
+        contract — an eviction must never outrun its safety checkpoint)."""
+        if manager is None:
+            raise RuntimeError("no checkpoint manager bound")
+        t0 = time.monotonic()
+        with ckpt_write_scope:
+            # labeled with the update count, not the adapt step: the barrier
+            # fires post-EVOL, so the state on disk is the start-of-step state
+            # for update `st["updates"]` (see adaptive_checkpoint)
+            manager.save(
+                st["updates"], current_state(),
+                metadata={"reason": "before_evict", **topology_meta()},
+            )
+            manager.wait()
+        return time.monotonic() - t0
+
+    if ckpt_active:
+        ckpt_control.bind_durable_save(durable_save)
+    # single-process topology: this host feeds its own EVOL step timer into
     # the reduction; multi-host launchers hand the detector a transport
     detector = StragglerDetector(n_hosts=1, db=db)
     loop.register(
@@ -176,9 +247,16 @@ def run_training(
             MicrobatchPlan.equal([0], n_micro=1),
             check_every=8,
             local_feed=(0, "EVOL/trainer::train_step"),
+            evict_barrier=ckpt_control.evict_barrier if ckpt_active else None,
         )
     )
     sch.attach_control_loop(loop, bin="ANALYSIS")
+    # one exporter for both surfaces: the monitor's /metrics endpoint and the
+    # optional textfile written on the report cadence
+    exporter = MetricsExporter(
+        db, control_loop=loop, detector=detector,
+        checkpoint_fn=lambda: manager.status_payload() if manager is not None else {},
+    )
     # training-event clock registered mid-run (the paper's extensibility path:
     # every timer picks it up from its next window) + lock-free channel cells
     # resolved once for the hot loop
@@ -192,6 +270,7 @@ def run_training(
 
     # --- STARTUP ----------------------------------------------------------------
     def startup(s: RunState) -> None:
+        nonlocal manager, monitor
         opt_cfg = AdamWConfig()
         horizon = settings.lr_total_steps or settings.steps
         built = make_train_step(
@@ -212,11 +291,60 @@ def run_training(
                             mode=settings.data_mode, seed=settings.seed),
             arch=cfg,
         )
-        with sess.scope_handle("STARTUP/init_params"):
-            generator = torch.Generator(device=device).manual_seed(settings.seed)
-            s["params"] = M.init_params(cfg, generator, device)
-            s["opt_state"] = init_opt_state(opt_cfg, s["params"])
-        s["loader"] = DataLoader(source, start_step=0)
+        start_step = 0
+        restored = None
+        if settings.ckpt_dir:
+            manager = CheckpointManager(
+                settings.ckpt_dir,
+                keep_n=settings.ckpt_keep_n,
+                keep_every_k=settings.ckpt_keep_every_k,
+                synchronous=settings.ckpt_synchronous,
+                delay_s=settings.ckpt_delay_s,
+            )
+            if settings.restore:
+                # validation (the streamed re-hash) and the load onto the device
+                with sess.scope_handle("STARTUP/restore"):
+                    restored = manager.restore_latest(device=device)
+        if restored is not None:
+            start_step, tree, _meta = restored
+            s["params"] = tree["params"]
+            s["opt_state"] = tree["opt_state"]
+            s.iteration = start_step
+            s["updates"] = start_step
+            print(f"[train] restored checkpoint at step {start_step}")
+        else:
+            with sess.scope_handle("STARTUP/init_params"):
+                generator = torch.Generator(device=device).manual_seed(settings.seed)
+                s["params"] = M.init_params(cfg, generator, device)
+                s["opt_state"] = init_opt_state(opt_cfg, s["params"])
+        s["loader"] = DataLoader(source, start_step=start_step)
+
+        if manager is not None:
+            # installed only once live state exists — a preemption mid-restore
+            # has nothing durable to add anyway.  The label is the number of
+            # optimizer updates applied so far, which is exact no matter where
+            # in the scheduler cycle the signal lands.
+            s["sigterm_before"] = signal.getsignal(signal.SIGTERM)
+            try:
+                manager.install_sigterm_handler(
+                    lambda: (st["updates"], current_state()),
+                    deadline_s=settings.save_deadline_s,
+                )
+            except ValueError:
+                # not the main thread: signals unavailable, skip the hook
+                s["sigterm_before"] = None
+
+        ckpt_control.start_run(time.monotonic())
+        if settings.monitor_port is not None:
+            monitor = MonitorServer(settings.monitor_port, db, registry,
+                                    status_fn=lambda: {"iteration": st.iteration},
+                                    checkpoint_fn=(
+                                        manager.status_payload
+                                        if manager is not None else None
+                                    ),
+                                    exporter=exporter)
+            port = monitor.start()
+            print(f"[train] monitor at http://127.0.0.1:{port}/")
         registry.freeze()
 
     sch.schedule(startup, bin="STARTUP", thorn="driver")
@@ -246,13 +374,38 @@ def run_training(
 
     # --- ANALYSIS: the control plane ---------------------------------------------
     # (attached above: the ControlLoop polls every registered controller from
-    # the ANALYSIS bin and records each decision as an ADAPT/ row)
+    # the ANALYSIS bin — AdaptCheck steering + decision, straggler reduction +
+    # response — and records each decision as an ADAPT/ row)
+
+    # --- CHECKPOINT: consume the AdaptCheck admission ------------------------------
+    def adaptive_checkpoint(s: RunState) -> None:
+        if manager is None or not ckpt_active:
+            return
+        # decision was made (with live-steered policy) at this iteration's
+        # ANALYSIS poll; this routine only performs the admitted write
+        decision = ckpt_control.take_decision()
+        s["last_ckpt_decision"] = decision
+        if decision is None or not decision.checkpoint:
+            return
+        with ckpt_write_scope:
+            stats = manager.save(
+                s["updates"],
+                current_state(),
+                metadata={"reason": decision.reason, **topology_meta()},
+            )
+        ckpt_control.observe_checkpoint(stats["blocking_seconds"], stats["nbytes"])
+
+    sch.schedule(adaptive_checkpoint, bin="CHECKPOINT", thorn="adaptcheck")
 
     # --- OUTPUT ------------------------------------------------------------------------
     def output(s: RunState) -> None:
         if logger is not None:
             logger.log(s.iteration, extra=s.get("metrics"))
+        if status is not None:
+            status.write({"iteration": s.iteration, **(s.get("metrics") or {})})
         if settings.report_every and s.iteration % settings.report_every == 0:
+            if settings.metrics_textfile:
+                exporter.write_textfile(settings.metrics_textfile)
             m = s.get("metrics") or {}
             print(
                 f"[train] step {s.iteration:5d} loss={m.get('loss', float('nan')):.4f} "
@@ -263,7 +416,24 @@ def run_training(
 
     # --- SHUTDOWN --------------------------------------------------------------------
     def shutdown(s: RunState) -> None:
+        if manager is not None and settings.ckpt_mode != "off":
+            with ckpt_write_scope:
+                manager.save(
+                    s["updates"],
+                    current_state(),
+                    metadata={"reason": "final", **topology_meta()},
+                )
+            manager.wait()
+        if manager is not None:
+            manager.close()
+            if s.get("sigterm_before") is not None:
+                # the run's state is gone: a later SIGTERM must not save it
+                signal.signal(signal.SIGTERM, s["sigterm_before"])
         s["loader"].close()
+        if settings.metrics_textfile:
+            exporter.write_textfile(settings.metrics_textfile)
+        if monitor is not None:
+            monitor.stop()
 
     sch.schedule(shutdown, bin="SHUTDOWN", thorn="driver")
 
@@ -278,11 +448,17 @@ def run_training(
         "final_metrics": st.get("metrics"),
         "total_seconds": db.get("simulation/total").seconds(),
         "bin_seconds": bin_distribution(db),
-        # no checkpoint is admitted, written or resumed from until the
-        # checkpointing slice is ported
-        "checkpoint": {},
-        "ckpt_fraction": 0.0,
-        "resume": None,
+        "checkpoint": controller.summary(),
+        "ckpt_fraction": (
+            ckpt_write_scope.seconds() / max(db.get("simulation/total").seconds(), 1e-9)
+        ),
+        # the resume picture the run started from (None on a cold start):
+        # which checkpoints validated, which were quarantined and why
+        "resume": (
+            manager.last_resume_plan.summary()
+            if manager is not None and manager.last_resume_plan is not None
+            else None
+        ),
         "straggler_reports": len(detector.reports),
         "straggler_rows": straggler_rows(detector),
         "adapt": loop.summary(),
@@ -304,10 +480,22 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-mode", choices=["adaptive", "fixed", "off"], default="adaptive")
+    ap.add_argument("--ckpt-every", type=int, default=512)
+    ap.add_argument("--ckpt-max-fraction", type=float, default=0.05)
+    ap.add_argument("--ckpt-sync", action="store_true")
+    ap.add_argument("--keep-n", type=int, default=3,
+                    help="retention: keep the newest N checkpoints")
+    ap.add_argument("--keep-every-k", type=int, default=0,
+                    help="retention: additionally keep every k-th step (0 = off)")
+    ap.add_argument("--save-deadline", type=float, default=None,
+                    help="SIGTERM grace period (s) for the emergency save")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--report", action="store_true", help="print the timer report")
     ap.add_argument("--monitor-port", type=int, default=None)
-    ap.add_argument("--metrics-textfile", default=None)
+    ap.add_argument("--metrics-textfile", default=None,
+                    help="write the Prometheus exposition here on the report "
+                         "cadence (textfile-collector scrape path)")
     ap.add_argument("--pipeline-stages", type=int, default=0)
     ap.add_argument("--attn-impl", choices=["naive", "chunked", "pallas"], default=None,
                     help="attention implementation; 'pallas' = the CUDA flash kernels")
@@ -318,7 +506,12 @@ def main(argv=None) -> int:
 
     settings = TrainSettings(
         arch=args.arch, smoke=args.smoke, steps=args.steps,
-        global_batch=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir, peak_lr=args.lr,
+        global_batch=args.batch, seq_len=args.seq, ckpt_dir=args.ckpt_dir,
+        ckpt_mode=args.ckpt_mode, ckpt_every=args.ckpt_every,
+        ckpt_max_fraction=args.ckpt_max_fraction,
+        ckpt_synchronous=args.ckpt_sync, peak_lr=args.lr,
+        ckpt_keep_n=args.keep_n, ckpt_keep_every_k=args.keep_every_k,
+        save_deadline_s=args.save_deadline,
         monitor_port=args.monitor_port,
         metrics_textfile=args.metrics_textfile,
         pipeline_stages=args.pipeline_stages,

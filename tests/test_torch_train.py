@@ -311,7 +311,7 @@ def test_opt_state_bridges_bit_for_bit():
 def test_run_training_cpu_smoke():
     """The launcher on the CPU through the kernel path's plain versions:
     the structural assertions of ``tests/test_system.py`` (the checkpoint
-    count aside: checkpoint writes are not ported), and the straggler
+    count aside: this run sets no ``ckpt_dir``), and the straggler
     detector's ``DIST/host0::step`` row mirrors ``EVOL/trainer::train_step``
     (its first check runs after the 8th step)."""
     settings = TrainSettings(arch="llama3.2-1b", smoke=True, steps=8, global_batch=2,
@@ -359,19 +359,210 @@ def test_run_training_cpu_smoke():
         get_smoke_config("llama3.2-1b"))[1] * 2 * 32)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("ckpt_dir", "/nonexistent", "item 2, checkpointing"),
-    ("ckpt_mode", "off", "item 2, checkpointing"),
-    ("ckpt_every", 1, "item 2, checkpointing"),
-    ("ckpt_max_fraction", 0.5, "item 2, checkpointing"),
-    ("ckpt_max_interval_s", 1.0, "item 2, checkpointing"),
-    ("queue_seconds", 60.0, "item 2, checkpointing"),
-    ("pipeline_stages", 2, "item 6, distribution"),
-    ("monitor_port", 0, "item 7, monitor and soak"),  # 0: any free port
-    ("metrics_textfile", "metrics.prom", "item 7, monitor and soak"),
-    ("status_path", "status.json", "item 7, monitor and soak"),
-])
-def test_unported_settings_name_their_roadmap_item(field, value, item):
-    settings = TrainSettings(device="cpu", steps=1, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+def test_unported_settings_name_their_roadmap_item():
+    settings = TrainSettings(device="cpu", steps=1, pipeline_stages=2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 6, distribution"):
         run_training(settings, session=TimingSession())
+
+
+_EFFECT_STEPS = 3
+
+
+def _manifest(ckpt_dir, step):
+    import json
+    import os
+
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def _on_disk(ckpt_dir):
+    import os
+
+    return sorted(int(n[5:]) for n in os.listdir(ckpt_dir)
+                  if n.startswith("step_") and not n.endswith(".tmp"))
+
+
+def _effect_ckpt_dir(ckpt, summary, sess, seen):
+    # cold start: a resume scan that found nothing; AdaptCheck (adaptive by
+    # default) admits the first write under the bound; SHUTDOWN's final save
+    assert summary["resume"]["selected_step"] is None
+    disk = _on_disk(ckpt)
+    assert disk[0] == 1 and disk[-1] == _EFFECT_STEPS
+    assert _manifest(ckpt, 1)["metadata"]["reason"] == "under-bound"
+    assert _manifest(ckpt, _EFFECT_STEPS)["metadata"]["reason"] == "final"
+    from repro_torch.checkpoint import load_checkpoint
+
+    step, tree, _ = load_checkpoint(f"{ckpt}/step_{_EFFECT_STEPS:08d}")
+    assert step == int(tree["opt_state"]["step"]) == int(tree["data"]["step"]) == _EFFECT_STEPS
+
+
+def _effect_ckpt_mode(ckpt, summary, sess, seen):
+    # "off": a manager for restores, but nothing admitted or written
+    assert _on_disk(ckpt) == []
+    assert summary["checkpoint"]["n_checkpoints"] == 0
+    assert not sess.db.exists("CHECKPOINT/adaptcheck::write") or \
+        sess.db.get("CHECKPOINT/adaptcheck::write").count == 0
+    assert "adaptcheck" not in summary["adapt"]["controllers"]
+
+
+def _effect_ckpt_every(ckpt, summary, sess, seen):
+    # fixed mode, every iteration after the first (labels 2 and 3), then the
+    # final save over label 3
+    assert _on_disk(ckpt) == [2, 3]
+    assert summary["checkpoint"]["n_checkpoints"] == _EFFECT_STEPS - 1
+    assert _manifest(ckpt, 2)["metadata"]["reason"] == "fixed-interval"
+    assert sess.db.get("CHECKPOINT/adaptcheck::write").count == _EFFECT_STEPS
+
+
+def _effect_ckpt_max_fraction(ckpt, summary, sess, seen):
+    from repro_torch.core import param_registry
+
+    assert summary["checkpoint"]["max_fraction"] == 0.5
+    assert param_registry().get("ckpt.max_fraction") == 0.5
+
+
+def _effect_ckpt_max_interval_s(ckpt, summary, sess, seen):
+    # the interval floor overrides a fraction bound nothing fits under
+    assert summary["checkpoint"]["n_checkpoints"] == _EFFECT_STEPS
+    assert [_manifest(ckpt, s)["metadata"]["reason"] for s in (1, 2)] == \
+        ["max-interval"] * 2
+
+
+def _effect_queue_seconds(ckpt, summary, sess, seen):
+    # the queue ends within twice the predicted write: one forced final
+    # checkpoint, then the fraction bound suppresses the rest
+    assert _manifest(ckpt, 1)["metadata"]["reason"] == "queue-deadline-final"
+    assert summary["checkpoint"]["n_checkpoints"] == 1
+    assert _on_disk(ckpt) == [1, _EFFECT_STEPS]
+
+
+def _effect_monitor_port(ckpt, summary, sess, seen):
+    from repro_torch.monitor import parse_exposition
+
+    exp = parse_exposition(seen["metrics"])
+    assert exp.value("repro_timer_windows_total", path="EVOL/trainer::train_step",
+                     chain="simulation/total>bin/EVOL") >= 1.0
+    assert exp.types["repro_checkpoint_saves_total"] == "counter"
+    assert seen["checkpoints"]["directory"] == ckpt
+    assert seen["checkpoints"]["retention"]["keep_last_n"] == 3
+    assert seen["status"]["iteration"] == seen["iteration"]
+
+
+def _effect_metrics_textfile(ckpt, summary, sess, seen):
+    from repro_torch.monitor import parse_exposition
+
+    with open(seen["tmp"] + "/metrics.prom") as f:
+        exp = parse_exposition(f.read())
+    assert exp.value("repro_timer_windows_total", path="EVOL/trainer::train_step",
+                     chain="simulation/total>bin/EVOL") == _EFFECT_STEPS
+
+
+def _effect_status_path(ckpt, summary, sess, seen):
+    import json
+
+    with open(seen["tmp"] + "/status.json") as f:
+        payload = json.load(f)
+    assert payload["status"]["iteration"] == _EFFECT_STEPS - 1
+    assert payload["status"]["loss"] == summary["final_metrics"]["loss"]
+    assert "EVOL/trainer::train_step" in payload["timers"]
+
+
+#: each setting that raised until checkpointing and the monitor were ported,
+#: the companion settings its effect needs, and the check of that effect
+_PORTED = {
+    "ckpt_dir": ("CKPT", {}, _effect_ckpt_dir),
+    "ckpt_mode": ("off", {"ckpt_dir": "CKPT"}, _effect_ckpt_mode),
+    "ckpt_every": (1, {"ckpt_dir": "CKPT", "ckpt_mode": "fixed", "ckpt_keep_n": 10},
+                   _effect_ckpt_every),
+    "ckpt_max_fraction": (0.5, {"ckpt_dir": "CKPT"}, _effect_ckpt_max_fraction),
+    "ckpt_max_interval_s": (1e-6, {"ckpt_dir": "CKPT", "ckpt_max_fraction": 1e-9,
+                                   "ckpt_keep_n": 10}, _effect_ckpt_max_interval_s),
+    "queue_seconds": (1.0, {"ckpt_dir": "CKPT", "ckpt_max_fraction": 1e-9,
+                            "ckpt_keep_n": 10}, _effect_queue_seconds),
+    "monitor_port": (0, {"ckpt_dir": "CKPT"}, _effect_monitor_port),  # 0: any free port
+    "metrics_textfile": ("TMP/metrics.prom", {}, _effect_metrics_textfile),
+    "status_path": ("TMP/status.json", {}, _effect_status_path),
+}
+
+
+@pytest.mark.parametrize("field", list(_PORTED))
+def test_ported_settings_take_effect(field, tmp_path, capsys):
+    import json
+    import re
+    import urllib.request
+
+    value, extra, effect = _PORTED[field]
+    ckpt = str(tmp_path / "ckpt")
+
+    def resolve(v):
+        if isinstance(v, str):
+            return v.replace("CKPT", ckpt).replace("TMP", str(tmp_path))
+        return v
+
+    over = {k: resolve(v) for k, v in {**extra, field: value}.items()}
+    settings = TrainSettings(device="cpu", steps=_EFFECT_STEPS, global_batch=2, seq_len=16,
+                             report_every=0, **over)
+    sess = TimingSession()
+    seen = {"tmp": str(tmp_path)}
+
+    def probe(s):
+        # mid-run, while the monitor serves: read its endpoints once
+        if field != "monitor_port" or "metrics" in seen:
+            return
+        port = re.search(r"monitor at http://127\.0\.0\.1:(\d+)/",
+                         capsys.readouterr().out).group(1)
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as resp:
+            seen["metrics"] = resp.read().decode()
+        for name in ("checkpoints", "status"):
+            with urllib.request.urlopen(f"{base}/{name}", timeout=10) as resp:
+                seen[name] = json.load(resp)
+        seen["iteration"] = s.iteration
+
+    sess.scheduler.schedule(probe, bin="OUTPUT", thorn="probe")
+    summary = run_training(settings, session=sess)
+    assert summary["iterations"] == _EFFECT_STEPS
+    effect(ckpt, summary, sess, seen)
+
+
+def test_adaptcheck_bounds_the_checkpoint_fraction(tmp_path):
+    """AdaptCheck in adaptive mode, each write slowed by ``ckpt_delay_s``:
+    the first decision admits under the bound, the weak bound then
+    suppresses (no write starts above ``max_fraction``), every admission is
+    an ``ADAPT/adaptcheck::checkpoint`` row, and steering the bound live
+    through the registry takes effect from the next poll."""
+    from repro_torch.core import param_registry
+
+    steps, steer_at, bound = 10, 6, 0.2
+    settings = TrainSettings(device="cpu", steps=steps, global_batch=2, seq_len=16,
+                             report_every=0, ckpt_dir=str(tmp_path), ckpt_mode="adaptive",
+                             ckpt_max_fraction=bound, ckpt_max_interval_s=1e9,
+                             ckpt_delay_s=0.5, ckpt_synchronous=True, ckpt_keep_n=20)
+    sess = TimingSession()
+
+    def steer(s):
+        if s.iteration == steer_at:
+            param_registry().set("ckpt.max_fraction", 1.0, iteration=s.iteration)
+
+    sess.scheduler.schedule(steer, bin="PRESTEP", thorn="steer")
+    summary = run_training(settings, session=sess)
+
+    actions = [a for a in sess.control_loop.actions
+               if a.controller == "adaptcheck" and a.action == "checkpoint"]
+    assert actions[0].step == 0 and actions[0].detail["reason"] == "under-bound"
+    before = [a for a in actions if a.step < steer_at]
+    assert all(a.detail["fraction"] <= bound for a in before), before
+    assert len(before) < steer_at  # the bound suppressed something
+    # steered to 1.0: every later poll admits
+    assert [a.step for a in actions if a.step >= steer_at] == list(range(steer_at, steps))
+    ckpt = summary["checkpoint"]
+    assert ckpt["n_checkpoints"] == len(actions) and ckpt["n_suppressed"] >= 1
+    assert sess.db.get("ADAPT/adaptcheck::checkpoint").count == len(actions)
+    # every admitted write plus the final one, each at least the injected delay
+    write = sess.db.get("CHECKPOINT/adaptcheck::write")
+    assert write.count == len(actions) + 1 and write.seconds() >= 0.5 * write.count
+    assert summary["ckpt_fraction"] == pytest.approx(
+        write.seconds() / sess.db.get("simulation/total").seconds())
+    assert _on_disk(str(tmp_path)) == sorted({a.step + 1 for a in actions} | {steps})
