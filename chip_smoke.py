@@ -14,8 +14,9 @@ caught):
    and time kernel, plain version and ``F.scaled_dot_product_attention`` (a
    yardstick only; the port never calls it);
 3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
-   (512*32, 64) and the training shape (4096, 2048) bf16, with
-   ``F.rms_norm`` as the yardstick;
+   (512*32, 64), the training shape (4096, 2048) and phases 18-19's
+   (4096, 4096) and (4096*32, 64) bf16, with ``F.rms_norm`` as the
+   yardstick;
 4. serve full-width llama3.2-1b (16 layers, d_model 2048, 32/8 heads,
    vocab 128256, tied; seeded random bf16 weights) through
    ``repro_torch.launch.serve.run_serving`` with both kernels selected:
@@ -31,11 +32,13 @@ caught):
    group), and the forward kernel that makes their inputs, against their
    plain versions at the training shape B=4,
    S=T=1024, H=32, KV=8, hd=64 causal bf16, ragged S=T=300, window 128 and
-   f32, and time them beside the plain versions and the backward of
-   ``F.scaled_dot_product_attention`` (a yardstick only);
+   f32, and at head_dim 256 (recurrentgemma-9b's MQA, 16/1 heads): phase
+   19's path B=1 S=T=4096 window 2048 bf16, ragged S=T=300 window 128 bf16
+   and S=T=512 window 2048 f32; time them beside the plain versions and the
+   backward of ``F.scaled_dot_product_attention`` (a yardstick only);
 7. the same for the RMSNorm backward kernel at (4096, 2048), (300, 2048),
-   (16384, 64) bf16 and (7, 100) f32, with ``F.rms_norm``'s backward as the
-   yardstick;
+   (16384, 64) bf16, (7, 100) f32 and phases 18-19's (4096, 4096) and
+   (4096*32, 64) bf16, with ``F.rms_norm``'s backward as the yardstick;
 8. train full-width llama3.2-1b (bf16, remat "dots") through
    ``repro_torch.launch.train.run_training`` with both kernel pairs
    selected: global batch 4, seq 1024, 6 AdamW steps on the copy task.  The
@@ -105,20 +108,42 @@ caught):
     difference and whether they are bitwise equal are printed); the
     textfile must parse under ``repro_torch.monitor.promparse`` with its
     ``io_bytes`` sample equal to the checkpoint's array bytes, and the
-    status file must hold run A's last iteration and loss.
+    status file must hold run A's last iteration and loss;
+18. train full-width rwkv6-1.6b (24 layers, d_model 2048, 32 WKV heads of
+    64, vocab 65536; bf16, remat "dots", ``seq_impl="parallel"``) through
+    ``run_training`` as phase 8 does: batch 4 x 1024, 6 AdamW steps, the
+    launch counters set to 0 just before and read just after and held to
+    ``_per_step_launches`` x 6 (per step 6L RMSNorm forwards, 3L backwards,
+    L = 24; no flash, RG-LRU or WKV-6 launch: the recurrence trains through
+    its PyTorch form, as the reference's does), finite losses; one
+    loss-and-gradient step against the plain path (``_train_family_phase``:
+    loss and gradient norm at TRAIN_RTOL, each leaf in relative norm at
+    RECURRENT_REL, with each path's distance from the plain path in f32
+    printed beside it), the same step in f32 (each leaf to 1e-3); one warm
+    step under ``torch.profiler`` (device activity only);
+19. the same for recurrentgemma-9b at full width (d_model 4096, 16/1 heads
+    of 256, window 2048, vocab 256000, untied) cut to 4 of its 38 layers,
+    batch 1 x 4096: per step 4 flash forwards, 2 dq and 2 dkv at head_dim
+    256 (two ``attn_local`` layers in the stacked unit), 14 RMSNorm
+    forwards and 8 backwards; peak device memory under HYBRID_MAX_GB; the
+    bf16 leaves at LEAF_RTOL, as phase 8's; the f32 step runs the f32-FMA
+    flash instances at head_dim 256 in a model.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
-heads, window 2048) at S=T=2560 and 512 bf16.  Phases 2 and 6 also hold the
-flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T=128; 4/2 heads
+heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
+and 6 also hold the flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T=128; 4/2 heads
 causal and 4/1 heads with window 16; bf16 and f32), elementwise at the
 kernel tolerances.  Memory is freed between the
-serving and the training phases and before phase 10.
+serving and the training phases, before phase 10 and around phases 18
+and 19.
 
 Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
-(phases 2, 4, 8, 12), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6, 8)
-are tensor-core kernels (``wgmma`` fed by TMA through an mbarrier-guarded
-shared-memory ring, sm_90a); their f32 instances (the f32 cases of phases 2
-and 6, the f32 model of phase 13, the f32 gradient step of phase 16) and
+(phases 2, 4, 8, 12, 19), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6,
+8, 19) are tensor-core kernels (``wgmma`` fed by TMA through an
+mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
+32-key tiles and dkv runs two blocks per key tile, one per 128-column half
+of dk and dv); their f32 instances (the f32 cases of phases 2 and 6, the f32
+model of phase 13, the f32 gradient steps of phases 16 and 19) and
 their bf16 instances at head_dim 16 (phases 2, 6 and 16) are f32-FMA
 kernels on the CUDA cores, as are the RMSNorm, RG-LRU and WKV-6 kernels.
 Phases 2 and 6 print, for every case, the design (as the kernel library
@@ -180,6 +205,13 @@ MODEL_ATOL, MODEL_RTOL = 0.1, 0.05
 # full width (the hybrid cut to one unit plus its tail) elementwise at the
 # repo's f32 model tolerance (tests/test_torch_model.py)
 RECURRENT_REL = 0.5
+# The same holds for rwkv6-1.6b's bf16 gradients at full depth (phase 18):
+# in development runs on the card kernel and plain path differed by
+# 0.24-0.27 in relative norm on every leaf, with loss and gradient norm
+# within TRAIN_RTOL, while each path lay ~0.86 (median leaf) from the plain
+# path in f32 on the same weights: bf16 rounding, not the kernels.  So its
+# leaves are held at RECURRENT_REL, that distance printed beside them, and
+# in f32 to 1e-3
 F32_ATOL = 2e-4
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # gradient tolerances of the repo (tests/test_kernels_flash.py:62,
@@ -195,6 +227,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 TRAIN_RTOL, LEAF_RTOL = 3e-2, 0.1
 # the smoke configs' phase (head_dim 16): prompt and sequence length, steps
 SMOKE_SEQ, SMOKE_STEPS = 128, 3
+# training the hybrid and SSM families (phases 18 and 19): rwkv6-1.6b at full
+# width and depth at phase 8's batch x seq; recurrentgemma-9b at full width
+# cut to 4 of its 38 layers (one (rglru, attn_local, attn_local) unit and the
+# first layer of the next: 9.8 B params x 16 B of training state are past one
+# card), batch 1 x seq 4096, twice the 2048 window; its peak device memory
+# must stay under HYBRID_MAX_GB
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_MAX_GB = 4, 1, 4096, 76.0
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, vocab, tied, window) of
+# each trained configuration, held before a run
+TRAIN_SHAPES = {
+    ("llama3.2-1b", True): (2, 64, 4, 2, 16, 256, True, None),
+    ("llama3.2-1b", False): (16, 2048, 32, 8, 64, 128256, True, None),
+    ("rwkv6-1.6b", False): (24, 2048, 32, 32, 64, 65536, False, None),
+    ("recurrentgemma-9b", False): (HYBRID_TRAIN_LAYERS, 4096, 16, 1, 256, 256000, False, 2048),
+}
 # the checkpoint phase: run A trains steps 1-3 of phase 8's 6-step schedule
 # and saves at shutdown (label 3); run B restores it and trains steps 4-6.
 # The checkpoints need a local directory with this much room
@@ -276,6 +323,8 @@ def _flash_phase(torch, F, fa_ops, gen):
         ("hybrid", "hybrid path hd=256 MQA S=T=2560 window=2048 bf16", 1, 2560, hybrid, 2048,
          torch.bfloat16),
         ("", "hybrid hd=256 MQA S=T=512 window=2048 bf16", 1, 512, hybrid, 2048, torch.bfloat16),
+        ("hybrid_train", f"hybrid training path hd=256 MQA B=1 S=T={HYBRID_TRAIN_SEQ} "
+         "window=2048 bf16", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, hybrid, 2048, torch.bfloat16),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -328,9 +377,12 @@ def _role(rows, role):
 
 
 def _rmsnorm_phase(torch, F, rn_ops, gen):
-    # the serving path first, the training path (batch x seq rows) last
+    # the serving path, the training path (batch x seq rows), then the
+    # hybrid training path's width (4096) and the SSM training path's
+    # per-head group norm (batch x seq x 32 heads rows of 64)
     cases = [(512, 2048), (300, 2048), (N_SLOTS, 2048), (512 * 32, 64),
-             (TRAIN_BATCH * TRAIN_SEQ, 2048)]
+             (TRAIN_BATCH * TRAIN_SEQ, 2048), (HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ, 4096),
+             (TRAIN_BATCH * TRAIN_SEQ * 32, 64)]
     rows = []
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -628,21 +680,28 @@ def _dtype_name(dtype) -> str:
 
 
 def _flash_bwd_phase(torch, F, fa_ops, gen):
-    llama = (32, 8, 64)
-    cases = [  # (name, B, S=T, (H, KV, hd), window, dtype)
-        ("path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, llama, None, torch.bfloat16),
-        ("ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, llama, None, torch.bfloat16),
-        ("window=128 B=4 S=T=1024 bf16", TRAIN_BATCH, TRAIN_SEQ, llama, 128, torch.bfloat16),
-        ("f32 B=4 S=T=1024 causal", TRAIN_BATCH, TRAIN_SEQ, llama, None, torch.float32),
+    llama, hybrid = (32, 8, 64), (16, 1, 256)
+    cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
+        ("train", "path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, llama, None,
+         torch.bfloat16),
+        ("", "ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, llama, None, torch.bfloat16),
+        ("", "window=128 B=4 S=T=1024 bf16", TRAIN_BATCH, TRAIN_SEQ, llama, 128, torch.bfloat16),
+        ("", "f32 B=4 S=T=1024 causal", TRAIN_BATCH, TRAIN_SEQ, llama, None, torch.float32),
+        ("hybrid", f"hybrid path hd=256 MQA B=1 S=T={HYBRID_TRAIN_SEQ} window=2048 bf16",
+         HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, hybrid, 2048, torch.bfloat16),
+        ("", "hybrid ragged hd=256 MQA B=1 S=T=300 window=128 bf16", 1, 300, hybrid, 128,
+         torch.bfloat16),
+        ("", "hybrid f32 hd=256 MQA B=1 S=T=512 window=2048", 1, 512, hybrid, 2048,
+         torch.float32),
     ] + [
-        (f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ, heads,
-         window, dtype)
+        ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
+         heads, window, dtype)
         for name, heads, window in (("causal", SMOKE_GQA, None),
                                     ("MQA window=16", SMOKE_MQA, 16))
         for dtype in (torch.bfloat16, torch.float32)
     ]
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for name, b, s, (h, kv, hd), window, dtype in cases:
+    for role, name, b, s, (h, kv, hd), window, dtype in cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
         k = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
         v = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
@@ -704,8 +763,8 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
             ms = _device_ms(torch, fn)
             plain_ms = _device_ms(torch, plain)
             bound_ms, bound_by = _bound_ms(moved, 2.0 * matmuls * b * h * pairs * hd, peak)
-            rows[kernel].append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound_ms, bound_by=bound_by,
+            rows[kernel].append(dict(role=role, case=name, max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=library_ms))
             note = _kernel_note(fa_ops, kernel, dtype, hd)
             _print(f"[{kernel}] {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
@@ -718,8 +777,10 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
 
 
 def _rmsnorm_bwd_phase(torch, F, rn_ops, gen):
-    cases = [(4096, 2048, torch.bfloat16), (300, 2048, torch.bfloat16),
-             (16384, 64, torch.bfloat16), (7, 100, torch.float32)]
+    cases = [(TRAIN_BATCH * TRAIN_SEQ, 2048, torch.bfloat16), (300, 2048, torch.bfloat16),
+             (16384, 64, torch.bfloat16), (7, 100, torch.float32),
+             (HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ, 4096, torch.bfloat16),
+             (TRAIN_BATCH * TRAIN_SEQ * 32, 64, torch.bfloat16)]
     rows = []
     for n, d, dtype in cases:
         x = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
@@ -785,33 +846,66 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                 start=0, tag=None, **extra):
-    """Train llama3.2-1b (its smoke config with ``smoke``) through the
-    kernels; the launch counts must equal the per-step counts x the steps
-    that ran (``steps - start``: a run restored at label ``start`` runs the
-    rest).  ``extra`` goes to ``TrainSettings``.  Returns the launch counts,
-    the config, the losses of the steps that ran, the summary and the timer
-    database (not the session: its scheduler's routines hold the run's
-    state, 17.3 GB on the card at full width)."""
+def _per_step_launches(cfg) -> dict[str, int]:
+    """Kernel launches of one training step under remat "dots", from the
+    model's structure: the stacked units' forward runs twice (again in the
+    backward), the tail layers' once.  An attention layer launches one flash
+    forward per run, one dq and one dkv; a layer launches two RMSNorm
+    forwards per run (ln and ln2; an rwkv layer three: ln1, the per-head
+    group norm, ln2) and as many backwards; the final norm is the unfused
+    one, and the recurrences train through seq_impl "parallel", no kernel.
+    So llama3.2-1b (L = 16, all stacked): 2L flash forwards, L dq, L dkv,
+    4L RMSNorm forwards, 2L backwards; rwkv6-1.6b (L = 24): 6L RMSNorm
+    forwards, 3L backwards; recurrentgemma-9b at 4 layers (one unit and an
+    rglru tail): 4 flash forwards, 2 dq, 2 dkv, 14 RMSNorm forwards, 8
+    backwards (``tests/test_torch_train_hybrid_ssm.py`` counts the same on
+    the CPU)."""
+    kinds = cfg.layer_kinds()
+    p = len(cfg.block_pattern)
+    runs = [2 if i < cfg.n_layers // p * p else 1 for i in range(cfg.n_layers)]
+    norms = [3 if kind == "rwkv" else 2 for kind in kinds]
+    attn = [kind.startswith("attn") for kind in kinds]
+    return {"flash_fwd": sum(r for r, a in zip(runs, attn) if a), "flash_bwd_dq": sum(attn),
+            "flash_bwd_dkv": sum(attn), "rmsnorm_fwd": sum(r * n for r, n in zip(runs, norms)),
+            "rmsnorm_bwd": sum(norms), "rglru_fwd": 0, "wkv6_fwd": 0}
+
+
+def _train_cfg(arch, smoke=False, n_layers=None):
+    """The trained configuration: bf16, the kernel settings, remat "dots"."""
     from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(arch).replace(
+        attn_impl="pallas", norm_impl="fused", seq_impl="parallel", remat="dots",
+        dtype="bfloat16")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+             cfg.vocab_size, cfg.tied_embeddings, cfg.window)
+    assert shape == TRAIN_SHAPES[(arch, smoke)], cfg
+    return cfg
+
+
+def _train_phase(torch, K, arch="llama3.2-1b", smoke=False, steps=TRAIN_STEPS,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, start=0, tag=None, n_layers=None, **extra):
+    """Train ``arch`` (its smoke config with ``smoke``; ``n_layers`` deep when
+    given) through the kernels with ``run_training``; the launch counts must
+    equal ``_per_step_launches`` x the steps that ran (``steps - start``: a
+    run restored at label ``start`` runs the rest).  ``extra`` goes to
+    ``TrainSettings``.  Returns the launch counts, the config, the losses of
+    the steps that ran, the summary and the timer database (not the session:
+    its scheduler's routines hold the run's state, 17.3 GB on the card for
+    llama3.2-1b at full width)."""
     from repro_torch.core import TimerLogger
     from repro_torch.launch.train import TrainSettings, run_training
     from repro_torch.models import model as M
     from repro_torch.timing import TimingSession
 
-    cfg = (get_smoke_config if smoke else get_config)("llama3.2-1b").replace(
-        attn_impl="pallas", norm_impl="fused", remat="dots", dtype="bfloat16")
-    n_layers = cfg.n_layers
-    shape = (n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-             cfg.vocab_size, cfg.tied_embeddings)
-    assert shape == ((2, 64, 4, 2, 16, 256, True) if smoke
-                     else (16, 2048, 32, 8, 64, 128256, True)), cfg
-    tag = tag or ("[train smoke]" if smoke else "[train]")
+    cfg = _train_cfg(arch, smoke, n_layers)
+    tag = tag or f"[train {arch}{' smoke' if smoke else ''}]"
     with tempfile.TemporaryDirectory() as tmp:
         log_path = os.path.join(tmp, "train.jsonl")
         settings = TrainSettings(
-            arch="llama3.2-1b", smoke=smoke, steps=steps, global_batch=batch,
+            arch=arch, smoke=smoke, steps=steps, global_batch=batch,
             seq_len=seq, data_mode="copy", seed=SEED, report_every=0,
             log_path=log_path, device=DEVICE, **extra,
         )
@@ -826,9 +920,7 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
         records = TimerLogger(log_path, sess.db).read_all()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    per_step = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
-                "flash_bwd_dkv": n_layers, "rmsnorm_fwd": 4 * n_layers,
-                "rmsnorm_bwd": 2 * n_layers, "rglru_fwd": 0, "wkv6_fwd": 0}
+    per_step = _per_step_launches(cfg)
     ran = steps - start
     assert launches == {k: v * ran for k, v in per_step.items()}, launches
     assert summary["iterations"] == steps and len(records) == ran, summary
@@ -840,10 +932,12 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
     median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
     tokens = batch * seq
     active = M.param_counts(cfg)[1]
+    head = cfg.d_model * cfg.padded_vocab
     mfu = 6.0 * active * tokens / median_s / PEAK_FLOPS["bf16_tensor"]
-    _print(f"{tag} llama3.2-1b {'smoke config' if smoke else 'full width'}, bf16, remat dots, "
-           f"batch {batch} x seq {seq}, steps {start + 1}-{steps}: wall_s={wall:.3f} "
-           f"launches={launches} (per step {per_step})")
+    mfu_head = 6.0 * (active + head) * tokens / median_s / PEAK_FLOPS["bf16_tensor"]
+    _print(f"{tag} {cfg.name} {'smoke config' if smoke else 'full width'}, {cfg.n_layers} "
+           f"layers, bf16, remat dots, batch {batch} x seq {seq}, steps {start + 1}-{steps}: "
+           f"wall_s={wall:.3f} launches={launches} (per step {per_step})")
     _print(f"{tag} losses={[round(x, 5) for x in losses]} "
            f"grad_norm={summary['final_metrics']['grad_norm']:.5f}")
     if smoke:  # a toy model's step times are launch overhead
@@ -853,18 +947,37 @@ def _train_phase(torch, K, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH, se
            f"tokens_per_s(EVOL, all steps)={ran * tokens / cum[-1]:.1f} "
            f"tokens_per_s(median step)={tokens / median_s:.1f} "
            f"mfu(6*{active}*tokens vs 989 TFLOP/s)={mfu:.4f} "
+           f"mfu_with_lm_head(6*{active + head}*tokens)={mfu_head:.4f} "
            f"max_memory_allocated_GB={peak_gb:.3f}")
+    if arch == "recurrentgemma-9b":
+        assert peak_gb < HYBRID_MAX_GB, (peak_gb, HYBRID_MAX_GB)
     return launches, cfg, losses, summary, sess.db
 
 
-def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
-                         loss_rtol=TRAIN_RTOL, leaf_rtol=LEAF_RTOL, label="[train]"):
-    """One loss-and-gradient step, kernel path vs plain path, same weights and
-    batch, on the card."""
-    from repro_torch.data import SyntheticConfig, SyntheticLM
+def _loss_and_grads(torch, cfg, params, batch):
+    """(loss, gradient norm, gradients as a list of leaves) of one step."""
     from repro_torch.models import model as M
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import global_norm
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss, _ = M.loss_fn(cfg, tree_map(lambda _: next(it), params), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), global_norm(list(grads)).item(), grads
+
+
+def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         loss_rtol=TRAIN_RTOL, leaf_rtol=LEAF_RTOL, label="[train]",
+                         f32_anchor=False):
+    """One loss-and-gradient step, kernel path vs plain path, same weights and
+    batch, on the card.  With ``f32_anchor`` it also prints each path's
+    distance, leaf by leaf in relative norm, from the plain path in f32 on
+    the same weights upcast: the rounding of the working dtype alone, which
+    the kernel-vs-plain difference is to be read against."""
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_map
 
     params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
     batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, seq, batch_size, mode="copy",
@@ -872,14 +985,21 @@ def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
     names = [name for name, _ in _named_leaves(params)]
-    out = {}
-    for path, c in (("kernel", cfg), ("plain", plain)):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        it = iter(leaves)
-        loss, _ = M.loss_fn(c, tree_map(lambda _: next(it), params), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        out[path] = (loss.item(), global_norm(list(grads)).item(), grads)
+    out = {path: _loss_and_grads(torch, c, params, batch)
+           for path, c in (("kernel", cfg), ("plain", plain))}
     (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out["kernel"], out["plain"]
+    if f32_anchor:
+        up = tree_map(lambda p: p.float(), params)
+        loss_a, gn_a, g_a = _loss_and_grads(torch, plain.replace(dtype="float32"), up, batch)
+        del up
+        for path, grads in (("kernel", g_k), ("plain", g_p)):
+            dist = {name: ((g.float() - a).norm() / a.norm()).item()
+                    for name, g, a in zip(names, grads, g_a)}
+            far = max(dist, key=dist.get)
+            _print(f"{label} {path} path vs the plain path in f32 (loss {loss_a:.6f}, "
+                   f"grad_norm {gn_a:.6f}): largest leaf relative error {dist[far]:.3e} "
+                   f"({far}), median {sorted(dist.values())[len(dist) // 2]:.3e}")
+        del g_a
     rel = {}
     for name, a, b in zip(names, g_k, g_p):
         for tag, g in (("kernel", a), ("plain", b)):
@@ -897,10 +1017,13 @@ def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
     return params, batch
 
 
-def _train_profile_phase(torch, cfg, params, batch):
+def _train_profile_phase(torch, cfg, params, batch, tag="[profile-train]"):
     """Where a warm training step's time goes: one warm-up step, then one
     step under ``torch.profiler`` (device busy share = summed kernel time over
-    the step's wall time, the profiler's host cost included)."""
+    the step's wall time, the profiler's host cost included).  Only the
+    device is traced: rwkv6-1.6b's step runs its chunked WKV-6 as small
+    host ops (over 100,000 kernel launches a step), whose host events the
+    profiler would otherwise record and aggregate too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -908,13 +1031,14 @@ def _train_profile_phase(torch, cfg, params, batch):
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import AdamWConfig, init_opt_state
 
-    built = make_train_step(cfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+    b, s = batch["tokens"].shape
+    built = make_train_step(cfg, ShapeConfig("train", "train", s, b),
                             peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
     opt_state = init_opt_state(AdamWConfig(), params)
     params, opt_state, metrics = built.fn(params, opt_state, batch)
     float(metrics["loss"])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, opt_state, metrics = built.fn(params, opt_state, batch)
         float(metrics["loss"])
@@ -923,10 +1047,11 @@ def _train_profile_phase(torch, cfg, params, batch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    _print(f"[profile-train] one warm step: wall_s={wall:.4f} device_kernel_s={device_s:.4f} "
-           f"device_busy_share={device_s / wall:.4f}")
+    _print(f"{tag} one warm step: wall_s={wall:.4f} device_kernel_s={device_s:.4f} "
+           f"device_busy_share={device_s / wall:.4f} kernel_launches="
+           f"{sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        _print(f"[profile-train]   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} "
+        _print(f"{tag}   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} "
                f"{e.key[:90]}")
 
 
@@ -1116,6 +1241,33 @@ def _ckpt_phase(torch, K, train_losses):
     return {"run_a": launches_a, "run_b": launches_b}
 
 
+def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEAF_RTOL):
+    """Phases 18 and 19: train ``arch`` at full width (``n_layers`` deep when
+    given) through ``run_training`` on the card, TRAIN_STEPS AdamW steps,
+    with exact launch counts, finite losses and the step's seconds, tokens/s,
+    share of 989 TFLOP/s and peak memory; then hold one loss-and-gradient
+    step against the plain path in bf16 (loss and gradient norm at
+    TRAIN_RTOL, as phase 8; each leaf in relative norm under ``leaf_rtol``,
+    each path's distance from the plain path in f32 printed beside it) and
+    in f32 (loss and gradient norm to 1e-4, each leaf to 1e-3 in relative
+    norm, as phase 16; at head_dim 256 the f32-FMA flash instances in a
+    model); and profile one warm step."""
+    tag = f"[train {arch}]"
+    launches, cfg, *_ = _train_phase(torch, K, arch=arch, batch=batch, seq=seq,
+                                     n_layers=n_layers, tag=tag)
+    _free(torch)
+    params, data = _train_compare_phase(torch, cfg, batch_size=batch, seq=seq,
+                                        leaf_rtol=leaf_rtol, label=f"{tag} bf16",
+                                        f32_anchor=True)
+    _train_profile_phase(torch, cfg, params, data, tag=f"[profile-train {arch}]")
+    del params, data
+    _free(torch)
+    _train_compare_phase(torch, cfg.replace(dtype="float32"), batch_size=batch, seq=seq,
+                         loss_rtol=1e-4, leaf_rtol=1e-3, label=f"{tag} f32")
+    _free(torch)
+    return launches
+
+
 def main() -> int:
     import types
 
@@ -1192,6 +1344,12 @@ def main() -> int:
     smoke_launches = _smoke_phase(torch, K)
     _free(torch)
     ckpt_launches = _ckpt_phase(torch, K, train_losses)
+    _free(torch)
+    ssm_train_launches = _train_family_phase(torch, K, "rwkv6-1.6b", TRAIN_BATCH, TRAIN_SEQ,
+                                             leaf_rtol=RECURRENT_REL)
+    hybrid_train_launches = _train_family_phase(
+        torch, K, "recurrentgemma-9b", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
+        n_layers=HYBRID_TRAIN_LAYERS)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -1199,7 +1357,9 @@ def main() -> int:
     # recurrence kernels and, under "hybrid", flash at head_dim 256 on the
     # serving paths of phases 12 and 14; under "smoke", the flash kernels at
     # head_dim 16 on phase 16's paths; under "resume", the training kernels
-    # on phase 17's two runs (phase 8's shapes)
+    # on phase 17's two runs (phase 8's shapes); under "ssm_train" and
+    # "hybrid_train", the training paths of phases 18 and 19 (rwkv6-1.6b's
+    # norms; recurrentgemma-9b's flash kernels at head_dim 256 and norms)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -1210,32 +1370,45 @@ def main() -> int:
         **pick(next(r for r in rows if r["case"] == SMOKE_CASE)))
     resume = lambda name, row: dict(  # noqa: E731
         launches={run: n[name] for run, n in ckpt_launches.items()}, **pick(row))
+    case = lambda rows, name: next(r for r in rows if r["case"] == name)  # noqa: E731
+    ssm = lambda name, row: dict(launches=ssm_train_launches[name], **pick(row))  # noqa: E731
+    hyb = lambda name, row: dict(launches=hybrid_train_launches[name], **pick(row))  # noqa: E731
+    # the RMSNorm cases of phases 3 and 7 at the training paths' rows
+    rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
+    rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
+    fwd_2048, fwd_4096 = (case(rms, f"{n} bf16") for n in (rows_2048, rows_4096))
+    bwd_2048, bwd_4096 = (case(rms_bwd, f"{n} bfloat16") for n in (rows_2048, rows_4096))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
              launches=launches["flash_fwd"], **pick(_role(flash, "serve")),
              train=dict(launches=train_launches["flash_fwd"], **pick(_role(flash, "train"))),
              hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid"))),
-             smoke=smoke("flash_fwd", flash), resume=resume("flash_fwd", _role(flash, "train"))),
+             smoke=smoke("flash_fwd", flash), resume=resume("flash_fwd", _role(flash, "train")),
+             hybrid_train=hyb("flash_fwd", _role(flash, "hybrid_train"))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
              smoke=smoke("flash_bwd_dq", flash_bwd["flash_bwd_dq"]),
-             resume=resume("flash_bwd_dq", flash_bwd["flash_bwd_dq"][0])),
+             resume=resume("flash_bwd_dq", flash_bwd["flash_bwd_dq"][0]),
+             hybrid_train=hyb("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "hybrid"))),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
              smoke=smoke("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"]),
-             resume=resume("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"][0])),
+             resume=resume("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"][0]),
+             hybrid_train=hyb("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "hybrid"))),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
-             train=dict(launches=train_launches["rmsnorm_fwd"], **pick(rms[-1])),
-             resume=resume("rmsnorm_fwd", rms[-1])),
+             train=dict(launches=train_launches["rmsnorm_fwd"], **pick(fwd_2048)),
+             resume=resume("rmsnorm_fwd", fwd_2048), ssm_train=ssm("rmsnorm_fwd", fwd_2048),
+             hybrid_train=hyb("rmsnorm_fwd", fwd_4096)),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
-             resume=resume("rmsnorm_bwd", rms_bwd[0])),
+             resume=resume("rmsnorm_bwd", rms_bwd[0]),
+             ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096)),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -11,7 +11,9 @@
 // What bounds it on the H100: at the training shape (B = 4, S = T = 1024,
 // 32/8 heads, hd 64, causal) dq needs 25.8 GFLOP and dkv 34.4 GFLOP against
 // ~60 and ~51 MB of traffic, so both are bound by the tensor cores (~26 and
-// ~35 us at 989 TFLOP/s).
+// ~35 us at 989 TFLOP/s).  At recurrentgemma-9b's training shape (B = 1,
+// S = T = 4096, 16/1 heads, hd 256, causal, window 2048) dq needs 154.6 and
+// dkv 206.2 GFLOP against ~70 MB: tensor cores again (~156 and ~209 us).
 //
 // In bf16 both run on the tensor cores (`wgmma.mma_async`, both products'
 // operands in shared memory or, for the second product, the first one's
@@ -39,7 +41,11 @@
 //  * dS, rounded to bf16, is wgmma's register-A operand for dQ += dS K,
 //    which reads the same K stage in the transposed-B (MN-major) mode;
 //  * dQ accumulates in f32 registers over the whole key walk and leaves
-//    once, scaled, in bf16, with no atomics.
+//    once, scaled, in bf16, with no atomics;
+//  * key tiles of 64, and of 32 at hd 256: there the block's Q and dO take
+//    128 KB of shared memory, so two stages of 64-key K and V tiles would
+//    pass the 227 KB a block may have; the dQ accumulator is then 128
+//    registers a thread, beside 16 each for S and dP.
 //
 // dkv in bf16 (`flash_bwd_dkv_tc_kernel`).  One block per (key tile of 128
 // keys, KV head, batch row), each warpgroup owning 64 keys:
@@ -52,15 +58,24 @@
 //    no round trip through shared memory;
 //  * dK and dV accumulate in registers across the whole GQA group and leave
 //    the kernel once, scaled, in bf16, with no atomics.  Query tiles of 64
-//    rows (32 at hd 128, where the two accumulators alone take 128 registers
-//    a thread): at most ~200 registers a thread, no spills.
+//    rows (32 at hd 128 and 256, where the two accumulators alone take 128
+//    registers a thread): at most ~200 registers a thread, no spills;
+//  * at hd 256 a block would need 2 x 64 x 256 f32 accumulators a
+//    warpgroup, 256 registers a thread, past the 255 cap.  So the columns
+//    are split: each key tile has two blocks, each accumulating one
+//    128-column half of dK and dV (the hd-128 instance's registers), and
+//    both computing the whole S^T and dP^T from all 256 columns, 1.5x the
+//    products of one block; the two blocks are adjacent in the grid, so
+//    the second reads the Q and dO tiles from L2.
 //  Rounding P and dS to bf16 before their products is the rounding the f32
 //  reference does not make (tests/test_torch_flash_tc.py holds an emulation
 //  of it against the reference at the bf16 gradient tolerance).
 //
 // In f32, and in bf16 at hd 16 (the smoke configs' head_dim, which no timed
 // path runs; a 16-column tile is below the tensor-core kernels' 64-byte
-// swizzle slab) -- CUDA-core FMAs from shared memory:
+// swizzle slab) -- CUDA-core FMAs from shared memory, head dims 16 to 256
+// (at hd 256 dq takes 206,080 B of shared memory a block and dkv 215,296 B,
+// and a dkv thread holds 64 + 64 accumulators):
 //  * dq: one block per (query tile of 32 rows, head, batch row), 128 threads,
 //    four per query row.  The block walks only the key tiles of 64 that the
 //    causal/window mask leaves (the TPU kernel's sequential grid axis becomes
@@ -396,6 +411,7 @@ int dispatch_dq_f32(const Params& p, int B, int hd, cudaStream_t stream) {
     case 32: return launch_dq<float, 32>(p, B, stream);
     case 64: return launch_dq<float, 64>(p, B, stream);
     case 128: return launch_dq<float, 128>(p, B, stream);
+    case 256: return launch_dq<float, 256>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -406,6 +422,7 @@ int dispatch_dkv_f32(const Params& p, int B, int KV, int hd, cudaStream_t stream
     case 32: return launch_dkv<float, 32>(p, B, KV, stream);
     case 64: return launch_dkv<float, 64>(p, B, KV, stream);
     case 128: return launch_dkv<float, 128>(p, B, KV, stream);
+    case 256: return launch_dkv<float, 256>(p, B, KV, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -426,7 +443,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int HD>
 struct DkvTiles {
   static constexpr int STAGES = 2;  // Q/dO ring depth
-  static constexpr int BQ = HD == 128 ? 32 : 64;  // query rows per streamed tile
+  static constexpr int BQ = HD >= 128 ? 32 : 64;  // query rows per streamed tile
+  // columns of dK and dV a block accumulates: at hd 256 the two 64 x 256 f32
+  // accumulators would take 256 registers a thread, so each key tile has two
+  // blocks, one per 128-column half, that both compute the whole S and dP
+  static constexpr int NH = HD == 256 ? 128 : HD;
+  static constexpr int HALVES = HD / NH;
   static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
   static constexpr int SLABS = HD / SPAN;
   static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
@@ -462,10 +484,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + C::STAGES;
 
-  const int kb = p.KV * p.B;
-  const int k0 = (int)(blockIdx.x / kb) * BKV;  // key tiles with the most causal work first
-  const int kvh = (int)(blockIdx.x % kb) % p.KV;
-  const int b = (int)(blockIdx.x % kb) / p.KV;
+  // key tiles with the most causal work first; the halves of a key tile's
+  // columns side by side, so they read the same Q and dO tiles from L2
+  const int kb = p.KV * p.B * C::HALVES;
+  const int k0 = (int)(blockIdx.x / kb) * BKV;
+  const int half = (int)(blockIdx.x % kb) % C::HALVES;
+  const int kvh = (int)(blockIdx.x % kb) / C::HALVES % p.KV;
+  const int b = (int)(blockIdx.x % kb) / C::HALVES / p.KV;
+  // byte offset of this block's first dK/dV column in a Q or dO tile
+  const int cols = half * (C::NH / C::SPAN) * BQ * C::ROWB;
 
   // query tiles that intersect the mask support of this key tile
   int q_lo = 0;
@@ -524,9 +551,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint64_t q_desc = make_desc(sqd, 0, 8 * C::ROWB, C::ROWB);
   const uint64_t qt_desc = make_desc(sqd, BQ * C::ROWB, 8 * C::ROWB, C::ROWB);
 
-  float dk[HD / 2], dv[HD / 2];
+  float dk[C::NH / 2], dv[C::NH / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
+  for (int i = 0; i < C::NH / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -614,10 +641,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<HD>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + kk * 16 * C::ROWB));
+        wgmma_rs<C::NH>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + cols + kk * 16 * C::ROWB));
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<HD>(dk, da[kk], desc_at(dqt, kk * 16 * C::ROWB));
+        wgmma_rs<C::NH>(dk, da[kk], desc_at(dqt, cols + kk * 16 * C::ROWB));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -630,10 +657,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; r < 2; ++r) {
     const int t = t0 + 8 * r;
     if (t < p.T) {
-      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + col;
-      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + col;
+      const int c0 = half * C::NH + col;
+      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + c0;
+      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + c0;
 #pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
+      for (int i = 0; i < C::NH / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dkp + 8 * i) =
             pack_bf16(dk[4 * i + 2 * r] * p.scale, dk[4 * i + 2 * r + 1] * p.scale);
         *reinterpret_cast<uint32_t*>(dvp + 8 * i) =
@@ -682,7 +710,7 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int n_kt = (p.T + BKV - 1) / BKV;
-  flash_bwd_dkv_tc_kernel<HD><<<n_kt * KV * B, THREADS, C::SMEM, stream>>>(d);
+  flash_bwd_dkv_tc_kernel<HD><<<n_kt * KV * B * C::HALVES, THREADS, C::SMEM, stream>>>(d);
   return (int)cudaGetLastError();
 }
 
@@ -693,7 +721,10 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
 template <int HD>
 struct DqTiles {
   static constexpr int STAGES = 2;  // K/V ring depth
-  static constexpr int BK = 64;     // keys per streamed tile
+  // keys per streamed tile: at hd 256 the block's Q and dO take 128 KB, and
+  // two stages of 64-key K and V tiles another 128 KB, past the 227 KB a
+  // block may have, so 32-key tiles (two stages, 64 KB)
+  static constexpr int BK = HD == 256 ? 32 : 64;
   static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
   static constexpr int SLABS = HD / SPAN;
   static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
@@ -933,6 +964,7 @@ inline int dispatch_hd(bool dkv, const Params& p, int B, int KV, int hd, cudaStr
     case 32: return dkv ? launch_dkv<32>(p, B, KV, stream) : launch_dq<32>(p, B, KV, stream);
     case 64: return dkv ? launch_dkv<64>(p, B, KV, stream) : launch_dq<64>(p, B, KV, stream);
     case 128: return dkv ? launch_dkv<128>(p, B, KV, stream) : launch_dq<128>(p, B, KV, stream);
+    case 256: return dkv ? launch_dkv<256>(p, B, KV, stream) : launch_dq<256>(p, B, KV, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1039,6 +1071,7 @@ int info_hd(bool dkv, int dtype, int hd, int* out) {
     case 32: return info<32>(dkv, dtype, out);
     case 64: return info<64>(dkv, dtype, out);
     case 128: return info<128>(dkv, dtype, out);
+    case 256: return info<256>(dkv, dtype, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

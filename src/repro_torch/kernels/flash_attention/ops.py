@@ -12,8 +12,10 @@ length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
 heads.  In bf16 all three kernels run on the tensor cores (``wgmma`` fed
-by TMA, sm_90a) at head_dim 32 to 256; every f32 instance, and the bf16 one
-at head_dim 16 (the smoke configs'), uses f32 FMAs from shared memory.
+by TMA, sm_90a) at head_dim 32 to 256 (the dkv kernel at 256 as two blocks
+per key tile, one per 128-column half of dk and dv); every f32 instance,
+and the bf16 one at head_dim 16 (the smoke configs'), uses f32 FMAs from
+shared memory.
 PERF.md has their times against their bounds.
 
 TMA reads a bf16 tensor only from a 16-byte-aligned address with byte
@@ -63,10 +65,9 @@ dq_launches = 0
 dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims of the forward kernel; the backward kernels stop at 128 (the
-#: family with 256-wide heads, recurrentgemma-9b, does not train on one card)
+#: head dims of the forward and backward kernels (256: recurrentgemma-9b's
+#: MQA heads, which train through all three)
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-_BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +304,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, window: int | 
     delta (B,H,S): the dq kernel on CUDA tensors, its plain version on CPU."""
     if not build.on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
-    _check(q, k, v, window, do, head_dims=_BWD_HEAD_DIMS)
+    _check(q, k, v, window, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.shape[1] == 0 or k.shape[1] == 0:
         return dq.zero_()
@@ -318,7 +319,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window: int |
     tensors, its plain version on CPU."""
     if not build.on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
-    _check(q, k, v, window, do, head_dims=_BWD_HEAD_DIMS)
+    _check(q, k, v, window, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if q.shape[1] == 0 or k.shape[1] == 0:

@@ -42,9 +42,9 @@ __all__ = [
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_NO_BACKWARD = ("rglru_fwd has no backward kernel (ROADMAP Queue 1: training of the "
-                "hybrid and SSM families adds the reverse-scan kernels); train through "
-                "seq_impl='parallel'")
+_NO_BACKWARD = ("rglru_fwd has no backward kernel (ROADMAP Queue 2 item 5: the reverse-scan "
+                "kernels, which the reference lacks too); train through seq_impl='parallel', "
+                "as the reference's blocks do")
 
 
 def linear_recurrence_assoc(

@@ -45,9 +45,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_SIZES = (16, 32, 64)
 #: the kernels' grids put batch row x head on the y axis, which CUDA caps
 _MAX_BATCH_HEADS = 65535
-_NO_BACKWARD = ("wkv6_fwd has no backward kernel (ROADMAP Queue 1: training of the "
-                "hybrid and SSM families adds the reverse-scan kernels); train through "
-                "seq_impl='parallel'")
+_NO_BACKWARD = ("wkv6_fwd has no backward kernel (ROADMAP Queue 2 item 5: the reverse-scan "
+                "kernels, which the reference lacks too); train through seq_impl='parallel', "
+                "as the reference's blocks do")
 
 
 def _chunk_body(u, S, rf, kf, vf, logw):

@@ -16,11 +16,18 @@ serves ``/metrics``, ``/checkpoints`` and the timer views over HTTP.
 ``--full`` trains the published width of the architecture (default: its
 smoke config); ``--attn-impl pallas --norm-impl fused`` select the
 hand-written flash-attention and RMSNorm kernels, whose backward kernels the
-loss then differentiates through.  The step runs on ``--device`` (default
-``cuda``); ``--device cpu`` runs the kernels' plain versions.
+loss then differentiates through.  Every ported family trains: dense
+(llama3.2-1b, ...), hybrid (recurrentgemma-9b: RG-LRU and local attention at
+head_dim 256) and SSM (rwkv6-1.6b: WKV-6); their recurrences train through
+the config's ``seq_impl="parallel"`` (the associative scan and chunked
+WKV-6 in PyTorch), as the reference's blocks train through their jnp forms.
+The step runs on ``--device`` (default ``cuda``); ``--device cpu`` runs the
+kernels' plain versions.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-1b \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024 --report
+    PYTHONPATH=src python -m repro_torch.launch.train --full --arch rwkv6-1.6b \\
+        --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2
 

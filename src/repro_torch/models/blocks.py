@@ -20,7 +20,12 @@ cache per step), and return that same cache.
 The recurrences of rglru and rwkv run as ``cfg.seq_impl`` says in train and
 prefill ("parallel": the reference blocks' associative scan and chunked
 WKV-6; "ref": sequential; "pallas": the CUDA kernels); decode takes one step
-in plain PyTorch whatever it says, as the reference's blocks do.
+in plain PyTorch whatever it says, as the reference's blocks do.  All three
+families train: dense and hybrid attention through the flash kernels'
+backward (head_dim 16 to 256), the recurrences through ``"parallel"``,
+whose PyTorch forms autograd differentiates as JAX differentiates the
+reference's jnp forms; under ``"pallas"`` a loss's backward raises, since
+the recurrence kernels have no backward (the reference has none either).
 
 The ``xattn`` block and MoE feed-forwards raise ``NotImplementedError``
 naming the ROADMAP item that will port them.

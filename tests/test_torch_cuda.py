@@ -78,6 +78,9 @@ BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-4}  # tests/test_kernels_flas
     (2, 128, 128, 4, 2, 16, True, None),     # the smoke configs' hd 16
     (1, 128, 128, 4, 1, 16, True, 16),       # hd 16, MQA, window 16
     (1, 37, 37, 4, 2, 16, True, None),       # hd 16, ragged S
+    (1, 512, 512, 16, 1, 256, True, 2048),   # recurrentgemma-9b: MQA, hd 256
+    (1, 300, 300, 16, 1, 256, True, 128),    # hd 256, ragged, the window bites
+    (1, 256, 256, 4, 2, 256, False, None),   # hd 256, no mask, GQA group 2
 ])
 def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, window):
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -110,7 +113,7 @@ def _flash_case(gen, b, s, t, h, kv, hd, causal, window, q=None, k=None, v=None)
     v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype) if v is None else v
     do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
     mask = dict(causal=causal, window=window)
-    with_bwd = hd in fa_ops._BWD_HEAD_DIMS  # the backward kernels stop at hd 128
+    with_bwd = hd in fa_ops._HEAD_DIMS  # every head dim of the forward, 256 included
     before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches)
     out, lse = fa_ops.flash_fwd(q, k, v, **mask)
     ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
@@ -154,8 +157,9 @@ def test_flash_tc_causal_diagonal_mid_tile_cross_shape(gen, s, t, window):
 
 @pytest.mark.parametrize("hd,s", [(32, 97), (32, 161), (256, 77), (256, 300), (128, 190)])
 def test_flash_tc_head_dims_ragged(gen, hd, s):
-    """hd 32 (64-byte swizzle) and 256 (four 64-column slabs, 64-key tiles)
-    at ragged lengths; dq and dkv stop at 128."""
+    """hd 32 (64-byte swizzle) and 256 (four 64-column slabs; the forward's
+    64-key tiles, dq's 32-key tiles, dkv's two column halves) at ragged
+    lengths, forward and backward."""
     h, kv = (16, 1) if hd == 256 else (4, 2)
     _flash_case(gen, 2, s, s, h, kv, hd, True, 128 if hd == 256 else None)
 

@@ -75,6 +75,9 @@ TILED = [
     (2, 256, 256, 4, 4, 32, jnp.float32, True, 128),      # sliding window
     (1, 128, 128, 2, 2, 128, jnp.bfloat16, True, None),   # bf16, wide head
     (1, 256, 256, 8, 2, 64, jnp.bfloat16, True, 64),      # bf16 + window + GQA
+    (1, 256, 256, 4, 1, 256, jnp.float32, True, 128),     # recurrentgemma: MQA, hd 256
+    (1, 256, 256, 4, 1, 256, jnp.bfloat16, True, 128),    # the same in bf16
+    (1, 256, 256, 4, 1, 256, jnp.float32, True, None),    # hd 256 causal, no window
 ]
 
 
@@ -102,14 +105,16 @@ def test_flash_bwd_plain_matches_jax_kernels(b, s, t, h, kv, hd, dtype, causal, 
         _close(g, ref, tol)
 
 
-@pytest.mark.parametrize("dtype,causal,window", [
-    (jnp.float32, True, None),
-    (jnp.float32, False, None),
-    (jnp.float32, True, 128),
-    (jnp.bfloat16, True, 64),
+@pytest.mark.parametrize("dtype,causal,window,h,kv,hd", [
+    pytest.param(jnp.float32, True, None, 4, 2, 64, id="dtype0-True-None"),
+    pytest.param(jnp.float32, False, None, 4, 2, 64, id="dtype1-False-None"),
+    pytest.param(jnp.float32, True, 128, 4, 2, 64, id="dtype2-True-128"),
+    pytest.param(jnp.bfloat16, True, 64, 4, 2, 64, id="dtype3-True-64"),
+    # recurrentgemma-9b's attention: MQA, hd 256, a window
+    pytest.param(jnp.float32, True, 128, 4, 1, 256, id="hd256-f32-True-128"),
 ])
-def test_flash_autograd_matches_jax_grad(dtype, causal, window):
-    b, s, h, kv, hd = 1, 256, 4, 2, 64
+def test_flash_autograd_matches_jax_grad(dtype, causal, window, h, kv, hd):
+    b, s = 1, 256
     (q, k, v, do), (tq, tk, tv, tdo) = _inputs(
         11, [(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)], dtype)
 
