@@ -14,9 +14,11 @@ caught):
    and time kernel, plain version and ``F.scaled_dot_product_attention`` (a
    yardstick only; the port never calls it);
 3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
-   (512*32, 64), the training shape (4096, 2048) and phases 18-19's
-   (4096, 4096) and (4096*32, 64) bf16, with ``F.rms_norm`` as the
-   yardstick;
+   (512*32, 64), the training shape (4096, 2048), phases 18-19's
+   (4096, 4096) and (4096*32, 64), and recurrentgemma-9b's serving shapes
+   (2560, 4096) (the long prompt's prefill) and (4, 4096) (a decode step
+   of 4 slots) bf16, with ``F.rms_norm`` as the yardstick; each case
+   prints the kernel's plan (registers, threads and blocks, one launch);
 4. serve full-width llama3.2-1b (16 layers, d_model 2048, 32/8 heads,
    vocab 128256, tied; seeded random bf16 weights) through
    ``repro_torch.launch.serve.run_serving`` with both kernels selected:
@@ -35,7 +37,10 @@ caught):
    f32, and at head_dim 256 (recurrentgemma-9b's MQA, 16/1 heads): phase
    19's path B=1 S=T=4096 window 2048 bf16, ragged S=T=300 window 128 bf16
    and S=T=512 window 2048 f32; time them beside the plain versions and the
-   backward of ``F.scaled_dot_product_attention`` (a yardstick only);
+   backward of ``F.scaled_dot_product_attention`` (a yardstick only).  Each
+   dkv case prints its plan (the split of the GQA group across blocks, the
+   grid and the launches a call) and must give the same bits on a second
+   call;
 7. the same for the RMSNorm backward kernel at (4096, 2048), (300, 2048),
    (16384, 64) bf16, (7, 100) f32 and phases 18-19's (4096, 4096) and
    (4096*32, 64) bf16, with ``F.rms_norm``'s backward as the yardstick;
@@ -127,7 +132,9 @@ caught):
     256 (two ``attn_local`` layers in the stacked unit), 14 RMSNorm
     forwards and 8 backwards; peak device memory under HYBRID_MAX_GB; the
     bf16 leaves at LEAF_RTOL, as phase 8's; the f32 step runs the f32-FMA
-    flash instances at head_dim 256 in a model.
+    flash instances at head_dim 256 in a model.  The median step prints
+    beside HYBRID_STEP_UNSPLIT_S, the one measured with the earlier hd-256
+    dkv kernel.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -141,11 +148,15 @@ Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
 (phases 2, 4, 8, 12, 19), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6,
 8, 19) are tensor-core kernels (``wgmma`` fed by TMA through an
 mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
-32-key tiles and dkv runs two blocks per key tile, one per 128-column half
-of dk and dv); their f32 instances (the f32 cases of phases 2 and 6, the f32
-model of phase 13, the f32 gradient steps of phases 16 and 19) and
-their bf16 instances at head_dim 16 (phases 2, 6 and 16) are f32-FMA
-kernels on the CUDA cores, as are the RMSNorm, RG-LRU and WKV-6 kernels.
+32-key tiles, and dkv keeps dk and dv on the two warpgroups of a 64-key
+block, passing P^T between them through shared memory, and splits the GQA
+group's heads across blocks where that grid is under one wave, adding the
+split's f32 partials in a second, fixed-order launch); their f32
+instances (the f32 cases of phases 2 and 6, the f32 model of phase 13,
+the f32 gradient steps of phases 16 and 19) and their bf16 instances at
+head_dim 16 (phases 2, 6 and 16) are f32-FMA kernels on the CUDA cores,
+as are the RMSNorm, RG-LRU and WKV-6 kernels (the RMSNorm forward holds
+rows of up to 4096 bf16 in registers, narrow rows several to a warp).
 Phases 2 and 6 print, for every case, the design (as the kernel library
 reports it), registers a thread (and local spill bytes) and shared memory a
 block of the instance that ran; phase 7 the
@@ -234,6 +245,10 @@ SMOKE_SEQ, SMOKE_STEPS = 128, 3
 # card), batch 1 x seq 4096, twice the 2048 window; its peak device memory
 # must stay under HYBRID_MAX_GB
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_MAX_GB = 4, 1, 4096, 76.0
+# phase 19's median step with the earlier hd-256 dkv kernel (two blocks a
+# 128-key tile, one per column half, no split of the GQA group; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside the step of this run
+HYBRID_STEP_UNSPLIT_S = 0.34754
 # (n_layers, d_model, n_heads, n_kv_heads, head_dim, vocab, tied, window) of
 # each trained configuration, held before a run
 TRAIN_SHAPES = {
@@ -295,10 +310,11 @@ def _shares(ms, bound_ms, library_ms=None) -> str:
     return note + (f" kernel/library={ms / library_ms:.3f}" if library_ms else "")
 
 
-def _kernel_note(fa_ops, kernel, dtype, hd) -> str:
+def _kernel_note(fa_ops, kernel, dtype, hd, split=1) -> str:
     """Which design runs, as the kernel library reports it (tensor cores or
-    f32 FMAs), and the instance's registers and shared memory."""
-    info = fa_ops.kernel_info(kernel, dtype, hd)
+    f32 FMAs), and the instance's registers and shared memory (for dkv, of
+    the instance that ``split`` launches)."""
+    info = fa_ops.kernel_info(kernel, dtype, hd, split)
     design = "tensor-core (wgmma + TMA)" if info["tensor_cores"] else "f32-FMA"
     return (f"[{design} kernel: {info['registers']} registers/thread, "
             f"{info['local_bytes']} B local/thread, {info['smem_bytes']} B shared/block, "
@@ -378,11 +394,12 @@ def _role(rows, role):
 
 def _rmsnorm_phase(torch, F, rn_ops, gen):
     # the serving path, the training path (batch x seq rows), then the
-    # hybrid training path's width (4096) and the SSM training path's
-    # per-head group norm (batch x seq x 32 heads rows of 64)
+    # hybrid training path's width (4096), the SSM training path's
+    # per-head group norm (batch x seq x 32 heads rows of 64), and the
+    # hybrid serving path's long prefill and decode step
     cases = [(512, 2048), (300, 2048), (N_SLOTS, 2048), (512 * 32, 64),
              (TRAIN_BATCH * TRAIN_SEQ, 2048), (HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ, 4096),
-             (TRAIN_BATCH * TRAIN_SEQ * 32, 64)]
+             (TRAIN_BATCH * TRAIN_SEQ * 32, 64), (HYBRID_PROMPT_LENS[0], 4096), (N_SLOTS, 4096)]
     rows = []
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -400,9 +417,13 @@ def _rmsnorm_phase(torch, F, rn_ops, gen):
         bound_ms, bound_by = _bound_ms(n_bytes, 4.0 * n * d, "f32")
         rows.append(dict(case=f"({n}, {d}) bf16", max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        plan = rn_ops.fwd_kernel_info(x, w)
         _print(f"[rmsnorm] ({n}, {d}) bf16: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}) "
-               f"library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)}")
+               f"library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)} "
+               f"[{plan['launches']} launch a call, {plan['blocks']} blocks of "
+               f"{plan['threads']} threads, {plan['registers']} registers/thread, "
+               f"{plan['local_bytes']} B local/thread]")
     return rows
 
 
@@ -721,7 +742,16 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
         args = (q, k, v, do, lse, delta)
         dq = fa_ops.flash_bwd_dq(*args, **mask)
         dk, dv = fa_ops.flash_bwd_dkv(*args, **mask)
+        dk2, dv2 = fa_ops.flash_bwd_dkv(*args, **mask)
         torch.cuda.synchronize()
+        # the split's partials are added in a fixed order: the same bits again
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv), name
+        del dk2, dv2
+        plan = fa_ops.dkv_plan(b, s, kv, h // kv, hd, dtype,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+        _print(f"[flash_bwd_dkv] {name}: split={plan['split']} grid={plan['blocks']} blocks "
+               f"launches_per_call={plan['launches']} workspace_MB="
+               f"{plan['workspace_bytes'] / 1e6:.2f}; a second call bit-equal")
         ref_dq = fa_ops.flash_bwd_dq_plain(*args, **mask)
         ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(*args, **mask)
         tol = GRAD_TOL[_dtype_name(dtype)]
@@ -766,7 +796,8 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
             rows[kernel].append(dict(role=role, case=name, max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                      library_ms=library_ms))
-            note = _kernel_note(fa_ops, kernel, dtype, hd)
+            note = _kernel_note(fa_ops, kernel, dtype, hd,
+                                plan["split"] if kernel == "flash_bwd_dkv" else 1)
             _print(f"[{kernel}] {name}: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                    f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}; "
                    f"{moved / 1e6:.1f} MB, {2e-9 * matmuls * b * h * pairs * hd:.1f} GFLOP) "
@@ -951,6 +982,8 @@ def _train_phase(torch, K, arch="llama3.2-1b", smoke=False, steps=TRAIN_STEPS,
            f"max_memory_allocated_GB={peak_gb:.3f}")
     if arch == "recurrentgemma-9b":
         assert peak_gb < HYBRID_MAX_GB, (peak_gb, HYBRID_MAX_GB)
+        _print(f"{tag} median_s={median_s:.5f} against {HYBRID_STEP_UNSPLIT_S} s with the "
+               f"earlier hd-256 dkv kernel (ratio {median_s / HYBRID_STEP_UNSPLIT_S:.4f})")
     return launches, cfg, losses, summary, sess.db
 
 
@@ -1354,8 +1387,9 @@ def main() -> int:
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
     # training path (phase 8); the backward kernels on the training path; the
-    # recurrence kernels and, under "hybrid", flash at head_dim 256 on the
-    # serving paths of phases 12 and 14; under "smoke", the flash kernels at
+    # recurrence kernels and, under "hybrid", flash at head_dim 256 and the
+    # RMSNorm forward at width 4096 on the serving paths of phases 12 and 14;
+    # under "smoke", the flash kernels at
     # head_dim 16 on phase 16's paths; under "resume", the training kernels
     # on phase 17's two runs (phase 8's shapes); under "ssm_train" and
     # "hybrid_train", the training paths of phases 18 and 19 (rwkv6-1.6b's
@@ -1377,6 +1411,7 @@ def main() -> int:
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
     fwd_2048, fwd_4096 = (case(rms, f"{n} bf16") for n in (rows_2048, rows_4096))
+    fwd_prefill = case(rms, f"({HYBRID_PROMPT_LENS[0]}, 4096) bf16")
     bwd_2048, bwd_4096 = (case(rms_bwd, f"{n} bfloat16") for n in (rows_2048, rows_4096))
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
@@ -1402,6 +1437,7 @@ def main() -> int:
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
              train=dict(launches=train_launches["rmsnorm_fwd"], **pick(fwd_2048)),
+             hybrid=dict(launches=hybrid_launches["rmsnorm_fwd"], **pick(fwd_prefill)),
              resume=resume("rmsnorm_fwd", fwd_2048), ssm_train=ssm("rmsnorm_fwd", fwd_2048),
              hybrid_train=hyb("rmsnorm_fwd", fwd_4096)),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",

@@ -47,8 +47,8 @@
 //    pass the 227 KB a block may have; the dQ accumulator is then 128
 //    registers a thread, beside 16 each for S and dP.
 //
-// dkv in bf16 (`flash_bwd_dkv_tc_kernel`).  One block per (key tile of 128
-// keys, KV head, batch row), each warpgroup owning 64 keys:
+// dkv in bf16 at hd 32-128 (`flash_bwd_dkv_tc_kernel`).  One block per (key
+// tile of 128 keys, KV head, batch row), each warpgroup owning 64 keys:
 //  * thread 0 loads the block's K and V once, then streams Q and dO tiles
 //    of the group's query heads x the query tiles the mask leaves;
 //  * the scores are computed transposed, keys as wgmma's M dimension:
@@ -58,15 +58,21 @@
 //    no round trip through shared memory;
 //  * dK and dV accumulate in registers across the whole GQA group and leave
 //    the kernel once, scaled, in bf16, with no atomics.  Query tiles of 64
-//    rows (32 at hd 128 and 256, where the two accumulators alone take 128
-//    registers a thread): at most ~200 registers a thread, no spills;
-//  * at hd 256 a block would need 2 x 64 x 256 f32 accumulators a
-//    warpgroup, 256 registers a thread, past the 255 cap.  So the columns
-//    are split: each key tile has two blocks, each accumulating one
-//    128-column half of dK and dV (the hd-128 instance's registers), and
-//    both computing the whole S^T and dP^T from all 256 columns, 1.5x the
-//    products of one block; the two blocks are adjacent in the grid, so
-//    the second reads the Q and dO tiles from L2.
+//    rows (32 at hd 128, where the two accumulators alone take 128
+//    registers a thread): at most ~200 registers a thread, no spills.
+// dkv in bf16 at hd 256 (`flash_bwd_dkv_wg_kernel`, described above it):
+// 64 x 256 f32 dK and dV would take 256 registers a thread in one
+// warpgroup, past the 255 cap, so a block's two warpgroups own the same 64
+// keys, warpgroup 0 dV and warpgroup 1 dK, and pass P^T from the first to
+// the second through shared memory.  Under MQA (recurrentgemma-9b's 16/1
+// heads) one block a key tile is 64 blocks at T = 4096, one an SM (225 KB
+// of shared memory), while each walks 16 heads; so where that grid is under
+// one wave the wrapper's planner splits the GQA group's heads over SPLIT
+// blocks a key tile (the least divisor of the group that makes two waves),
+// each writing its scaled f32 dK and dV to its own plane of a workspace
+// [2][SPLIT][B][T][KV][256], and `dkv_split_sum_kernel` adds the planes in
+// split order and writes bf16, so the result is the same on every run.
+// SPLIT = 1 writes bf16 from the block, in one launch.
 //  Rounding P and dS to bf16 before their products is the rounding the f32
 //  reference does not make (tests/test_torch_flash_tc.py holds an emulation
 //  of it against the reference at the bf16 gradient tolerance).
@@ -442,13 +448,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct DkvTiles {
+  static_assert(HD <= 128, "head_dim 256 runs flash_bwd_dkv_wg_kernel");
   static constexpr int STAGES = 2;  // Q/dO ring depth
   static constexpr int BQ = HD >= 128 ? 32 : 64;  // query rows per streamed tile
-  // columns of dK and dV a block accumulates: at hd 256 the two 64 x 256 f32
-  // accumulators would take 256 registers a thread, so each key tile has two
-  // blocks, one per 128-column half, that both compute the whole S and dP
-  static constexpr int NH = HD == 256 ? 128 : HD;
-  static constexpr int HALVES = HD / NH;
   static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
   static constexpr int SLABS = HD / SPAN;
   static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
@@ -463,7 +465,9 @@ struct DkvParams {
   const float* delta;  // (B, H, S) f32, contiguous
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
+  float* ws;  // split > 1: f32 partial dK, dV planes [2][split][B][T][KV][HD]
   int S, T, H, KV, B, group;
+  int split;  // blocks a key tile is split into over the group's query heads
   long long sdk[3], sdv[3];  // (batch, sequence, head) element strides
   int causal;
   int window;  // <= 0: no window
@@ -484,15 +488,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + C::STAGES;
 
-  // key tiles with the most causal work first; the halves of a key tile's
-  // columns side by side, so they read the same Q and dO tiles from L2
-  const int kb = p.KV * p.B * C::HALVES;
+  // key tiles with the most causal work first
+  const int kb = p.KV * p.B;
   const int k0 = (int)(blockIdx.x / kb) * BKV;
-  const int half = (int)(blockIdx.x % kb) % C::HALVES;
-  const int kvh = (int)(blockIdx.x % kb) / C::HALVES % p.KV;
-  const int b = (int)(blockIdx.x % kb) / C::HALVES / p.KV;
-  // byte offset of this block's first dK/dV column in a Q or dO tile
-  const int cols = half * (C::NH / C::SPAN) * BQ * C::ROWB;
+  const int kvh = (int)(blockIdx.x % kb) % p.KV;
+  const int b = (int)(blockIdx.x % kb) / p.KV;
 
   // query tiles that intersect the mask support of this key tile
   int q_lo = 0;
@@ -551,9 +551,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint64_t q_desc = make_desc(sqd, 0, 8 * C::ROWB, C::ROWB);
   const uint64_t qt_desc = make_desc(sqd, BQ * C::ROWB, 8 * C::ROWB, C::ROWB);
 
-  float dk[C::NH / 2], dv[C::NH / 2];
+  float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-  for (int i = 0; i < C::NH / 2; ++i) {
+  for (int i = 0; i < HD / 2; ++i) {
     dk[i] = 0.f;
     dv[i] = 0.f;
   }
@@ -641,10 +641,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<C::NH>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + cols + kk * 16 * C::ROWB));
+        wgmma_rs<HD>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + kk * 16 * C::ROWB));
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<C::NH>(dk, da[kk], desc_at(dqt, cols + kk * 16 * C::ROWB));
+        wgmma_rs<HD>(dk, da[kk], desc_at(dqt, kk * 16 * C::ROWB));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -657,11 +657,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; r < 2; ++r) {
     const int t = t0 + 8 * r;
     if (t < p.T) {
-      const int c0 = half * C::NH + col;
-      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + c0;
-      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + c0;
+      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + col;
+      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + col;
 #pragma unroll
-      for (int i = 0; i < C::NH / 8; ++i) {
+      for (int i = 0; i < HD / 8; ++i) {
         *reinterpret_cast<uint32_t*>(dkp + 8 * i) =
             pack_bf16(dk[4 * i + 2 * r] * p.scale, dk[4 * i + 2 * r + 1] * p.scale);
         *reinterpret_cast<uint32_t*>(dvp + 8 * i) =
@@ -671,32 +670,327 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// dkv in bf16 at head_dim 256 (`flash_bwd_dkv_wg_kernel`): one block per
+// (key tile of 64 keys, split of the GQA group's heads, KV head, batch row).
+// dK and dV of 64 keys x 256 columns would take 256 f32 registers a thread
+// in one warpgroup, so the two warpgroups own the same 64 keys and one
+// accumulator each:
+//  * warpgroup 0 computes S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse
+//    log2 e) (masked), writes P^T in f32 to a shared-memory slot of its
+//    stage, and accumulates dV += P^T dO;
+//  * warpgroup 1 computes dP^T = V dO^T at the same time, waits for P^T
+//    (an mbarrier of 128 arrivals per stage), forms dS^T = P^T (dP^T -
+//    delta) and accumulates dK += dS^T Q.
+// The m64n32 accumulators of S^T and dP^T have the same layout in both
+// warpgroups, so thread i of warpgroup 1 reads the 16 values that thread i
+// of warpgroup 0 wrote, laid out thread-fastest (no bank conflicts): no
+// product is done twice and the exchange is 16 KB a tile in one direction.
+// A stage's P^T slot is written again only after the stage's next tile has
+// landed, which waits for both warpgroups to release the stage.
+struct DkvWgTiles {
+  static constexpr int HD = 256;
+  static constexpr int STAGES = 2;  // Q/dO (and P^T) ring depth: a third would not fit
+  static constexpr int BK = 64;     // keys of a block, shared by both warpgroups
+  // query rows per streamed tile: 64 makes the score products m64n64 rather
+  // than m64n32, fewer and fuller products a tile (215 registers a thread,
+  // no spills)
+  static constexpr int BQ = 64;
+  static constexpr int SPAN = 64;   // columns of one swizzled slab
+  static constexpr int SLABS = HD / SPAN;
+  static constexpr int ROWB = 2 * SPAN;  // bytes of a slab row = swizzle span
+  static constexpr int KV_BYTES = BK * HD * 2;  // the block's K or V
+  static constexpr int Q_BYTES = BQ * HD * 2;   // one Q or dO tile
+  static constexpr int P_VALUES = BQ / 2;       // P^T values a thread exchanges a tile
+  static constexpr int P_BYTES = 128 * P_VALUES * 4;
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + STAGES * (2 * Q_BYTES + P_BYTES) + 8 * (1 + 3 * STAGES);
+};
+
+// PARTIAL: the block walks its split's group / split heads and writes f32
+// partial sums to the workspace; otherwise the whole group, and bf16 dK, dV
+template <bool PARTIAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ DkvParams p) {
+  using C = DkvWgTiles;
+  constexpr int BQ = C::BQ, HD = C::HD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sv = sk + C::KV_BYTES;
+  uint8_t* sqd = sv + C::KV_BYTES;  // [STAGES][Q tile, dO tile], each [SLABS][BQ][SPAN]
+  float* sp = reinterpret_cast<float*>(sqd + C::STAGES * 2 * C::Q_BYTES);  // [STAGES][P][128]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sqd + C::STAGES * (2 * C::Q_BYTES + C::P_BYTES));
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* p_full = empty + C::STAGES;
+
+  // key tiles with the most causal work first, then the splits of a key
+  // tile's group side by side
+  const int split = PARTIAL ? p.split : 1;
+  const int kb = p.KV * p.B * split;
+  const int k0 = (int)(blockIdx.x / kb) * C::BK;
+  const int part = (int)(blockIdx.x % kb) % split;
+  const int kvh = (int)(blockIdx.x % kb) / split % p.KV;
+  const int b = (int)(blockIdx.x % kb) / split / p.KV;
+  // this block's query heads: h0 .. h0 + heads - 1
+  const int heads = p.group / split;
+  const int h0 = kvh * p.group + part * heads;
+
+  // query tiles that intersect the mask support of this key tile
+  int q_lo = 0;
+  int q_hi = p.S;
+  if (p.causal) q_lo = min(k0, p.S);
+  if (p.window > 0) q_hi = min(q_hi, k0 + C::BK - 1 + p.window);
+  const int qt0 = q_lo / BQ;
+  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt0 : 0;
+  const int n_it = heads * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * 128);  // every thread releases the stage
+      mbar_init(p_full + s, 128);     // warpgroup 0's threads publish P^T
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: K and V and Q/dO tiles 0 .. STAGES - 2
+  // here, tile it + STAGES - 1 at the top of iteration it, into the stage
+  // that tile it - 1 has released, so tiles load while another is computed.
+  const bool issuer = threadIdx.x == 0;
+  auto load_q = [&](int it) {
+    const int s = it % C::STAGES;
+    const int h = h0 + it / n_qt;
+    const int q0 = (qt0 + it % n_qt) * BQ;
+    uint8_t* st = sqd + s * 2 * C::Q_BYTES;
+    mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
+    mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(st + j * BQ * C::ROWB, &p.tq, full + s, j * C::SPAN, q0, h, b);
+      tma_load_4d(st + C::Q_BYTES + j * BQ * C::ROWB, &p.tdo, full + s, j * C::SPAN, q0, h, b);
+    }
+  };
+  if (issuer) {
+    mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+    for (int j = 0; j < C::SLABS; ++j) {
+      tma_load_4d(sk + j * C::BK * C::ROWB, &p.tk, kv_full, j * C::SPAN, k0, kvh, b);
+      tma_load_4d(sv + j * C::BK * C::ROWB, &p.tv, kv_full, j * C::SPAN, k0, kvh, b);
+    }
+    for (int j = 0; j < C::STAGES - 1 && j < n_it; ++j) load_q(j);
+  }
+
+  // warpgroup 0: scores against Q, then dV against dO; warpgroup 1: dP
+  // against dO, then dK against Q
+  const int wg = warpgroup_idx();
+  const int tid = threadIdx.x % 128;
+  const int t0 = k0 + 16 * (tid / 32) + (tid % 32) / 4;  // this thread's keys: t0, t0 + 8
+  const int col = 2 * (tid % 4);                         // its first query column of each 8
+  // K-major descriptors of the block's K (warpgroup 0) or V rows and of
+  // stage 0's Q (or dO) tile; an MN-major one of stage 0's dO (or Q) tile
+  const uint32_t first = wg == 0 ? 0 : C::Q_BYTES;  // the score product's tile
+  const uint64_t kv_desc = make_desc(wg == 0 ? sk : sv, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t q_desc = make_desc(sqd + first, 0, 8 * C::ROWB, C::ROWB);
+  const uint64_t qt_desc = make_desc(sqd + (C::Q_BYTES - first), BQ * C::ROWB, 8 * C::ROWB,
+                                     C::ROWB);
+
+  float acc[HD / 2];  // dV (warpgroup 0) or dK (warpgroup 1) of this thread's keys
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    if (issuer && it + C::STAGES - 1 < n_it) load_q(it + C::STAGES - 1);
+    __syncwarp();
+    const int s = it % C::STAGES;
+    const uint32_t phase = (it / C::STAGES) & 1;
+    const int h = h0 + it / n_qt;
+    const int q0 = (qt0 + it % n_qt) * BQ;
+    // no key of the block is seen by a row of the tile / some element is masked
+    const bool skip = k0 >= p.T || (p.causal && q0 + BQ - 1 < k0) ||
+                      (p.window > 0 && k0 + C::BK - 1 <= q0 - p.window);
+    const bool edge = q0 + BQ > p.S || k0 + C::BK > p.T || (p.causal && q0 < k0 + C::BK - 1) ||
+                      (p.window > 0 && q0 + BQ - 1 >= k0 + p.window);
+    float* slot = sp + s * C::P_VALUES * 128 + tid;  // this thread's P^T values, stride 128
+
+    // lse (base 2; warpgroup 0) or delta (warpgroup 1) of this thread's
+    // query columns, read while the tile lands
+    float lv[BQ / 4];
+    if (!skip) {
+      const float* src = (wg == 0 ? p.lse : p.delta) + ((long long)b * p.H + h) * p.S;
+      const float mul = wg == 0 ? LOG2E : 1.f;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + 8 * i + col + e;
+          lv[2 * i + e] = q < p.S ? __ldg(src + q) * mul : 0.f;
+        }
+    }
+
+    mbar_wait(full + s, phase);
+    if (!skip) {
+      float sc[BQ / 2];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int slab = kk / (C::SPAN / 16);
+        const int off = (kk % (C::SPAN / 16)) * 32;
+        wgmma_ss<BQ>(sc, desc_at(kv_desc, slab * C::BK * C::ROWB + off),
+                     desc_at(q_desc, s * 2 * C::Q_BYTES + slab * BQ * C::ROWB + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lv[2 * i + (e & 1)]));
+            if (edge) {
+              const int t = t0 + 8 * (e >> 1);
+              const int q = q0 + 8 * i + col + (e & 1);
+              const bool ok = q < p.S && t < p.T && (!p.causal || t <= q) &&
+                              (p.window <= 0 || t > q - p.window);
+              if (!ok) pv = 0.f;
+            }
+            sc[4 * i + e] = pv;
+            slot[(4 * i + e) * 128] = pv;
+          }
+        mbar_arrive(p_full + s);
+      } else {
+        mbar_wait(p_full + s, phase);
+#pragma unroll
+        for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * i + e] = slot[(4 * i + e) * 128] * (sc[4 * i + e] - lv[2 * i + (e & 1)]);
+      }
+      // P^T or dS^T, rounded to bf16: the register-A operand of the product
+      uint32_t a[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          a[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<HD>(acc, a[kk], desc_at(qt_desc, s * 2 * C::Q_BYTES + kk * 16 * C::ROWB));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else if (wg == 0) {
+      mbar_arrive(p_full + s);  // the P^T barrier completes a phase every tile
+    }
+    mbar_arrive(empty + s);
+  }
+
+  // warpgroup 0 writes dV, warpgroup 1 dK (scaled)
+  const float mul = wg == 0 ? 1.f : p.scale;
+  if constexpr (PARTIAL) {
+    const long long plane = (long long)p.B * p.T * p.KV * HD;  // floats of one split's dK
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + 8 * r;
+      if (t < p.T) {
+        float* dst = p.ws + (wg == 0 ? split * plane : 0) +
+                     (((long long)part * p.B + b) * p.T + t) * p.KV * HD + (long long)kvh * HD +
+                     col;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i)
+          *reinterpret_cast<float2*>(dst + 8 * i) =
+              make_float2(acc[4 * i + 2 * r] * mul, acc[4 * i + 2 * r + 1] * mul);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + 8 * r;
+      if (t < p.T) {
+        __nv_bfloat16* dst =
+            wg == 0 ? p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + col
+                    : p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + col;
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i)
+          *reinterpret_cast<uint32_t*>(dst + 8 * i) =
+              pack_bf16(acc[4 * i + 2 * r] * mul, acc[4 * i + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+constexpr int SUM_THREADS = 256;
+
+// dK and dV from the split kernel's f32 planes: thread i of plane `which`
+// (blockIdx.y: 0 dK, 1 dV) adds columns 4 (i % (HD / 4)) .. + 3 of row
+// i / (HD / 4) = (b T + t) KV + kvh over the splits in order, then writes
+// them in bf16 through the output's strides.
 template <int HD>
-int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
-  using C = DkvTiles<HD>;
+__global__ void __launch_bounds__(SUM_THREADS)
+    dkv_split_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int split, int T, int KV,
+                         long long rows, long long sdk0, long long sdk1, long long sdk2,
+                         long long sdv0, long long sdv1, long long sdv2) {
+  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (i >= rows * (HD / 4)) return;
+  const int which = blockIdx.y;
+  const long long plane = rows * (HD / 4);  // float4s of one split's plane
+  const float4* src = reinterpret_cast<const float4*>(ws) + (long long)which * split * plane + i;
+  float4 s = __ldg(src);
+  for (int k = 1; k < split; ++k) {
+    const float4 t = __ldg(src + k * plane);
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  const long long row = i / (HD / 4);
+  const int c = (int)(i % (HD / 4)) * 4;
+  const int kvh = (int)(row % KV);
+  const int t = (int)(row / KV % T);
+  const long long b = row / KV / T;
+  __nv_bfloat16* out = which == 0 ? dk + b * sdk0 + (long long)t * sdk1 + kvh * sdk2 + c
+                                  : dv + b * sdv0 + (long long)t * sdv1 + kvh * sdv2 + c;
+  reinterpret_cast<uint32_t*>(out)[0] = pack_bf16(s.x, s.y);
+  reinterpret_cast<uint32_t*>(out)[1] = pack_bf16(s.z, s.w);
+}
+
+template <int HD>
+int launch_dkv(const Params& p, int B, int KV, int split, float* ws, cudaStream_t stream) {
+  // only the hd-256 instance splits the group; the planner keeps 1 elsewhere
+  if (split < 1 || p.group % split != 0 || (split > 1 && (HD != 256 || ws == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  constexpr int BK = HD == 256 ? DkvWgTiles::BK : BKV;
+  constexpr int Q_ROWS = HD == 256 ? DkvWgTiles::BQ : DkvTiles<(HD > 128 ? 128 : HD)>::BQ;
+  constexpr int SPAN = HD < 64 ? HD : 64;
   DkvParams d;
-  int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], BKV,
-                          C::SPAN);
+  int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], BK,
+                          SPAN);
   if (!err)
-    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], BKV,
-                        C::SPAN);
+    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], BK, SPAN);
   if (!err)
-    err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], C::BQ,
-                        C::SPAN);
+    err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], Q_ROWS,
+                        SPAN);
   if (!err)
     err = make_tile_map(&d.tdo, p.dout, B, p.S, p.H, HD, p.st[DO][0], p.st[DO][1], p.st[DO][2],
-                        C::BQ, C::SPAN);
+                        Q_ROWS, SPAN);
   if (err) return err;
   d.lse = p.lse;
   d.delta = p.delta;
   d.dk = static_cast<__nv_bfloat16*>(p.dk);
   d.dv = static_cast<__nv_bfloat16*>(p.dv);
+  d.ws = ws;
   d.S = p.S;
   d.T = p.T;
   d.H = p.H;
   d.KV = KV;
   d.B = B;
   d.group = p.group;
+  d.split = split;
   for (int a = 0; a < 3; ++a) {
     d.sdk[a] = p.st[DK][a];
     d.sdv[a] = p.st[DV][a];
@@ -705,13 +999,30 @@ int launch_dkv(const Params& p, int B, int KV, cudaStream_t stream) {
   d.window = p.window;
   d.scale = p.scale;
   d.scale_log2 = p.scale * LOG2E;
-  // set on every launch: the attribute holds for the current device only
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int n_kt = (p.T + BKV - 1) / BKV;
-  flash_bwd_dkv_tc_kernel<HD><<<n_kt * KV * B * C::HALVES, THREADS, C::SMEM, stream>>>(d);
-  return (int)cudaGetLastError();
+  const int blocks = (p.T + BK - 1) / BK * KV * B * split;
+  if constexpr (HD == 256) {
+    // set on every launch: the attribute holds for the current device only
+    const auto kernel = split > 1 ? flash_bwd_dkv_wg_kernel<true> : flash_bwd_dkv_wg_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DkvWgTiles::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, THREADS, DkvWgTiles::SMEM, stream>>>(d);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || split == 1) return (int)e;
+    const long long rows = (long long)B * p.T * KV;
+    const dim3 grid((unsigned)((rows * (HD / 4) + SUM_THREADS - 1) / SUM_THREADS), 2);
+    dkv_split_sum_kernel<HD><<<grid, SUM_THREADS, 0, stream>>>(
+        ws, d.dk, d.dv, split, p.T, KV, rows, d.sdk[0], d.sdk[1], d.sdk[2], d.sdv[0], d.sdv[1],
+        d.sdv[2]);
+    return (int)cudaGetLastError();
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DkvTiles<HD>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_dkv_tc_kernel<HD><<<blocks, THREADS, DkvTiles<HD>::SMEM, stream>>>(d);
+    return (int)cudaGetLastError();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -959,12 +1270,15 @@ int launch_dq(const Params& p, int B, int KV, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-inline int dispatch_hd(bool dkv, const Params& p, int B, int KV, int hd, cudaStream_t stream) {
+inline int dispatch_hd(bool dkv, const Params& p, int B, int KV, int hd, int split, float* ws,
+                       cudaStream_t st) {
   switch (hd) {
-    case 32: return dkv ? launch_dkv<32>(p, B, KV, stream) : launch_dq<32>(p, B, KV, stream);
-    case 64: return dkv ? launch_dkv<64>(p, B, KV, stream) : launch_dq<64>(p, B, KV, stream);
-    case 128: return dkv ? launch_dkv<128>(p, B, KV, stream) : launch_dq<128>(p, B, KV, stream);
-    case 256: return dkv ? launch_dkv<256>(p, B, KV, stream) : launch_dq<256>(p, B, KV, stream);
+    case 32: return dkv ? launch_dkv<32>(p, B, KV, split, ws, st) : launch_dq<32>(p, B, KV, st);
+    case 64: return dkv ? launch_dkv<64>(p, B, KV, split, ws, st) : launch_dq<64>(p, B, KV, st);
+    case 128:
+      return dkv ? launch_dkv<128>(p, B, KV, split, ws, st) : launch_dq<128>(p, B, KV, st);
+    case 256:
+      return dkv ? launch_dkv<256>(p, B, KV, split, ws, st) : launch_dq<256>(p, B, KV, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -974,7 +1288,7 @@ inline int dispatch_hd(bool dkv, const Params& p, int B, int KV, int hd, cudaStr
 int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq, void* dk, void* dv, int dtype, int B,
         int S, int T, int H, int KV, int hd, const long long* strides, int causal, int window,
-        float scale, void* stream) {
+        float scale, int split, void* ws, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || S <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -996,10 +1310,12 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
   p.window = window;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool tensor_cores = dtype == 1 && hopper::tensor_core_hd(hd);
+  if (split != 1 && !tensor_cores) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dkv ? dispatch_dkv_f32(p, B, KV, hd, st) : dispatch_dq_f32(p, B, hd, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (hopper::tensor_core_hd(hd)) return tc::dispatch_hd(dkv, p, B, KV, hd, st);
+  if (tensor_cores) return tc::dispatch_hd(dkv, p, B, KV, hd, split, static_cast<float*>(ws), st);
   if (hd != 16) return (int)cudaErrorInvalidValue;
   return dkv ? launch_dkv<__nv_bfloat16, 16>(p, B, KV, st)
              : launch_dq<__nv_bfloat16, 16>(p, B, st);
@@ -1013,39 +1329,57 @@ int run(bool dkv, const void* q, const void* k, const void* v, const void* dout,
 // checks).  lse and delta are contiguous (B, H, S) float32.  `strides` holds 21 element strides,
 // (batch, sequence, head) for q, k, v, do, dq, dk, dv in that order; the
 // head_dim axis of every tensor must be contiguous.  window <= 0 means none.
-// Each entry point returns cudaGetLastError() after its launch (0 on success).
+// Each entry point returns cudaGetLastError() after its launches (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int dtype, int B,
                             int S, int T, int H, int KV, int hd, const long long* strides,
                             int causal, int window, float scale, void* stream) {
   return run(false, q, k, v, dout, lse, delta, dq, nullptr, nullptr, dtype, B, S, T, H, KV, hd,
-             strides, causal, window, scale, stream);
+             strides, causal, window, scale, 1, nullptr, stream);
 }
 
+// split: blocks a key tile's work is split into over the GQA group's query
+// heads, a divisor of H / KV; above 1 only for the bf16 hd-256 instance,
+// which then needs `ws`, 2 * split * B * T * KV * hd f32 of scratch, and
+// makes two launches (the split kernel, then the fixed-order sum).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int dtype,
                              int B, int S, int T, int H, int KV, int hd,
                              const long long* strides, int causal, int window, float scale,
-                             void* stream) {
+                             int split, void* ws, void* stream) {
   return run(true, q, k, v, dout, lse, delta, nullptr, dk, dv, dtype, B, S, T, H, KV, hd,
-             strides, causal, window, scale, stream);
+             strides, causal, window, scale, split, ws, stream);
 }
 
 namespace {
+
+// the dkv tensor-core instance at HD: its attributes and dynamic shared memory
+template <int HD>
+cudaError_t dkv_tc_attributes(cudaFuncAttributes* a, bool partial, int* smem) {
+  if constexpr (HD == 256) {
+    *smem = tc::DkvWgTiles::SMEM;
+    return partial ? cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<true>)
+                   : cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<false>);
+  } else {
+    *smem = tc::DkvTiles<HD>::SMEM;
+    return cudaFuncGetAttributes(a, tc::flash_bwd_dkv_tc_kernel<HD>);
+  }
+}
 
 // registers and local (spill) bytes a thread, dynamic shared memory and
 // threads a block, of the kernel instance that a launch of (dtype, hd) runs,
 // and whether it is a tensor-core kernel
 template <int HD>
-int info(bool dkv, int dtype, int* out) {
+int info(bool dkv, int dtype, bool partial, int* out) {
   constexpr bool tc_hd = hopper::tensor_core_hd(HD);
   cudaFuncAttributes a;
   cudaError_t err;
+  int smem = 0;
   if (dtype == 0)
     err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<float, HD>)
               : cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<float, HD>);
   else if constexpr (tc_hd)
-    err = dkv ? cudaFuncGetAttributes(&a, tc::flash_bwd_dkv_tc_kernel<HD>)
+    err = dkv ? dkv_tc_attributes<HD>(&a, partial, &smem)
               : cudaFuncGetAttributes(&a, tc::flash_bwd_dq_tc_kernel<HD>);
   else
     err = dkv ? cudaFuncGetAttributes(&a, flash_bwd_dkv_kernel<__nv_bfloat16, HD>)
@@ -1055,7 +1389,7 @@ int info(bool dkv, int dtype, int* out) {
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   if (tensor_cores) {
-    out[2] = dkv ? tc::DkvTiles<HD>::SMEM : tc::DqTiles<HD>::SMEM;
+    out[2] = dkv ? smem : tc::DqTiles<HD>::SMEM;
     out[3] = tc::THREADS;
   } else {
     out[2] = (int)(dkv ? dkv_smem_bytes<HD>() : dq_smem_bytes<HD>());
@@ -1065,13 +1399,13 @@ int info(bool dkv, int dtype, int* out) {
   return 0;
 }
 
-int info_hd(bool dkv, int dtype, int hd, int* out) {
+int info_hd(bool dkv, int dtype, int hd, bool partial, int* out) {
   switch (hd) {
-    case 16: return info<16>(dkv, dtype, out);
-    case 32: return info<32>(dkv, dtype, out);
-    case 64: return info<64>(dkv, dtype, out);
-    case 128: return info<128>(dkv, dtype, out);
-    case 256: return info<256>(dkv, dtype, out);
+    case 16: return info<16>(dkv, dtype, partial, out);
+    case 32: return info<32>(dkv, dtype, partial, out);
+    case 64: return info<64>(dkv, dtype, partial, out);
+    case 128: return info<128>(dkv, dtype, partial, out);
+    case 256: return info<256>(dkv, dtype, partial, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1080,11 +1414,12 @@ int info_hd(bool dkv, int dtype, int hd, int* out) {
 
 // out[5] = registers a thread, local bytes a thread, dynamic shared memory
 // bytes and threads a block of the kernel that (dtype, hd) launches, and 1
-// if it is a tensor-core kernel (the wrapper then checks strides for TMA)
+// if it is a tensor-core kernel (the wrapper then checks strides for TMA);
+// for dkv with split > 1, of the bf16 hd-256 instance that writes partials
 extern "C" int flash_bwd_dq_info(int dtype, int hd, int* out) {
-  return info_hd(false, dtype, hd, out);
+  return info_hd(false, dtype, hd, false, out);
 }
 
-extern "C" int flash_bwd_dkv_info(int dtype, int hd, int* out) {
-  return info_hd(true, dtype, hd, out);
+extern "C" int flash_bwd_dkv_info(int dtype, int hd, int split, int* out) {
+  return info_hd(true, dtype, hd, split > 1, out);
 }

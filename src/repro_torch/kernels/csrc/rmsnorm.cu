@@ -6,71 +6,131 @@
 //
 // What bounds it on the H100: memory.  It reads each row once and writes it
 // once (2 * N * D * itemsize bytes plus w), with ~4 flops per element, far
-// below the ~295 flop/byte ridge.  The design therefore aims only at full-width
-// memory transactions: one warp per row, 16-byte vector loads and stores
-// (8 bf16 or 4 f32 per lane) whenever D allows, a shuffle reduction of the sum
-// of squares, and a second pass over the row (served from L1/L2) to scale and
-// store.  Rows of any length work; D = d_model (2048) and D = head_dim (64)
-// are the serving shapes.
+// below the ~295 flop/byte ridge.  The design reads each row from device
+// memory once, in full-width transactions:
+//  * 16-byte accesses (8 bf16 or 4 f32 a lane) whenever the row and the
+//    pointers allow, one element a lane otherwise;
+//  * rows of up to 512 accesses (D <= 4096 in bf16, 2048 in f32) stay in
+//    registers between the sum of squares and the scaled store: a group of
+//    G = 8, 16 or 32 lanes takes a row, lane l holding accesses j * G + l,
+//    j < CH (16 accesses, 64 registers, at D = 4096 bf16).  A warp takes
+//    32 / G rows at once, RG times over, and issues every load before the
+//    first reduction, so each lane has at least four 16-byte loads in flight
+//    (at D = 64 bf16: groups of 8 lanes, 16 rows a warp, none idle);
+//  * the lane's columns of w are loaded with the rows and held too: read
+//    after the reduction, their latency (from device memory on a cold L2)
+//    came on top of the rows', and that chain set the time of a call of a
+//    few rows;
+//  * the sum of squares is a shuffle reduction inside each group (xor
+//    offsets below G), f32 throughout;
+//  * blocks shrink from 8 warps to as few as one until there are as many
+//    blocks as SMs, so short calls still spread over the card;
+//  * wider rows take a looped kernel that reads each row a second time
+//    (from L1/L2) to scale and store it.
+// One launch a call.  D = d_model (2048, 4096) and D = head_dim (64: the
+// rwkv6 group norm) are the path's widths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int MAX_WARPS = 8;
 
-// --- vector loads/stores of VEC elements as f32 ------------------------------
-__device__ __forceinline__ void load(const float* p, float (&f)[1]) { f[0] = *p; }
-__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&f)[1]) {
-  f[0] = __bfloat162float(*p);
-}
-__device__ __forceinline__ void load(const float* p, float (&f)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
-}
-__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+// Rows of up to G * CH accesses of VEC elements, held in registers.  Group
+// g = lane / G of warp w in block b takes rows
+// ((b * warps + w) * RG + k) * (32 / G) + g, k < RG; its lane l = lane % G
+// holds columns (j * G + l) * VEC + e, j < CH, e < VEC, of each.
+template <typename T, int VEC, int G, int CH, int RG>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    rmsnorm_fwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            T* __restrict__ y, long long n, int d, float eps) {
+  using R = typename Raw<T, VEC>::type;
+  constexpr int GPW = 32 / G;  // row groups of a warp at once
+  const int lane = threadIdx.x & 31;
+  const int l = lane % G;
+  const long long first =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * RG * GPW + lane / G;
+
+  // every load first; a group past the last row holds zeros and stores nothing
+  R xr[RG][CH], wr[CH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = __bfloat1622float2(h[i]);
-    f[2 * i] = a.x;
-    f[2 * i + 1] = a.y;
+  for (int k = 0; k < RG; ++k) {
+    const long long row = first + k * GPW;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = (j * G + l) * VEC;
+      xr[k][j] = zero<R>();
+      if (row < n && c < d) xr[k][j] = *reinterpret_cast<const R*>(x + row * d + c);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (j * G + l) * VEC;
+    wr[j] = zero<R>();
+    if (c < d) wr[j] = *reinterpret_cast<const R*>(w + c);
+  }
+  float r[RG];
+#pragma unroll
+  for (int k = 0; k < RG; ++k) {
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      float f[VEC];
+      unpack(xr[k][j], f);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+    }
+    // uniform across the warp: every lane takes part in the shuffles
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    r[k] = rsqrtf(ss / (float)d + eps);
+  }
+
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (j * G + l) * VEC;
+    if (c < d) {
+      opaque(wr[j]);
+      float g[VEC];
+      unpack(wr[j], g);
+#pragma unroll
+      for (int k = 0; k < RG; ++k) {
+        const long long row = first + k * GPW;
+        if (row < n) {
+          opaque(xr[k][j]);
+          float f[VEC];
+          unpack(xr[k][j], f);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) f[e] = f[e] * r[k] * g[e];
+          store(y + row * d + c, f);
+        }
+      }
+    }
   }
 }
 
-__device__ __forceinline__ void store(float* p, const float (&f)[1]) { *p = f[0]; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[1]) {
-  *p = __float2bfloat16(f[0]);
-}
-__device__ __forceinline__ void store(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&f)[8]) {
-  uint4 t;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = t;
-}
-
+// Rows wider than the register kernel takes: one warp a row, read twice
+// (the second time from L1/L2).
 template <typename T, int VEC>
-__global__ void __launch_bounds__(WARPS * 32)
-    rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                       long long n, int d, float eps) {
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    rmsnorm_fwd_loop_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            T* __restrict__ y, long long n, int d, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= n) return;  // uniform per warp
   const T* xr = x + row * d;
   T* yr = y + row * d;
 
   float ss = 0.f;
+#pragma unroll 4
   for (int c = lane * VEC; c < d; c += 32 * VEC) {
     float f[VEC];
-    load(xr + c, f);
+    load<T, VEC>(xr + c, f);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
   }
@@ -78,26 +138,82 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   const float r = rsqrtf(ss / (float)d + eps);
 
+#pragma unroll 4
   for (int c = lane * VEC; c < d; c += 32 * VEC) {
     float f[VEC], g[VEC];
-    load(xr + c, f);
-    load(w + c, g);
+    load<T, VEC>(xr + c, f);
+    load<T, VEC>(w + c, g);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) f[e] = f[e] * r * g[e];
     store(yr + c, f);
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* x, const void* w, void* y, long long n, int d, float eps,
-           cudaStream_t stream) {
-  const long long blocks = (n + WARPS - 1) / WARPS;
-  rmsnorm_fwd_kernel<T, VEC><<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
+template <typename T>
+using KernelFn = void (*)(const T*, const T*, T*, long long, int, float);
+
+// Launch `kernel` over n rows, `rows` of them a warp: 8 warps a block,
+// halved while there would be fewer blocks than SMs (or, with `info`,
+// report the plan: registers and local bytes a thread, threads and blocks).
+template <typename T>
+int launch(KernelFn<T> kernel, long long rows, const void* x, const void* w, void* y,
+           long long n, int d, float eps, cudaStream_t stream, int* info) {
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  auto need = [&](int warps) { return (n + warps * rows - 1) / (warps * rows); };
+  int warps = MAX_WARPS;
+  while (warps > 1 && need(warps) < sms) warps /= 2;
+  const long long blocks = need(warps);
+  if (info != nullptr) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = attr.numRegs;
+    info[1] = (int)attr.localSizeBytes;
+    info[2] = warps * 32;
+    info[3] = (int)blocks;
+    return 0;
+  }
+  kernel<<<(unsigned)blocks, warps * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), n, d, eps);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+template <typename T, int VEC, int G, int CH, int RG>
+int rows_kernel(const void* x, const void* w, void* y, long long n, int d, float eps,
+                cudaStream_t stream, int* info) {
+  return launch<T>(rmsnorm_fwd_rows_kernel<T, VEC, G, CH, RG>, (long long)RG * (32 / G), x, w,
+                   y, n, d, eps, stream, info);
+}
+
+// the register kernel for rows of at most 512 accesses (at least four a
+// lane in flight), the looped one beyond
+template <typename T, int VEC>
+int dispatch(const void* x, const void* w, void* y, long long n, int d, float eps,
+             cudaStream_t st, int* info) {
+  const int accesses = (d + VEC - 1) / VEC;
+  if (accesses <= 8) return rows_kernel<T, VEC, 8, 1, 4>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 16) return rows_kernel<T, VEC, 16, 1, 4>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 32) return rows_kernel<T, VEC, 32, 1, 4>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 64) return rows_kernel<T, VEC, 32, 2, 2>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 128) return rows_kernel<T, VEC, 32, 4, 1>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 256) return rows_kernel<T, VEC, 32, 8, 1>(x, w, y, n, d, eps, st, info);
+  if (accesses <= 512) return rows_kernel<T, VEC, 32, 16, 1>(x, w, y, n, d, eps, st, info);
+  return launch<T>(rmsnorm_fwd_loop_kernel<T, VEC>, 1, x, w, y, n, d, eps, st, info);
+}
+
+int run(const void* x, const void* w, void* y, int dtype, long long n, int d, float eps,
+        cudaStream_t st, int* info) {
+  if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const bool vec_ok = aligned16(x) && aligned16(w) && aligned16(y);
+  if (dtype == 0)
+    return vec_ok && d % 4 == 0 ? dispatch<float, 4>(x, w, y, n, d, eps, st, info)
+                                : dispatch<float, 1>(x, w, y, n, d, eps, st, info);
+  if (dtype == 1)
+    return vec_ok && d % 8 == 0 ? dispatch<__nv_bfloat16, 8>(x, w, y, n, d, eps, st, info)
+                                : dispatch<__nv_bfloat16, 1>(x, w, y, n, d, eps, st, info);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -105,16 +221,13 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // 1 = bfloat16).  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int dtype, long long n, int d,
                            float eps, void* stream) {
-  if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec_ok = aligned16(x) && aligned16(w) && aligned16(y);
-  if (dtype == 0) {
-    if (vec_ok && d % 4 == 0) return launch<float, 4>(x, w, y, n, d, eps, st);
-    return launch<float, 1>(x, w, y, n, d, eps, st);
-  }
-  if (dtype == 1) {
-    if (vec_ok && d % 8 == 0) return launch<__nv_bfloat16, 8>(x, w, y, n, d, eps, st);
-    return launch<__nv_bfloat16, 1>(x, w, y, n, d, eps, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return run(x, w, y, dtype, n, d, eps, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What rmsnorm_fwd would launch for the same arguments (the pointers decide
+// the access width): out[4] = registers and local (spill) bytes a thread,
+// threads a block and blocks.
+extern "C" int rmsnorm_fwd_info(const void* x, const void* w, const void* y, int dtype,
+                                long long n, int d, int* out) {
+  return run(x, w, const_cast<void*>(y), dtype, n, d, 0.f, nullptr, out);
 }

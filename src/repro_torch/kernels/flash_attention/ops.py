@@ -12,10 +12,11 @@ length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
 heads.  In bf16 all three kernels run on the tensor cores (``wgmma`` fed
-by TMA, sm_90a) at head_dim 32 to 256 (the dkv kernel at 256 as two blocks
-per key tile, one per 128-column half of dk and dv); every f32 instance,
-and the bf16 one at head_dim 16 (the smoke configs'), uses f32 FMAs from
-shared memory.
+by TMA, sm_90a) at head_dim 32 to 256 (the dkv kernel at 256 with dk and
+dv on the two warpgroups of a 64-key block and, where that grid is under
+one wave of SMs, the GQA group's query heads split across blocks:
+:func:`dkv_split`); every f32 instance, and the bf16 one at head_dim 16
+(the smoke configs'), uses f32 FMAs from shared memory.
 PERF.md has their times against their bounds.
 
 TMA reads a bf16 tensor only from a 16-byte-aligned address with byte
@@ -29,8 +30,10 @@ out and lse; backward forms ``delta = rowsum(do · out)`` in f32 (one torch
 expression, as the reference's ``ops.py`` does outside its kernels) and runs
 dq and dkv.  Gradients come back in the inputs' dtypes.
 
-``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches only
-(never the plain versions' calls).
+``launches``, ``dq_launches`` and ``dkv_launches`` count kernel calls only
+(never the plain versions' calls); one counted dkv call is one launch, or
+two where the group is split (the split kernel, then the fixed-order sum of
+its partials: :func:`dkv_plan`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from .. import build
 
 __all__ = [
     "FlashAttention",
+    "dkv_plan",
+    "dkv_split",
     "flash_attention",
     "flash_bwd",
     "flash_bwd_dkv",
@@ -68,6 +73,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the forward and backward kernels (256: recurrentgemma-9b's
 #: MQA heads, which train through all three)
 _HEAD_DIMS = (16, 32, 64, 128, 256)
+#: keys of a tensor-core dkv block (``tc::BKV`` of csrc/flash_attention_bwd.cu),
+#: of one at head_dim 256 (``tc::DkvWgTiles::BK``) and of an f32-FMA one
+#: (``KV_BK``)
+_DKV_TC_KEYS, _DKV_WG_KEYS, _DKV_FMA_KEYS = 128, 64, 32
+#: the head_dim whose tensor-core dkv kernel may split the GQA group
+#: across blocks
+_DKV_SPLIT_HD = 256
 
 
 # ---------------------------------------------------------------------------
@@ -222,27 +234,79 @@ def _bwd_kernel(name: str):
     fn = getattr(build.library("flash_attention_bwd"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        n_out = 1 if name == "flash_bwd_dq" else 2
-        fn.argtypes = [p] * (6 + n_out) + [i] * 7 + [p, i, i, ctypes.c_float, p]
+        if name == "flash_bwd_dq":
+            fn.argtypes = [p] * 7 + [i] * 7 + [p, i, i, ctypes.c_float, p]
+        else:  # two outputs, then the split and its workspace
+            fn.argtypes = [p] * 8 + [i] * 7 + [p, i, i, ctypes.c_float, i, p, p]
         fn.restype = i
     return fn
 
 
+def _dkv_tc_blocks(b: int, t: int, n_kv: int, head_dim: int) -> int:
+    """Blocks of the unsplit tensor-core dkv kernel: one a key tile of 128
+    keys (64 at head_dim 256), KV head and batch row."""
+    keys = _DKV_WG_KEYS if head_dim == _DKV_SPLIT_HD else _DKV_TC_KEYS
+    return -(-t // keys) * n_kv * b
+
+
+def dkv_split(b: int, t: int, n_kv: int, group: int, head_dim: int, sms: int) -> int:
+    """Blocks that each key tile of the bf16 dkv kernel is split into over
+    the GQA group's ``group`` query heads.  1 below head_dim 256 and
+    wherever the grid of one block a key tile of 64 — ceil(T / 64) x KV x
+    B — already fills ``sms`` SMs; otherwise the least divisor of the group
+    that makes the grid two waves, or the whole group where none does (each
+    split then holds one head).  Two waves, not one: a causal or windowed
+    mask gives key tiles unequal work, and blocks of half a wave's length
+    let the SMs that finish early take the rest (``tools/time_flash.py
+    --dkv-splits`` times every split on the card; PERF.md has the times)."""
+    if head_dim != _DKV_SPLIT_HD:
+        return 1
+    blocks = _dkv_tc_blocks(b, t, n_kv, head_dim)
+    if blocks >= sms:
+        return 1
+    return next((d for d in range(2, group + 1) if group % d == 0 and blocks * d >= 2 * sms),
+                group)
+
+
+def dkv_plan(b: int, t: int, n_kv: int, group: int, head_dim: int, dtype: torch.dtype,
+             sms: int) -> dict[str, int]:
+    """What a ``flash_bwd_dkv`` call launches for these shapes on a card of
+    ``sms`` SMs: ``split`` (:func:`dkv_split` for the tensor-core
+    instances, 1 for the f32-FMA ones), ``blocks`` of the dkv kernel,
+    ``launches`` (2 with a split: the fixed-order sum follows) and the f32
+    ``workspace_bytes`` of the split's partial dk and dv, 2 x split x B x T
+    x KV x head_dim x 4 (0 without one)."""
+    if dtype != torch.bfloat16 or head_dim < 32:  # hopper::tensor_core_hd
+        return dict(split=1, blocks=-(-t // _DKV_FMA_KEYS) * n_kv * b, launches=1,
+                    workspace_bytes=0)
+    split = dkv_split(b, t, n_kv, group, head_dim, sms)
+    return dict(split=split, blocks=_dkv_tc_blocks(b, t, n_kv, head_dim) * split,
+                launches=1 + (split > 1),
+                workspace_bytes=0 if split == 1 else 2 * split * b * t * n_kv * head_dim * 4)
+
+
 @functools.cache
-def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict[str, int]:
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def kernel_info(name: str, dtype: torch.dtype, head_dim: int, split: int = 1) -> dict[str, int]:
     """Registers and local (spill) bytes a thread, dynamic shared memory and
     threads a block of the kernel instance that ``flash_fwd``,
-    ``flash_bwd_dq`` or ``flash_bwd_dkv`` launches for ``dtype`` and
-    ``head_dim``, and ``tensor_cores``: 1 for a tensor-core kernel, whose
-    inputs the wrapper checks for TMA (builds the kernels on first use;
-    needs the card)."""
+    ``flash_bwd_dq`` or ``flash_bwd_dkv`` (with ``split``, see
+    :func:`dkv_plan`) launches for ``dtype`` and ``head_dim``, and
+    ``tensor_cores``: 1 for a tensor-core kernel, whose inputs the wrapper
+    checks for TMA (builds the kernels on first use; needs the card)."""
     lib = build.library({"flash_fwd": "flash_attention", "flash_bwd_dq": "flash_attention_bwd",
                          "flash_bwd_dkv": "flash_attention_bwd"}[name])
     fn = getattr(lib, f"{name}_info")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    dkv = name == "flash_bwd_dkv"
+    fn.argtypes = [ctypes.c_int] * (3 if dkv else 2) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
-    build.check(fn(_DTYPES[dtype], head_dim, ctypes.addressof(out)), f"{name}_info")
+    args = (_DTYPES[dtype], head_dim) + ((split,) if dkv else ())
+    build.check(fn(*args, ctypes.addressof(out)), f"{name}_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "threads", "tensor_cores"), out))
 
 
@@ -290,11 +354,19 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
     ins = [_strides(x, tc) for x in (q, k, v, do)]
     strides = [n for st in ins + [x.stride()[:3] for x in (dq, dk, dv)] for n in st]
     st = (ctypes.c_longlong * len(strides))(*strides)
+    split = ()
+    if name == "flash_bwd_dkv":
+        plan = dkv_plan(b, t, n_kv, h // n_kv, hd, q.dtype, _sm_count(q.device))
+        ws = None
+        if plan["split"] > 1:  # freed on return: later work on this stream runs after the sum
+            ws = torch.empty((plan["workspace_bytes"] // 4,), dtype=torch.float32,
+                             device=q.device)
+        split = (plan["split"], None if ws is None else ws.data_ptr())
     err = _bwd_kernel(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(o.data_ptr() for o in outs),
         _DTYPES[q.dtype], b, s, t, h, n_kv, hd, ctypes.addressof(st),
-        int(causal), window or 0, hd ** -0.5, _stream(q),
+        int(causal), window or 0, hd ** -0.5, *split, _stream(q),
     )
     build.check(err, name)
 
@@ -316,7 +388,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, window: int | 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window: int | None = None):
     """(dk, dv) (B,T,KV,hd), summed over the GQA group: the dkv kernel on CUDA
-    tensors, its plain version on CPU."""
+    tensors, its plain version on CPU.  One counted call is one launch, or
+    two where :func:`dkv_plan` splits the group (the split kernel into an f32
+    workspace, then its sum in split order: the same bits on every run)."""
     if not build.on_cuda(q, k, v, do, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
     _check(q, k, v, window, do)

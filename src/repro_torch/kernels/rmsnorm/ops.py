@@ -6,8 +6,11 @@ The kernels replace the Pallas TPU kernels ``rmsnorm_fwd``
 (``csrc/rmsnorm.cu``) and ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``) of
 ``src/repro/kernels/rmsnorm/kernel.py``.  Both are memory bound on the H100
 (one read of each input row, one write of each output row, ~4-10 flop per
-element); their design — one warp per row, 16-byte vector accesses, f32
-shuffle reductions — aims at full-width memory transactions.  The backward
+element); their design — a group of 8 to 32 lanes per row, 16-byte vector
+accesses, f32 shuffle reductions — aims at full-width memory transactions.
+The forward keeps each row in registers between its sum of squares and the
+store (rows of up to 4096 bf16 or 2048 f32 elements; narrow rows several to
+a warp; wider rows take a looped kernel), in one launch.  The backward
 keeps each row in registers between its two sums and the dx write (rows of
 up to 2048 bf16 or 1024 f32 elements; wider rows take a looped kernel) and
 forms dw in two stages (per-block f32 partial sums, then a hand-written
@@ -30,6 +33,7 @@ from .. import build
 __all__ = [
     "RMSNormFused",
     "bwd_kernel_info",
+    "fwd_kernel_info",
     "rms_norm_bwd",
     "rms_norm_bwd_plain",
     "rms_norm_fused",
@@ -155,6 +159,23 @@ def rms_norm_bwd(
     global bwd_launches
     bwd_launches += 1
     return dx, dw
+
+
+def fwd_kernel_info(x: torch.Tensor, w: torch.Tensor) -> dict[str, int]:
+    """What ``rms_norm_fwd`` launches for these CUDA rows (N, D): registers
+    and local (spill) bytes a thread, threads a block, blocks, and launches
+    (always 1); builds the kernels on first use."""
+    _check_rows(x, w)
+    fn = build.library("rmsnorm").rmsnorm_fwd_info
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, ctypes.c_longlong, i, p]
+    fn.restype = i
+    out = (ctypes.c_int * 4)()
+    n, d = x.shape
+    # y is allocated like x, so its alignment is x's
+    build.check(fn(x.data_ptr(), w.data_ptr(), x.data_ptr(), _DTYPES[x.dtype], n, d,
+                   ctypes.addressof(out)), "rmsnorm_fwd_info")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks"), out), launches=1)
 
 
 def bwd_kernel_info(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> dict[str, int]:

@@ -158,8 +158,9 @@ def test_flash_tc_causal_diagonal_mid_tile_cross_shape(gen, s, t, window):
 @pytest.mark.parametrize("hd,s", [(32, 97), (32, 161), (256, 77), (256, 300), (128, 190)])
 def test_flash_tc_head_dims_ragged(gen, hd, s):
     """hd 32 (64-byte swizzle) and 256 (four 64-column slabs; the forward's
-    64-key tiles, dq's 32-key tiles, dkv's two column halves) at ragged
-    lengths, forward and backward."""
+    64-key tiles, dq's 32-key tiles, dkv's warpgroups that share a 64-key
+    tile, its GQA group split across blocks) at ragged lengths, forward and
+    backward."""
     h, kv = (16, 1) if hd == 256 else (4, 2)
     _flash_case(gen, 2, s, s, h, kv, hd, True, 128 if hd == 256 else None)
 
@@ -241,6 +242,74 @@ def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d, offset):
     torch.testing.assert_close(dw, ref_dw, atol=tol_dw, rtol=tol_dw)
     # the two-stage dw reduction has a fixed order: bit-identical on a rerun
     assert torch.equal(rn_ops.rms_norm_bwd(x, w, dy, 1e-5)[1], dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,offset", [
+    (4096, 4096, 0),   # recurrentgemma-9b's d_model: 16 accesses a lane in registers
+    (333, 4096, 0),    # rows that fill no whole block
+    (517, 2048, 0),    # d_model 2048, rows past a multiple of the block's 8
+    (1001, 64, 0),     # rwkv6's group norm: 16 rows a warp, the last warp partial
+    (16387, 64, 0),
+    (5, 8192, 0),      # past the register plan: the looped kernel
+    (300, 2048, 1),    # rows one element past a 16-byte boundary: the looped kernel
+    (77, 64, 1),       # unaligned and narrow: one element a lane, in registers
+    (9, 100, 0),       # D % VEC != 0
+])
+def test_rmsnorm_fwd_register_rows_match_plain(gen, dtype, n, d, offset):
+    """The forward keeps each row in registers between its sum of squares
+    and its store (rows of up to 512 accesses, several rows a warp when
+    narrow): every width and row count the plan cuts, and unaligned views,
+    agree with the plain version, in one launch a call."""
+    flat = torch.randn((n * d + offset,), generator=gen, device="cuda").to(dtype)
+    x = flat[offset:].view(n, d)
+    w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
+    before = rn_ops.launches
+    y = rn_ops.rms_norm_fwd(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn_ops.launches == before + 1
+    assert rn_ops.fwd_kernel_info(x, w)["launches"] == 1
+    torch.testing.assert_close(y.float(), rn_ops.rms_norm_plain(x, w, 1e-5).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(rn_ops.rms_norm_fwd(x, w, 1e-5), y)
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window", [
+    (1, 1024, 1024, 16, 1, True, 512),   # recurrentgemma-9b's 16/1 heads: split 16
+    (1, 300, 300, 16, 1, True, 128),     # ragged, the window bites
+    (1, 640, 640, 4, 1, True, None),     # group 4: split 4
+    (2, 300, 300, 4, 2, True, 128),      # group 2, two KV heads, two batch rows
+    (1, 200, 330, 8, 1, True, 96),       # ragged T past S
+    (1, 256, 256, 8, 2, False, None),    # no mask, group 4
+    (1, 512, 512, 1, 1, True, None),     # group 1: nothing to split
+])
+def test_flash_bwd_dkv_hd256_split_matches_plain_and_repeats(gen, b, s, t, h, kv, causal,
+                                                             window):
+    """The bf16 dkv kernel at head_dim 256 with the GQA group split across
+    blocks (where its planner splits it) agrees with the plain version, and
+    the fixed-order sum of the splits gives the same bits on a second call."""
+    dtype, hd = torch.bfloat16, 256
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    mask = dict(causal=causal, window=window)
+    out, lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    plan = fa_ops.dkv_plan(b, t, kv, h // kv, hd, dtype,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan["split"] > 1 or h == kv
+    before = fa_ops.dkv_launches
+    dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, **mask)
+    again = fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, **mask)
+    torch.cuda.synchronize()
+    assert fa_ops.dkv_launches == before + 2
+    ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **mask)
+    for got, ref, rerun in ((dk, ref_dk, again[0]), (dv, ref_dv, again[1])):
+        assert got.dtype == dtype and got.shape == (b, t, kv, hd)
+        torch.testing.assert_close(got.float(), ref.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+        assert torch.equal(got, rerun)
 
 
 @pytest.mark.parametrize("qk_norm", [False, True])

@@ -322,3 +322,10 @@ def test_the_flash_sources_include_the_hopper_header():
     """Both flash sources rebuild when the shared wgmma/TMA header changes."""
     for name in ("flash_attention", "flash_attention_bwd"):
         assert "hopper.cuh" in [p.name for p in build._sources(build.CSRC / f"{name}.cu")]
+
+
+def test_the_rmsnorm_sources_include_the_rows_header():
+    """Both RMSNorm sources rebuild when their shared row-access header
+    changes."""
+    for name in ("rmsnorm", "rmsnorm_bwd"):
+        assert "rows.cuh" in [p.name for p in build._sources(build.CSRC / f"{name}.cu")]

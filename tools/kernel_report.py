@@ -12,7 +12,9 @@ shared memory in bytes (the dynamic shared memory a launch asks for is the
 source's and ``chip_smoke.py``'s to print), and how many ``HGMMA`` (wgmma)
 and ``UTMALDG`` (TMA tile load) instructions its SASS holds (``cuobjdump
 -sass``).  Exits non-zero if a source does not
-compile or a tensor-core kernel (``*_tc_kernel``) lacks either instruction.
+compile or a tensor-core kernel (``*_tc_kernel``, and ``*_wg_kernel``: the
+hd-256 dkv kernel whose warpgroups split dK and dV) lacks either
+instruction.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def main() -> int:
         for name, pretty in zip(mangled, _demangle(mangled)):
             regs, st, ld, smem = stats[name]
             hgmma, utmaldg = sass.get(name, [0, 0])
-            tensor_core = "_tc_kernel" in pretty
+            tensor_core = "_tc_kernel" in pretty or "_wg_kernel" in pretty
             ok &= not tensor_core or (hgmma > 0 and utmaldg > 0)
             print(f"[{source}] {pretty[:110]}: registers={regs} spill_stores={st} "
                   f"spill_loads={ld} static_smem={smem} HGMMA={hgmma} UTMALDG={utmaldg}",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 flash kernels, its RMSNorm backward and its two
+"""Time the port's bf16 flash kernels, its RMSNorm kernels and its two
 recurrence kernels on one NVIDIA card, for the ``repro_torch`` package of a
 checkout (this one by default):
 
@@ -9,7 +9,10 @@ checkout (this one by default):
 training B=4 S=T=1024, both 32/8 heads of 64, causal; recurrentgemma-9b
 prefill B=1 S=T=2560, 16/1 heads of 256, window 2048); ``flash_bwd_dq``
 and ``flash_bwd_dkv`` at the training shape and at ``chip_smoke.py``'s
-ragged S=T=300 and window-128 cases; ``rmsnorm_bwd`` at ``chip_smoke.py``'s
+ragged S=T=300 and window-128 cases, and at head_dim 256 at
+recurrentgemma-9b's training path (B=1, S=T=4096, 16/1 heads, window 2048)
+and ``chip_smoke.py``'s ragged S=T=300 window-128 case; ``rmsnorm_fwd`` at
+``chip_smoke.py`` phase 3's bf16 cases; ``rmsnorm_bwd`` at its phase 7's
 cases ((4096, 2048), the training path, (300, 2048), (16384, 64) bf16 and
 (7, 100) f32); ``rglru_fwd`` at recurrentgemma-9b's prefill shapes (1, 2560,
 4096) f32 and bf16 and (1, 512, 4096) f32, with h0; ``wkv6_fwd`` at
@@ -31,9 +34,15 @@ run the two in turns (old, new, new, old), each in its own process: both
 packages are called ``repro_torch``.  Each checkout builds its kernels into
 its own ``build/`` directory; the timer is always this checkout's.
 
+With ``--dkv-splits``, also the head_dim-256 dkv cases at every split of
+the GQA group (1, 2, 4, 8, 16) beside the one its planner picks
+(``ops.dkv_split``, replaced for the sweep), to check the planner's rule
+on the card.
+
 With ``--profile``, also the device time of each kernel a recurrence call
-launches (``torch.profiler``, 20 back-to-back calls at each recurrence case,
-so a warm L2), to show which launch of a call takes its time.
+or a head_dim-256 dkv call launches (``torch.profiler``, 20 back-to-back
+calls at each case, so a warm L2), to show which launch of a call takes its
+time (the split dkv kernel against the sum of its partials).
 """
 
 from __future__ import annotations
@@ -55,6 +64,21 @@ BWD_CASES = {  # name: (B, S = T, window), 32/8 heads of 64, causal
     "train_B4_S1024": (4, 1024, None),
     "ragged_B4_S300": (4, 300, None),
     "window128_B4_S1024": (4, 1024, 128),
+}
+HD256_BWD_CASES = {  # name: (B, S = T, window), 16/1 heads of 256, causal
+    "hybrid_B1_S4096_w2048": (1, 4096, 2048),
+    "hybrid_ragged_B1_S300_w128": (1, 300, 128),
+}
+RMSNORM_FWD_CASES = {  # name: (N, D), bf16
+    "rmsnorm_fwd_512x2048": (512, 2048),
+    "rmsnorm_fwd_300x2048": (300, 2048),
+    "rmsnorm_fwd_4x2048": (4, 2048),
+    "rmsnorm_fwd_16384x64": (16384, 64),
+    "rmsnorm_fwd_4096x2048": (4096, 2048),
+    "rmsnorm_fwd_4096x4096": (4096, 4096),
+    "rmsnorm_fwd_131072x64": (131072, 64),
+    "rmsnorm_fwd_2560x4096": (2560, 4096),
+    "rmsnorm_fwd_4x4096": (4, 4096),
 }
 RGLRU_CASES = {  # name: (B, S, D, dtype name), with h0
     "rglru_1x2560x4096_f32": (1, 2560, 4096, "float32"),
@@ -115,6 +139,8 @@ def main() -> int:
                         help="checkout whose src/repro_torch is timed")
     parser.add_argument("--profile", action="store_true",
                         help="also break each recurrence call's device time down by kernel")
+    parser.add_argument("--dkv-splits", action="store_true",
+                        help="also time the head_dim-256 dkv cases at every split of the group")
     args = parser.parse_args()
 
     import torch
@@ -156,6 +182,32 @@ def main() -> int:
             torch, lambda: fa_ops.flash_bwd_dq(*grads_of, causal=True, window=window))
         times[f"dkv_{name}_hd64"] = _device_ms(
             torch, lambda: fa_ops.flash_bwd_dkv(*grads_of, causal=True, window=window))
+    profiled = {}
+    for name, (b, s, window) in HD256_BWD_CASES.items():
+        q, do = rnd(b, s, 16, 256), rnd(b, s, 16, 256)
+        k, v = rnd(b, s, 1, 256), rnd(b, s, 1, 256)
+        out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=window)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        grads_of = (q, k, v, do, lse, delta)
+        times[f"dq_{name}_hd256"] = _device_ms(
+            torch, lambda: fa_ops.flash_bwd_dq(*grads_of, causal=True, window=window))
+        dkv = (lambda grads_of=grads_of, window=window:
+               fa_ops.flash_bwd_dkv(*grads_of, causal=True, window=window))
+        times[f"dkv_{name}_hd256"] = _device_ms(torch, dkv)
+        profiled[f"dkv_{name}_hd256"] = dkv
+        if args.dkv_splits:
+            planner = fa_ops.dkv_split
+            chosen = planner(b, s, 1, 16, 256, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+            for split in (1, 2, 4, 8, 16):
+                fa_ops.dkv_split = lambda *_, split=split: split
+                times[f"dkv_{name}_hd256_split{split}"] = _device_ms(torch, dkv)
+            fa_ops.dkv_split = planner
+            times[f"dkv_{name}_hd256_planner_split"] = chosen
+    for name, (n, d) in RMSNORM_FWD_CASES.items():
+        x = rnd(n, d)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(torch.bfloat16)
+        times[name] = _device_ms(torch, lambda: rn_ops.rms_norm_fwd(x, w, 1e-5))
     for name, (n, d, dtype) in RMSNORM_BWD_CASES.items():
         dtype = getattr(torch, dtype)
         x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
@@ -179,7 +231,7 @@ def main() -> int:
     for name, fn in recurrences.items():
         times[name] = _device_ms(torch, fn)
     if args.profile:
-        for name, fn in recurrences.items():
+        for name, fn in {**profiled, **recurrences}.items():
             print(f"[profile] {name}: " + ", ".join(
                 f"{kernel} {us:.3f} us" for kernel, us in _kernel_us(torch, fn)), flush=True)
     # host microseconds of a forward call at the serving shape: the wrapper
