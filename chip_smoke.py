@@ -10,9 +10,11 @@ caught):
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time;
 2. hold the flash-attention kernel against its plain PyTorch version on the
    card (serving shape B=1, H=32, KV=8, hd=64, S=T=512 causal bf16; ragged
-   S=T=300; window 128; f32; the training shape B=4, S=T=1024 causal bf16)
-   and time kernel, plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only; the port never calls it);
+   S=T=300; window 128; f32; the training shape B=4, S=T=1024 causal bf16;
+   moonshot-v1-16b-a3b's serving shape, hd=128 MHA 16/16 heads, S=T=512 and
+   ragged 300) and time kernel, plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+   calls it);
 3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
    (512*32, 64), the training shape (4096, 2048), phases 18-19's
    (4096, 4096) and (4096*32, 64), and recurrentgemma-9b's serving shapes
@@ -134,25 +136,40 @@ caught):
     bf16 leaves at LEAF_RTOL, as phase 8's; the f32 step runs the f32-FMA
     flash instances at head_dim 256 in a model.  The median step prints
     beside HYBRID_STEP_UNSPLIT_S, the one measured with the earlier hd-256
-    dkv kernel.
+    dkv kernel;
+20. serve full-width moonshot-v1-16b-a3b (48 layers, d_model 2048, 16/16
+    heads of 128, MoE of 64 experts of width 1408, top 6, capacity factor
+    1.25, vocab 163840, untied: 28.06 B parameters, 56.1 GB of bf16
+    weights drawn on the card) as phase 4 serves llama3.2-1b, after the
+    earlier phases' memory is freed: the launch counters must equal
+    48 x prefills (flash, hd 128) and 96 x (prefills + decode steps)
+    (RMSNorm: ln and ln2 of each layer); each prompt's prefill logits and
+    one decode step are held against the plain path in relative L2 norm at
+    RECURRENT_REL (a top-6 choice of 64 that flips between the paths
+    changes which tokens drop); the share of (token, expert) choices and
+    of kept slots on which the two paths agree is printed per layer for
+    one prefill; the peak device memory is printed.  Then profile a warm
+    window of that engine, and hold the architecture in f32 cut to 4 of
+    its 48 layers, kernel against plain path at 2e-4.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
 and 6 also hold the flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T=128; 4/2 heads
 causal and 4/1 heads with window 16; bf16 and f32), elementwise at the
 kernel tolerances.  Memory is freed between the
-serving and the training phases, before phase 10 and around phases 18
-and 19.
+serving and the training phases, before phase 10 and around phases 18,
+19 and 20.  Each serving profile also counts the device operations of one
+decode step of N_SLOTS rows.
 
 Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
-(phases 2, 4, 8, 12, 19), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6,
+(phases 2, 4, 8, 12, 19, 20), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6,
 8, 19) are tensor-core kernels (``wgmma`` fed by TMA through an
 mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
 32-key tiles, and dkv keeps dk and dv on the two warpgroups of a 64-key
 block, passing P^T between them through shared memory, and splits the GQA
 group's heads across blocks where that grid is under one wave, adding the
 split's f32 partials in a second, fixed-order launch); their f32
-instances (the f32 cases of phases 2 and 6, the f32 model of phase 13,
+instances (the f32 cases of phases 2 and 6, the f32 models of phases 13 and 20,
 the f32 gradient steps of phases 16 and 19) and their bf16 instances at
 head_dim 16 (phases 2, 6 and 16) are f32-FMA kernels on the CUDA cores,
 as are the RMSNorm, RG-LRU and WKV-6 kernels (the RMSNorm forward holds
@@ -204,6 +221,9 @@ PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
 # full-width serving runs (configs/llama3_2_1b.py, recurrentgemma_9b.py, rwkv6_1_6b.py)
 N_REQUESTS, PROMPT_LENS, MAX_NEW, N_SLOTS, SEED = 8, (512, 300), 16, 4, 0
 HYBRID_PROMPT_LENS = (2560, 512)
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, vocab, window) of the
+# MoE serving run (configs/moonshot_v1_16b_a3b.py), and the depth of its f32 check
+MOE_SHAPE, MOE_F32_LAYERS = (48, 2048, 16, 16, 128, 163840, None), 4
 # bf16 model tolerance of the repo (tests/test_model_pallas_path.py)
 MODEL_ATOL, MODEL_RTOL = 0.1, 0.05
 # the hybrid and SSM families, 38 and 24 random bf16 layers deep: the kernel
@@ -328,7 +348,7 @@ SMOKE_CASE = f"smoke hd=16 causal B=2 S=T={SMOKE_SEQ} bfloat16"
 
 
 def _flash_phase(torch, F, fa_ops, gen):
-    llama, hybrid = (32, 8, 64), (16, 1, 256)
+    llama, hybrid, moe = (32, 8, 64), (16, 1, 256), (16, 16, 128)
     cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
         ("serve", "path S=T=512 causal bf16", 1, 512, llama, None, torch.bfloat16),
         ("", "ragged S=T=300 causal bf16", 1, 300, llama, None, torch.bfloat16),
@@ -341,6 +361,8 @@ def _flash_phase(torch, F, fa_ops, gen):
         ("", "hybrid hd=256 MQA S=T=512 window=2048 bf16", 1, 512, hybrid, 2048, torch.bfloat16),
         ("hybrid_train", f"hybrid training path hd=256 MQA B=1 S=T={HYBRID_TRAIN_SEQ} "
          "window=2048 bf16", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, hybrid, 2048, torch.bfloat16),
+        ("moe", "moe path hd=128 MHA S=T=512 causal bf16", 1, 512, moe, None, torch.bfloat16),
+        ("", "moe ragged hd=128 MHA S=T=300 causal bf16", 1, 300, moe, None, torch.bfloat16),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -505,7 +527,8 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol,
     worst = 0.0
     worst_rel = 0.0
     spread = 0.0  # the plain path against itself under another recurrence order
-    paths = (cfg, plain) + ((plain.replace(seq_impl="ref"),) if tol[0] == "relnorm" else ())
+    recurrent = any(kind in ("rglru", "rwkv") for kind in cfg.block_pattern)
+    paths = (cfg, plain) + ((plain.replace(seq_impl="ref"),) if recurrent else ())
     for req, res in zip(requests, results):
         tokens = torch.tensor([req.prompt], dtype=torch.int32, device="cuda")
         outs = []
@@ -576,11 +599,14 @@ def _profile_phase(torch, engine, sess, prompt_lens, tag="[profile]"):
     """Where a warm serving window's time goes: the same engine serves
     N_SLOTS more requests under ``torch.profiler``; device busy share =
     summed kernel time over the window's wall time (the profiler's own host
-    cost inflates the wall, so the idle share is an upper bound)."""
+    cost inflates the wall, so the idle share is an upper bound).  Then the
+    device operations (kernels, copies, fills) of one decode step of
+    N_SLOTS fresh cache rows, the engine's step shape."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models import model as M
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(SEED + 1)
@@ -609,6 +635,15 @@ def _profile_phase(torch, engine, sess, prompt_lens, tag="[profile]"):
            f"device_kernel_s={device_s:.4f} device_busy_share={device_s / wall:.4f}; {phases}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         _print(f"{tag}   {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    cache = M.init_cache(engine.cfg, engine.n_slots, engine.max_seq, device="cuda")
+    step = torch.zeros((engine.n_slots, 1), dtype=torch.int32, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        M.decode_step(engine.cfg, engine.params, cache, step)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    _print(f"{tag} one decode step of {engine.n_slots} rows: {ops} device operations")
+    del cache
 
 
 def _rglru_phase(torch, rg_ops, gen):
@@ -1301,6 +1336,68 @@ def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEA
     return launches
 
 
+def _routing_phase(torch, engine):
+    """Per layer, the share of the (token, expert) choices of one prefill
+    (request 0's prompt) on which the kernel path and the plain path agree,
+    and of the choices that kept a slot: a near-tie that the paths' rounding
+    breaks differently moves a choice, and under capacity the drops after it
+    (``route`` is wrapped for the two prefills)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg = engine.cfg
+    plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
+    prompt = make_requests(cfg.vocab_size, 1, PROMPT_LENS, 1, np.random.default_rng(SEED))[0].prompt
+    tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    route = moe.route
+    seen = {}
+    for path, c in (("kernel", cfg), ("plain", plain)):
+        seen[path] = []
+
+        def recording(*args, out=seen[path]):
+            r = route(*args)
+            out.append((r.mask.bool(), r.keep))
+            return r
+
+        moe.route = recording
+        try:
+            M.prefill(c, engine.params, {"tokens": tokens},
+                      M.init_cache(c, 1, engine.max_seq, device="cuda"))
+        finally:
+            moe.route = route
+    assert len(seen["kernel"]) == len(seen["plain"]) == cfg.n_layers
+    chosen, kept, dropped = [], [], []
+    for (mask_k, keep_k), (mask_p, keep_p) in zip(seen["kernel"], seen["plain"]):
+        chosen.append(((mask_k & mask_p).sum() / mask_p.sum()).item())
+        kept.append(((keep_k & keep_p).sum() / keep_p.sum()).item())
+        dropped.append((int((mask_k & ~keep_k).sum()), int((mask_p & ~keep_p).sum())))
+    tag = f"[routing {cfg.name}]"
+    _print(f"{tag} one prefill of {len(prompt)} tokens, top {cfg.moe.top_k} of "
+           f"{cfg.moe.n_experts}: kernel vs plain path, share of choices equal by layer: "
+           f"{[round(x, 4) for x in chosen]}; min {min(chosen):.4f} mean "
+           f"{sum(chosen) / len(chosen):.4f}")
+    _print(f"{tag} share of kept (token, expert) slots equal by layer: "
+           f"{[round(x, 4) for x in kept]}; min {min(kept):.4f} mean {sum(kept) / len(kept):.4f}")
+    _print(f"{tag} dropped choices by layer (kernel, plain): {dropped}")
+
+
+def _moe_phase(torch, K):
+    """Phase 20: serve full-width moonshot-v1-16b-a3b (module docstring)."""
+    launches, engine, sess = _serve_phase(
+        torch, K, "moonshot-v1-16b-a3b", PROMPT_LENS, {"flash_fwd": MOE_SHAPE[0]},
+        {"rmsnorm_fwd": 2 * MOE_SHAPE[0]}, MOE_SHAPE, ("relnorm", RECURRENT_REL))
+    _routing_phase(torch, engine)
+    _profile_phase(torch, engine, sess, PROMPT_LENS, "[profile moonshot-v1-16b-a3b]")
+    del engine, sess
+    _free(torch)
+    _f32_phase(torch, "moonshot-v1-16b-a3b", MOE_F32_LAYERS, PROMPT_LENS)
+    _free(torch)
+    return launches
+
+
 def main() -> int:
     import types
 
@@ -1383,6 +1480,8 @@ def main() -> int:
     hybrid_train_launches = _train_family_phase(
         torch, K, "recurrentgemma-9b", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
         n_layers=HYBRID_TRAIN_LAYERS)
+    # moonshot-v1-16b-a3b: 48 attention layers with MoE feed-forwards, 2 norms each
+    moe_launches = _moe_phase(torch, K)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -1393,7 +1492,9 @@ def main() -> int:
     # head_dim 16 on phase 16's paths; under "resume", the training kernels
     # on phase 17's two runs (phase 8's shapes); under "ssm_train" and
     # "hybrid_train", the training paths of phases 18 and 19 (rwkv6-1.6b's
-    # norms; recurrentgemma-9b's flash kernels at head_dim 256 and norms)
+    # norms; recurrentgemma-9b's flash kernels at head_dim 256 and norms);
+    # under "moe", phase 20's serving path (flash at head_dim 128, the
+    # norms at llama's prefill rows)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -1420,7 +1521,8 @@ def main() -> int:
              train=dict(launches=train_launches["flash_fwd"], **pick(_role(flash, "train"))),
              hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid"))),
              smoke=smoke("flash_fwd", flash), resume=resume("flash_fwd", _role(flash, "train")),
-             hybrid_train=hyb("flash_fwd", _role(flash, "hybrid_train"))),
+             hybrid_train=hyb("flash_fwd", _role(flash, "hybrid_train")),
+             moe=dict(launches=moe_launches["flash_fwd"], **pick(_role(flash, "moe")))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -1439,7 +1541,8 @@ def main() -> int:
              train=dict(launches=train_launches["rmsnorm_fwd"], **pick(fwd_2048)),
              hybrid=dict(launches=hybrid_launches["rmsnorm_fwd"], **pick(fwd_prefill)),
              resume=resume("rmsnorm_fwd", fwd_2048), ssm_train=ssm("rmsnorm_fwd", fwd_2048),
-             hybrid_train=hyb("rmsnorm_fwd", fwd_4096)),
+             hybrid_train=hyb("rmsnorm_fwd", fwd_4096),
+             moe=dict(launches=moe_launches["rmsnorm_fwd"], **pick(rms[0]))),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),

@@ -18,14 +18,14 @@ _MODULES: dict[str, str] = {
     "llama3.2-1b": "llama3_2_1b",
     "qwen3-14b": "qwen3_14b",
     "minitron-8b": "minitron_8b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 #: architectures the reference package serves that this port does not yet
-_NOT_YET_PORTED = (
-    "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2", "internvl2-26b",
-)
+_NOT_YET_PORTED = ("seamless-m4t-large-v2", "internvl2-26b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -16,6 +16,11 @@ reference's names for its kernels).
         --attn-impl pallas --norm-impl fused --prompt-len 512,300 --report
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch rwkv6-1.6b \\
         --attn-impl pallas --norm-impl fused --seq-impl pallas --metrics-textfile serve.prom
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --arch moonshot-v1-16b-a3b \\
+        --attn-impl pallas --norm-impl fused --prompt-len 512,300 --slots 4
+
+moonshot-v1-16b-a3b at full width holds 28.06 B parameters, 56.1 GB in bf16:
+its weights are drawn on the card, one layer of each expert stack at a time.
 
 ``--metrics-textfile`` writes one Prometheus exposition page on exit (the
 node_exporter textfile-collector path).

@@ -31,8 +31,9 @@ kernels' plain versions.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2
 
-The pipeline-parallel path (``pipeline_stages``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The pipeline-parallel path (``pipeline_stages``) and MoE configs (their
+loss lacks the router's aux term) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -132,13 +133,14 @@ def _flops_per_step(cfg: ArchConfig, tokens: int) -> float:
     return 6.0 * active * tokens
 
 
-def _check_ported(settings: TrainSettings) -> None:
+def _check_ported(settings: TrainSettings, cfg: ArchConfig) -> None:
     defaults = {f.name: f.default for f in dataclasses.fields(TrainSettings)}
     for name, item in _NOT_YET_PORTED.items():
         if getattr(settings, name) != defaults[name]:
             raise NotImplementedError(
                 f"TrainSettings.{name} is not yet ported (ROADMAP Queue 1 {item})"
             )
+    M.check_trainable(cfg)
 
 
 def run_training(
@@ -157,7 +159,11 @@ def run_training(
     ``cfg`` replaces the registry's config for ``settings.arch``; the
     settings' ``attn_impl``/``norm_impl`` apply on top of either.
     """
-    _check_ported(settings)
+    if cfg is None:
+        cfg = get_smoke_config(settings.arch) if settings.smoke else get_config(settings.arch)
+    overrides = {"attn_impl": settings.attn_impl, "norm_impl": settings.norm_impl}
+    cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
+    _check_ported(settings, cfg)
     sess = (
         session
         if session is not None
@@ -174,10 +180,6 @@ def run_training(
     # EVOL applied update i, so its label is i + 1, never i.
     st["updates"] = 0
 
-    if cfg is None:
-        cfg = get_smoke_config(settings.arch) if settings.smoke else get_config(settings.arch)
-    overrides = {"attn_impl": settings.attn_impl, "norm_impl": settings.norm_impl}
-    cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
     device = torch.device(settings.device)
     shape = ShapeConfig("train_local", "train", settings.seq_len, settings.global_batch)
 

@@ -27,8 +27,11 @@ whose PyTorch forms autograd differentiates as JAX differentiates the
 reference's jnp forms; under ``"pallas"`` a loss's backward raises, since
 the recurrence kernels have no backward (the reference has none either).
 
-The ``xattn`` block and MoE feed-forwards raise ``NotImplementedError``
-naming the ROADMAP item that will port them.
+With ``cfg.moe`` the feed-forward of each attention block is the
+mixture of experts of ``models/moe.py``; its auxiliary loss is dropped here
+(the port serves MoE configs and does not yet train them, see
+``model.check_trainable``).  The ``xattn`` block raises
+``NotImplementedError`` naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -44,13 +47,14 @@ from ..kernels.rwkv6 import ops as rwkv_ops
 from .attention import attention, decode_attention
 from .config import ArchConfig
 from .layers import PSpec, apply_rotary, gated_mlp, gated_mlp_specs, rms_norm, rotary_embedding
+from .moe import moe_apply, moe_specs
 
 __all__ = ["block_specs", "block_cache_specs", "block_apply", "norm"]
 
 _RWKV_LORA = 64
 
 #: block kind -> the ROADMAP Queue 1 item that ports it
-_NOT_YET_PORTED = {"xattn": "MoE, encdec, vlm"}
+_NOT_YET_PORTED = {"xattn": "encdec, vlm"}
 
 #: cfg.seq_impl -> (rglru impl, rwkv impl) in train and prefill
 _SEQ_IMPLS = {"parallel": ("assoc", "chunked"), "ref": ("ref", "ref"), "pallas": ("pallas", "pallas")}
@@ -105,14 +109,16 @@ def _attn_specs(cfg: ArchConfig, stack: tuple[int, ...]) -> dict[str, Any]:
 
 
 def _ffn_specs(cfg: ArchConfig, stack: tuple[int, ...]) -> dict[str, Any]:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE feed-forward is not yet ported (ROADMAP Queue 1: MoE, encdec, vlm)")
     lead, lax_ = tuple(stack), ("layers",) * len(stack)
     dt = _dtype(cfg)
-    return {
-        "ln2": PSpec(lead + (cfg.d_model,), lax_ + (None,), init="ones", dtype=dt),
-        "mlp": gated_mlp_specs(cfg.d_model, cfg.d_ff, dt, stack),
+    out: dict[str, Any] = {
+        "ln2": PSpec(lead + (cfg.d_model,), lax_ + (None,), init="ones", dtype=dt)
     }
+    if cfg.moe is not None:
+        out["moe"] = moe_specs(cfg, stack)
+    else:
+        out["mlp"] = gated_mlp_specs(cfg.d_model, cfg.d_ff, dt, stack)
+    return out
 
 
 def _rglru_specs(cfg: ArchConfig, stack: tuple[int, ...]) -> dict[str, Any]:
@@ -302,9 +308,14 @@ def _attn_core_decode(cfg, p, h, cache, pos, *, window):
     rows = torch.arange(b, device=pos.device)
     col = pos.long()
     if window is None:
-        cache["k"][rows, col] = k[:, 0]
-        cache["v"][rows, col] = v[:, 0]
         t = cache["k"].shape[1]
+        # a row past the cache's end (a free slot that decodes on) writes
+        # nothing, as the reference's scatter drops out-of-range updates
+        last = col.clamp_max(t - 1)
+        inside = (col < t)[:, None, None]
+        for name, new in (("k", k), ("v", v)):
+            kept = cache[name][rows, last]
+            cache[name][rows, last] = torch.where(inside, new[:, 0], kept)
         valid = torch.arange(t, device=pos.device)[None, :] <= col[:, None]
     else:
         slot = col % cache["k"].shape[1]
@@ -320,6 +331,8 @@ def _attn_core_decode(cfg, p, h, cache, pos, *, window):
 
 def _ffn_apply(cfg, p, h):
     x = norm(cfg, h, p["ln2"])
+    if cfg.moe is not None:
+        return h + moe_apply(cfg, p["moe"], x)[0]
     return h + gated_mlp(p["mlp"], x)
 
 
@@ -451,7 +464,8 @@ def block_apply(
     cache: dict[str, Any] | None = None,
     pos: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any] | None]:
-    """Apply one block. Returns (h, new_cache); the ported blocks carry no aux loss."""
+    """Apply one block. Returns (h, new_cache); an MoE feed-forward's aux loss
+    is dropped (serving needs none)."""
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else None
         if mode == "decode":

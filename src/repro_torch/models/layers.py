@@ -76,6 +76,24 @@ def _fan_in(shape: Sequence[int]) -> int:
     return max(shape[-1], 1)
 
 
+#: normal leaves of more elements are drawn one leading-axis slice at a time
+#: (16 GiB of f32 samples; every leaf of the configs registered before the
+#: MoE family is below it and keeps its one-draw values)
+MAX_DRAW_ELEMENTS = 1 << 32
+
+
+def _draw_into(out: torch.Tensor, generator: torch.Generator, scale: float) -> None:
+    """Fill ``out`` with scaled standard normals, drawn whole when it has at
+    most ``MAX_DRAW_ELEMENTS`` elements, else slice by slice along its
+    leading axis."""
+    if out.numel() > MAX_DRAW_ELEMENTS and out.dim() > 1:
+        for part in out:
+            _draw_into(part, generator, scale)
+        return
+    x = torch.randn(out.shape, generator=generator, device=generator.device)
+    out.copy_(x.mul_(scale))
+
+
 def materialize(
     specs, generator: torch.Generator | None, device: str | torch.device = "cuda"
 ):
@@ -83,8 +101,12 @@ def materialize(
 
     Normal leaves draw f32 samples from ``generator`` (on the generator's own
     device, so a CUDA generator fills the full-width model without a host
-    round trip), scale them and cast to the spec dtype, as the reference does.
-    Trees without normal leaves (caches) need no generator.
+    round trip), scale them in place and cast to the spec dtype, as the
+    reference does.  A leaf of more than ``MAX_DRAW_ELEMENTS`` is drawn one
+    leading-axis slice at a time into the allocated leaf, so initialising
+    holds the weights plus one slice of f32 samples (moonshot-v1-16b-a3b's
+    stacked experts would otherwise need 35 GB of f32 for one leaf).  Trees
+    without normal leaves (caches) need no generator.
     """
     device = torch.device(device)
 
@@ -97,8 +119,9 @@ def materialize(
             return torch.full(spec.shape, spec.const, dtype=spec.dtype, device=device)
         if spec.init == "normal":
             scale = spec.scale if spec.scale is not None else _fan_in(spec.shape) ** -0.5
-            x = torch.randn(spec.shape, generator=generator, device=generator.device)
-            return (x * scale).to(device=device, dtype=spec.dtype)
+            out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+            _draw_into(out, generator, scale)
+            return out
         raise ValueError(f"unknown init {spec.init!r}")
 
     return tree_map(make, specs)

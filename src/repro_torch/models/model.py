@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port (dense, hybrid and SSM decoder stacks).
+"""Model API of the PyTorch port (dense, MoE, hybrid and SSM decoder stacks).
 
 Parameters are the reference's pytree as plain nested dicts/tuples of
 tensors: per-layer weights stacked along a leading ``"scan"`` axis of pattern
@@ -56,6 +56,7 @@ __all__ = [
     "cache_specs",
     "cache_axes",
     "init_cache",
+    "check_trainable",
     "decoder_pattern",
     "forward",
     "loss_fn",
@@ -85,7 +86,17 @@ def _split_stack(cfg: ArchConfig) -> tuple[int, tuple[str, ...], tuple[str, ...]
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: MoE, encdec, vlm)"
+            f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: encdec, vlm)"
+        )
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for a config whose loss the port cannot yet compute in full: an
+    MoE stack's loss lacks the router's ``aux_coef * aux`` term."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "training an MoE config is not yet ported: its loss needs the router's aux "
+            "loss (ROADMAP Queue 1: MoE training)"
         )
 
 
@@ -304,7 +315,9 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
     plus the z-loss; returns (loss, metrics).  With ``cfg.loss_chunk`` dividing
     the sequence, the logits and CE of each chunk are computed under
     ``torch.utils.checkpoint``, so the (B, S, V) logits never materialize.
-    Dense stacks carry no auxiliary loss (``aux`` is 0)."""
+    The ported stacks that train carry no auxiliary loss (``aux`` is 0); an
+    MoE config raises (``check_trainable``)."""
+    check_trainable(cfg)
     targets = batch["targets"]
     chunk = cfg.loss_chunk
     h = _hidden(cfg, params, batch)

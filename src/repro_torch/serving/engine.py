@@ -33,7 +33,14 @@ PyTorch port: the model runs eagerly on ``device`` (``"cuda"`` unless the
 caller passes ``"cpu"``).  PyTorch returns before the card finishes, so the
 ``serve/prefill`` and ``serve/decode`` scopes end with a device synchronise —
 without it the timers would measure the launch and the serving controller
-would steer on it.  The dense, hybrid and SSM families are served.
+would steer on it.  The dense, MoE, hybrid and SSM families are served.
+
+MoE: a decode step routes its whole slot batch as one routing group, free
+slots included (they decode their last token on), so under the config's
+capacity factor the slots compete for expert capacity and a slot's tokens can
+depend on its neighbours.  Continuous batching is then token-identical to
+serving each request alone only when no token drops.  These are the
+reference's semantics (``tests/test_serve_consistency.py``), kept as they are.
 """
 
 from __future__ import annotations

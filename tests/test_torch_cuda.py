@@ -503,3 +503,60 @@ def test_recurrence_kernels_refuse_backward(gen, arch):
         else:
             grads = torch.autograd.grad(loss, leaves)
             assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_smoke_config_serves_through_the_kernels(gen, dtype):
+    """moonshot-v1-16b-a3b's smoke config (4/4 heads of 16, 8 experts, top 2)
+    served on the card with ``attn_impl="pallas"``, ``norm_impl="fused"``:
+    one flash launch per layer and prefill, two RMSNorm launches per layer
+    and call, and every prompt's prefill logits against the plain path.  In
+    f32 the two paths route every token alike and agree elementwise at 2e-4.
+    In bf16 a near-tie between a token's 2nd and 3rd gate can flip its
+    choice between the paths, and under capacity the drops after it, and
+    one expert is half a token's MoE output; so there the plain path
+    replays the kernel path's routing, layer by layer, and the logits are
+    held at the repo's bf16 model tolerance (atol 0.1, rtol 0.05)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_requests, run_serving
+    from repro_torch.models import model as PM
+    from repro_torch.models import moe
+
+    prompt_lens, n_requests = [128, 40], 4
+    before = (fa_ops.launches, rn_ops.launches)
+    engine = run_serving("moonshot-v1-16b-a3b", n_requests, prompt_lens, 8, n_slots=2,
+                         seed=0, smoke=True, attn_impl="pallas", norm_impl="fused",
+                         dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    assert cfg.moe is not None and len(engine.completed) == n_requests
+    flash, norms = fa_ops.launches - before[0], rn_ops.launches - before[1]
+    assert flash == cfg.n_layers * n_requests
+    assert norms % (2 * cfg.n_layers) == 0 and norms > 2 * cfg.n_layers * n_requests
+    plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
+    requests = make_requests(cfg.vocab_size, n_requests, prompt_lens, 8, np.random.default_rng(0))
+    route = moe.route
+    for req, res in zip(requests, sorted(engine.completed, key=lambda r: r.rid)):
+        tokens = torch.tensor([req.prompt], dtype=torch.int32, device="cuda")
+        logits, routings = [], ([], [])
+        replays = (None, routings[0] if dtype == "bfloat16" else None)
+        for c, seen, replay in zip((cfg, plain), routings, replays):
+
+            def recording(*args, seen=seen, replay=replay):
+                seen.append(route(*args))
+                return seen[-1] if replay is None else replay[len(seen) - 1]
+
+            moe.route = recording
+            try:
+                cache = PM.init_cache(c, 1, engine.max_seq, device="cuda")
+                logits.append(PM.prefill(c, engine.params, {"tokens": tokens}, cache)[1][0].float())
+            finally:
+                moe.route = route
+        assert int(logits[0][: cfg.vocab_size].argmax()) == res.tokens[0]
+        if dtype == "float32":
+            for kernel_r, plain_r in zip(*routings):
+                assert torch.equal(kernel_r.mask, plain_r.mask)
+            torch.testing.assert_close(logits[0], logits[1], atol=2e-4, rtol=2e-4)
+        else:
+            torch.testing.assert_close(logits[0], logits[1], atol=0.1, rtol=0.05)

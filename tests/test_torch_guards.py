@@ -161,20 +161,33 @@ def test_recurrence_wrappers_refuse_other_devices():
 
 
 def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
-    assert {"recurrentgemma-9b", "rwkv6-1.6b"} <= set(ARCH_IDS)
+    assert {"recurrentgemma-9b", "rwkv6-1.6b", "moonshot-v1-16b-a3b",
+            "kimi-k2-1t-a32b"} <= set(ARCH_IDS)
     assert get_config("recurrentgemma-9b").family == "hybrid"
     assert get_config("rwkv6-1.6b").family == "ssm"
-    for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2",
-                 "internvl2-26b"):
+    for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b"):
+        assert get_config(arch).family == get_smoke_config(arch).family == "moe"
+    for arch in ("seamless-m4t-large-v2", "internvl2-26b"):
         with pytest.raises(KeyError, match="not yet ported"):
             get_smoke_config(arch)
     cfg = get_smoke_config("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: MoE, encdec, vlm"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec, vlm"):
         PM.model_specs(cfg.replace(block_pattern=("xattn",)))
-    with pytest.raises(NotImplementedError, match="MoE feed-forward is not yet ported"):
-        from repro_torch.models.config import MoESettings
+    from repro_torch.models.config import MoESettings
 
-        PM.model_specs(cfg.replace(moe=MoESettings(n_experts=4, top_k=2, d_expert=32)))
+    moe = cfg.replace(moe=MoESettings(n_experts=4, top_k=2, d_expert=32), dtype="float32")
+    assert "moe" in PM.model_specs(moe)["scan"][0]
+    params = PM.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    assert PM.forward(moe, params, batch).shape == (1, 4, moe.padded_vocab)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: MoE training"):
+        PM.loss_fn(moe, params, dict(batch, targets=batch["tokens"]))
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.timing import TimingSession
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: MoE training"):
+        run_training(TrainSettings(arch="moonshot-v1-16b-a3b", device="cpu", steps=1),
+                     session=TimingSession())
     with pytest.raises(NotImplementedError, match="family 'vlm' is not yet ported"):
         PM.model_specs(cfg.replace(family="vlm"))
     with pytest.raises(ValueError, match="unknown seq_impl"):

@@ -143,3 +143,30 @@ def test_run_serving_cpu_smoke():
     stats = engine.stats()
     assert stats["completed"] == 5.0 and stats["tokens"] == 20.0
     assert sorted(r.prompt_len for r in engine.completed) == [9, 9, 24, 24, 24]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "moonshot-v1-16b-a3b"])
+def test_free_slot_past_max_seq_matches_jax_engine(arch):
+    """A free slot decodes on, its position past the cache's end: the
+    reference drops those cache writes (a JAX scatter drops out-of-range
+    updates) and the port must too, not raise.  Request 0 (slot 0) finishes
+    after 2 tokens and its row then runs 28 steps past ``max_seq`` while
+    request 1 decodes in slot 1; under MoE the free row routes first in the
+    decode group (capacity 1 an expert at 2 slots), so its evolution decides
+    slot 1's drops.  f32, the kernel settings: identical tokens."""
+    over = dict(dtype="float32", attn_impl="pallas", norm_impl="fused")
+    cfg_j = jax_smoke_config(arch).replace(**over)
+    cfg_t = get_smoke_config(arch).replace(**over)
+    params_j = JM.init_params(cfg_j, jax.random.PRNGKey(0))
+    params_t = to_torch(jax.tree.map(np.asarray, params_j))
+    rng = np.random.default_rng(5)
+    requests = [([int(t) for t in rng.integers(0, cfg_j.vocab_size, plen)], max_new)
+                for plen, max_new in ((30, 2), (4, 30))]
+    max_seq = 40
+    handles_j = _serve(JaxServeSession(cfg_j, params_j, n_slots=2, max_seq=max_seq,
+                                       control=False), JaxRequest, requests)
+    engine_t = ServeSession(cfg_t, params_t, n_slots=2, max_seq=max_seq, control=False,
+                            device="cpu")
+    handles_t = _serve(engine_t, Request, requests)
+    assert int(engine_t._cache["pos"][0]) > max_seq  # the free row ran past the end
+    assert [h.result().tokens for h in handles_t] == [h.result().tokens for h in handles_j]
