@@ -12,7 +12,8 @@ caught):
    card (serving shape B=1, H=32, KV=8, hd=64, S=T=512 causal bf16; ragged
    S=T=300; window 128; f32; the training shape B=4, S=T=1024 causal bf16;
    moonshot-v1-16b-a3b's serving shape, hd=128 MHA 16/16 heads, S=T=512 and
-   ragged 300) and time kernel, plain version and
+   ragged 300, and its training shape B=4, S=T=1024 causal bf16) and time
+   kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it);
 3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
@@ -38,7 +39,9 @@ caught):
    S=T=1024, H=32, KV=8, hd=64 causal bf16, ragged S=T=300, window 128 and
    f32, and at head_dim 256 (recurrentgemma-9b's MQA, 16/1 heads): phase
    19's path B=1 S=T=4096 window 2048 bf16, ragged S=T=300 window 128 bf16
-   and S=T=512 window 2048 f32; time them beside the plain versions and the
+   and S=T=512 window 2048 f32, and at head_dim 128 (moonshot-v1-16b-a3b's
+   MHA, 16/16 heads): phase 21's path B=4 S=T=1024 causal bf16 and ragged
+   S=T=300; time them beside the plain versions and the
    backward of ``F.scaled_dot_product_attention`` (a yardstick only).  Each
    dkv case prints its plan (the split of the GQA group across blocks, the
    grid and the launches a call) and must give the same bits on a second
@@ -132,7 +135,7 @@ caught):
     of 256, window 2048, vocab 256000, untied) cut to 4 of its 38 layers,
     batch 1 x 4096: per step 4 flash forwards, 2 dq and 2 dkv at head_dim
     256 (two ``attn_local`` layers in the stacked unit), 14 RMSNorm
-    forwards and 8 backwards; peak device memory under HYBRID_MAX_GB; the
+    forwards and 8 backwards; peak device memory under CUT_TRAIN_MAX_GB; the
     bf16 leaves at LEAF_RTOL, as phase 8's; the f32 step runs the f32-FMA
     flash instances at head_dim 256 in a model.  The median step prints
     beside HYBRID_STEP_UNSPLIT_S, the one measured with the earlier hd-256
@@ -150,7 +153,20 @@ caught):
     of kept slots on which the two paths agree is printed per layer for
     one prefill; the peak device memory is printed.  Then profile a warm
     window of that engine, and hold the architecture in f32 cut to 4 of
-    its 48 layers, kernel against plain path at 2e-4.
+    its 48 layers, kernel against plain path at 2e-4;
+21. train moonshot-v1-16b-a3b at full width cut to 4 of its 48 layers
+    (2.95 B parameters), batch 4 x 1024, as phase 19 trains
+    recurrentgemma-9b: the loss adds the routers' load-balancing loss
+    (0.01 x aux); per step 8 flash forwards, 4 dq and 4 dkv at head_dim 128
+    and 16 RMSNorm forwards and 8 backwards, exactly; peak device memory
+    under CUT_TRAIN_MAX_GB; the bf16 step against the plain path with the
+    plain path (and the f32 anchor) replaying the kernel path's top-k
+    choices layer by layer (``_routing_tap``, which phase 20 shares; the
+    share of choices the plain path would have made alike is printed), the
+    kernel path's loss-and-gradient step run twice and bit-equal (autograd's
+    backward of the dispatch adds up to top_k gradient rows into each
+    token), the f32 step with each path routing on its own and every
+    choice equal, and a profiled warm step.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -158,12 +174,12 @@ and 6 also hold the flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T
 causal and 4/1 heads with window 16; bf16 and f32), elementwise at the
 kernel tolerances.  Memory is freed between the
 serving and the training phases, before phase 10 and around phases 18,
-19 and 20.  Each serving profile also counts the device operations of one
+19, 20 and 21.  Each serving profile also counts the device operations of one
 decode step of N_SLOTS rows.
 
 Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
-(phases 2, 4, 8, 12, 19, 20), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases 6,
-8, 19) are tensor-core kernels (``wgmma`` fed by TMA through an
+(phases 2, 4, 8, 12, 19, 20, 21), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases
+6, 8, 19, 21) are tensor-core kernels (``wgmma`` fed by TMA through an
 mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
 32-key tiles, and dkv keeps dk and dv on the two warpgroups of a 64-key
 block, passing P^T between them through shared memory, and splits the GQA
@@ -201,6 +217,7 @@ The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -262,9 +279,18 @@ SMOKE_SEQ, SMOKE_STEPS = 128, 3
 # width and depth at phase 8's batch x seq; recurrentgemma-9b at full width
 # cut to 4 of its 38 layers (one (rglru, attn_local, attn_local) unit and the
 # first layer of the next: 9.8 B params x 16 B of training state are past one
-# card), batch 1 x seq 4096, twice the 2048 window; its peak device memory
-# must stay under HYBRID_MAX_GB
-HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_MAX_GB = 4, 1, 4096, 76.0
+# card), batch 1 x seq 4096, twice the 2048 window
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 4, 1, 4096
+# training moonshot-v1-16b-a3b (phase 21): full width cut to 4 of its 48
+# layers (2.95 B params, ~41 GB of training state; all 48 would need ~393
+# GB), phase 8's batch x seq; per step 8 flash forwards at head_dim 128, 4
+# dq, 4 dkv, 16 RMSNorm forwards and 8 backwards
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4, "rmsnorm_fwd": 16,
+                      "rmsnorm_bwd": 8, "rglru_fwd": 0, "wkv6_fwd": 0}
+# the peak device memory of a training run cut in depth (phases 19 and 21)
+# must stay under this
+CUT_TRAIN_MAX_GB = 76.0
 # phase 19's median step with the earlier hd-256 dkv kernel (two blocks a
 # 128-key tile, one per column half, no split of the GQA group; NVIDIA H100
 # 80GB HBM3, 700.00 W), printed beside the step of this run
@@ -276,6 +302,7 @@ TRAIN_SHAPES = {
     ("llama3.2-1b", False): (16, 2048, 32, 8, 64, 128256, True, None),
     ("rwkv6-1.6b", False): (24, 2048, 32, 32, 64, 65536, False, None),
     ("recurrentgemma-9b", False): (HYBRID_TRAIN_LAYERS, 4096, 16, 1, 256, 256000, False, 2048),
+    ("moonshot-v1-16b-a3b", False): (MOE_TRAIN_LAYERS, 2048, 16, 16, 128, 163840, False, None),
 }
 # the checkpoint phase: run A trains steps 1-3 of phase 8's 6-step schedule
 # and saves at shutdown (label 3); run B restores it and trains steps 4-6.
@@ -363,6 +390,8 @@ def _flash_phase(torch, F, fa_ops, gen):
          "window=2048 bf16", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, hybrid, 2048, torch.bfloat16),
         ("moe", "moe path hd=128 MHA S=T=512 causal bf16", 1, 512, moe, None, torch.bfloat16),
         ("", "moe ragged hd=128 MHA S=T=300 causal bf16", 1, 300, moe, None, torch.bfloat16),
+        ("moe_train", f"moe training path hd=128 MHA B={TRAIN_BATCH} S=T={TRAIN_SEQ} causal "
+         "bf16", TRAIN_BATCH, TRAIN_SEQ, moe, None, torch.bfloat16),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -736,7 +765,7 @@ def _dtype_name(dtype) -> str:
 
 
 def _flash_bwd_phase(torch, F, fa_ops, gen):
-    llama, hybrid = (32, 8, 64), (16, 1, 256)
+    llama, hybrid, moe = (32, 8, 64), (16, 1, 256), (16, 16, 128)
     cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
         ("train", "path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, llama, None,
          torch.bfloat16),
@@ -749,6 +778,10 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
          torch.bfloat16),
         ("", "hybrid f32 hd=256 MQA B=1 S=T=512 window=2048", 1, 512, hybrid, 2048,
          torch.float32),
+        ("moe_train", f"moe training path hd=128 MHA B={TRAIN_BATCH} S=T={TRAIN_SEQ} causal "
+         "bf16", TRAIN_BATCH, TRAIN_SEQ, moe, None, torch.bfloat16),
+        ("", f"moe ragged hd=128 MHA B={TRAIN_BATCH} S=T=300 causal bf16", TRAIN_BATCH, 300,
+         moe, None, torch.bfloat16),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -1015,11 +1048,53 @@ def _train_phase(torch, K, arch="llama3.2-1b", smoke=False, steps=TRAIN_STEPS,
            f"mfu(6*{active}*tokens vs 989 TFLOP/s)={mfu:.4f} "
            f"mfu_with_lm_head(6*{active + head}*tokens)={mfu_head:.4f} "
            f"max_memory_allocated_GB={peak_gb:.3f}")
+    if n_layers is not None:
+        assert peak_gb < CUT_TRAIN_MAX_GB, (peak_gb, CUT_TRAIN_MAX_GB)
     if arch == "recurrentgemma-9b":
-        assert peak_gb < HYBRID_MAX_GB, (peak_gb, HYBRID_MAX_GB)
         _print(f"{tag} median_s={median_s:.5f} against {HYBRID_STEP_UNSPLIT_S} s with the "
                f"earlier hd-256 dkv kernel (ratio {median_s / HYBRID_STEP_UNSPLIT_S:.4f})")
     return launches, cfg, losses, summary, sess.db
+
+
+@contextlib.contextmanager
+def _routing_tap(torch, replay=None):
+    """Wrap ``moe.route`` inside the block; yields ``{key: (top_i, mask,
+    keep, own)}``, what each MoE layer chose the first time it routed, in
+    that order.  A layer's key is the address of its router weight: the
+    same in the forward and in the backward's recompute (which under remat
+    runs the layers again, in reverse order), and on two paths that share
+    the weights.  With ``replay`` (``{key: top_i}``) each layer routes with
+    those choices instead of its own (the indices only: gates and
+    renormalised weights stay the path's own), and ``own`` is the top-k it
+    would have chosen; else ``own`` is ``top_i``."""
+    from repro_torch.models import moe
+
+    route = moe.route
+    seen = {}
+
+    def tapped(cfg, router, x, top_i=None):
+        key = router.data_ptr()
+        r = route(cfg, router, x, top_i=None if replay is None else replay[key])
+        if key not in seen:
+            with torch.no_grad():
+                own = r.top_i if replay is None else torch.topk(r.gates, cfg.moe.top_k, -1)[1]
+            seen[key] = (r.top_i.detach(), r.mask.bool(), r.keep, own)
+        return r
+
+    moe.route = tapped
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def _choice_share(torch, top_a, top_b, n_experts) -> float:
+    """The share of ``top_b``'s (token, expert) choices that ``top_a`` makes too."""
+    def chosen(top_i):
+        return torch.zeros(top_i.shape[:-1] + (n_experts,), dtype=torch.bool,
+                           device=top_i.device).scatter_(-1, top_i, True)
+    a, b = chosen(top_a), chosen(top_b)
+    return ((a & b).sum() / b.sum()).item()
 
 
 def _loss_and_grads(torch, cfg, params, batch):
@@ -1037,12 +1112,21 @@ def _loss_and_grads(torch, cfg, params, batch):
 
 def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
                          loss_rtol=TRAIN_RTOL, leaf_rtol=LEAF_RTOL, label="[train]",
-                         f32_anchor=False):
+                         f32_anchor=False, repeat=False):
     """One loss-and-gradient step, kernel path vs plain path, same weights and
     batch, on the card.  With ``f32_anchor`` it also prints each path's
     distance, leaf by leaf in relative norm, from the plain path in f32 on
     the same weights upcast: the rounding of the working dtype alone, which
-    the kernel-vs-plain difference is to be read against."""
+    the kernel-vs-plain difference is to be read against.  With ``repeat``
+    the kernel path's step runs a second time and must give the same bits.
+
+    With experts (``cfg.moe``), the routing: in bf16 the two paths' rounding
+    breaks near-ties in the top-k differently, and one moved choice sends a
+    token to another expert and changes which tokens drop after it, so the
+    plain path and the f32 anchor replay the kernel path's choices layer by
+    layer (``_routing_tap``) and the share of choices they would have made
+    alike is printed; in f32 each path routes on its own, and every choice
+    must be the same."""
     from repro_torch.data import SyntheticConfig, SyntheticLM
     from repro_torch.models import model as M
     from repro_torch.models.layers import tree_map
@@ -1053,12 +1137,36 @@ def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
     names = [name for name, _ in _named_leaves(params)]
-    out = {path: _loss_and_grads(torch, c, params, batch)
-           for path, c in (("kernel", cfg), ("plain", plain))}
-    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out["kernel"], out["plain"]
+    with _routing_tap(torch) as chosen:
+        loss_k, gn_k, g_k = _loss_and_grads(torch, cfg, params, batch)
+    if repeat:
+        with _routing_tap(torch) as again:
+            loss_r, gn_r, g_r = _loss_and_grads(torch, cfg, params, batch)
+        assert all(torch.equal(again[key][0], chosen[key][0]) for key in chosen)
+        assert loss_r == loss_k and gn_r == gn_k, (loss_r, loss_k, gn_r, gn_k)
+        same = [name for name, a, b in zip(names, g_r, g_k) if not torch.equal(a, b)]
+        assert not same, f"leaves whose gradient changed on a second call: {same}"
+        del g_r
+        _print(f"{label} the kernel path's loss-and-gradient step again: the same bits "
+               f"(loss, gradient norm and all {len(names)} leaves)")
+    replay = {key: tap[0] for key, tap in chosen.items()} if cfg.dtype == "bfloat16" else None
+    with _routing_tap(torch, replay) as routed:
+        loss_p, gn_p, g_p = _loss_and_grads(torch, plain, params, batch)
+    if chosen:
+        assert list(routed) == list(chosen)
+        share = [_choice_share(torch, chosen[key][0], routed[key][3], cfg.moe.n_experts)
+                 for key in chosen]
+        how = ("the plain path replays the kernel path's choices; share it would have made "
+               "alike" if replay else "each path routes on its own; share of choices equal")
+        _print(f"{label} routing, {len(share)} MoE layers: {how}, by layer "
+               f"{[round(x, 5) for x in share]}")
+        if replay is None:
+            assert min(share) == 1.0, share
     if f32_anchor:
         up = tree_map(lambda p: p.float(), params)
-        loss_a, gn_a, g_a = _loss_and_grads(torch, plain.replace(dtype="float32"), up, batch)
+        with _routing_tap(torch, replay):
+            loss_a, gn_a, g_a = _loss_and_grads(torch, plain.replace(dtype="float32"), up,
+                                                batch)
         del up
         for path, grads in (("kernel", g_k), ("plain", g_p)):
             dist = {name: ((g.float() - a).norm() / a.norm()).item()
@@ -1309,24 +1417,26 @@ def _ckpt_phase(torch, K, train_losses):
     return {"run_a": launches_a, "run_b": launches_b}
 
 
-def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEAF_RTOL):
-    """Phases 18 and 19: train ``arch`` at full width (``n_layers`` deep when
-    given) through ``run_training`` on the card, TRAIN_STEPS AdamW steps,
-    with exact launch counts, finite losses and the step's seconds, tokens/s,
-    share of 989 TFLOP/s and peak memory; then hold one loss-and-gradient
-    step against the plain path in bf16 (loss and gradient norm at
-    TRAIN_RTOL, as phase 8; each leaf in relative norm under ``leaf_rtol``,
-    each path's distance from the plain path in f32 printed beside it) and
-    in f32 (loss and gradient norm to 1e-4, each leaf to 1e-3 in relative
-    norm, as phase 16; at head_dim 256 the f32-FMA flash instances in a
-    model); and profile one warm step."""
+def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEAF_RTOL,
+                        repeat=False):
+    """Phases 18, 19 and 21: train ``arch`` at full width (``n_layers`` deep
+    when given) through ``run_training`` on the card, TRAIN_STEPS AdamW
+    steps, with exact launch counts, finite losses and the step's seconds,
+    tokens/s, share of 989 TFLOP/s and peak memory; then hold one
+    loss-and-gradient step against the plain path in bf16 (loss and
+    gradient norm at TRAIN_RTOL, as phase 8; each leaf in relative norm
+    under ``leaf_rtol``, each path's distance from the plain path in f32
+    printed beside it; with ``repeat`` the kernel path's step again, bit for
+    bit) and in f32 (loss and gradient norm to 1e-4, each leaf to 1e-3 in
+    relative norm, as phase 16; at head_dim 256 the f32-FMA flash instances
+    in a model); and profile one warm step."""
     tag = f"[train {arch}]"
     launches, cfg, *_ = _train_phase(torch, K, arch=arch, batch=batch, seq=seq,
                                      n_layers=n_layers, tag=tag)
     _free(torch)
     params, data = _train_compare_phase(torch, cfg, batch_size=batch, seq=seq,
                                         leaf_rtol=leaf_rtol, label=f"{tag} bf16",
-                                        f32_anchor=True)
+                                        f32_anchor=True, repeat=repeat)
     _train_profile_phase(torch, cfg, params, data, tag=f"[profile-train {arch}]")
     del params, data
     _free(torch)
@@ -1341,36 +1451,25 @@ def _routing_phase(torch, engine):
     (request 0's prompt) on which the kernel path and the plain path agree,
     and of the choices that kept a slot: a near-tie that the paths' rounding
     breaks differently moves a choice, and under capacity the drops after it
-    (``route`` is wrapped for the two prefills)."""
+    (``_routing_tap`` records the two prefills, layer by layer)."""
     import numpy as np
 
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import model as M
-    from repro_torch.models import moe
 
     cfg = engine.cfg
     plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
     prompt = make_requests(cfg.vocab_size, 1, PROMPT_LENS, 1, np.random.default_rng(SEED))[0].prompt
     tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-    route = moe.route
     seen = {}
     for path, c in (("kernel", cfg), ("plain", plain)):
-        seen[path] = []
-
-        def recording(*args, out=seen[path]):
-            r = route(*args)
-            out.append((r.mask.bool(), r.keep))
-            return r
-
-        moe.route = recording
-        try:
+        with _routing_tap(torch) as seen[path]:
             M.prefill(c, engine.params, {"tokens": tokens},
                       M.init_cache(c, 1, engine.max_seq, device="cuda"))
-        finally:
-            moe.route = route
-    assert len(seen["kernel"]) == len(seen["plain"]) == cfg.n_layers
+    assert list(seen["kernel"]) == list(seen["plain"]) and len(seen["plain"]) == cfg.n_layers
     chosen, kept, dropped = [], [], []
-    for (mask_k, keep_k), (mask_p, keep_p) in zip(seen["kernel"], seen["plain"]):
+    for key, (_, mask_p, keep_p, _) in seen["plain"].items():
+        _, mask_k, keep_k, _ = seen["kernel"][key]
         chosen.append(((mask_k & mask_p).sum() / mask_p.sum()).item())
         kept.append(((keep_k & keep_p).sum() / keep_p.sum()).item())
         dropped.append((int((mask_k & ~keep_k).sum()), int((mask_p & ~keep_p).sum())))
@@ -1398,27 +1497,28 @@ def _moe_phase(torch, K):
     return launches
 
 
-def main() -> int:
+def _moe_train_phase(torch, K):
+    """Phase 21: train moonshot-v1-16b-a3b at 4 layers (module docstring)."""
+    cfg = _train_cfg("moonshot-v1-16b-a3b", n_layers=MOE_TRAIN_LAYERS)
+    assert _per_step_launches(cfg) == MOE_TRAIN_PER_STEP, _per_step_launches(cfg)
+    return _train_family_phase(torch, K, "moonshot-v1-16b-a3b", TRAIN_BATCH, TRAIN_SEQ,
+                               n_layers=MOE_TRAIN_LAYERS, repeat=True)
+
+
+def _setup(torch):
+    """Phase 1: print the card and its power limit, build and load the
+    kernels; returns their wrapper modules.  One phase alone runs as
+    ``python3 -c 'import torch, chip_smoke as cs; cs._moe_train_phase(torch,
+    cs._setup(torch))'`` from the checkout's root."""
     import types
 
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
-        return 2
     sys.path.insert(0, str(SRC))
-    import torch.nn.functional as F
-
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rwkv6 import ops as wk_ops
 
-    K = types.SimpleNamespace(fa=fa_ops, rn=rn_ops, rg=rg_ops, wk=wk_ops)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1428,8 +1528,23 @@ def main() -> int:
            f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     _print(f"[build] {len(COUNTERS)} kernels from {', '.join(f'{n}.cu' for n in build.SOURCES)} "
            f"built and loaded in {build.build_all():.2f} s")
-
     torch.backends.cuda.matmul.allow_tf32 = False
+    return types.SimpleNamespace(fa=fa_ops, rn=rn_ops, rg=rg_ops, wk=wk_ops)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {SRC}", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+
+    K = _setup(torch)
+    fa_ops, rn_ops, rg_ops, wk_ops = K.fa, K.rn, K.rg, K.wk
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = _flash_phase(torch, F, fa_ops, gen)
     rms = _rmsnorm_phase(torch, F, rn_ops, gen)
@@ -1482,6 +1597,8 @@ def main() -> int:
         n_layers=HYBRID_TRAIN_LAYERS)
     # moonshot-v1-16b-a3b: 48 attention layers with MoE feed-forwards, 2 norms each
     moe_launches = _moe_phase(torch, K)
+    # and its training at 4 layers, the flash backward at head_dim 128
+    moe_train_launches = _moe_train_phase(torch, K)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -1494,7 +1611,9 @@ def main() -> int:
     # "hybrid_train", the training paths of phases 18 and 19 (rwkv6-1.6b's
     # norms; recurrentgemma-9b's flash kernels at head_dim 256 and norms);
     # under "moe", phase 20's serving path (flash at head_dim 128, the
-    # norms at llama's prefill rows)
+    # norms at llama's prefill rows); under "moe_train", phase 21's training
+    # path (flash forward and backward at head_dim 128, the norms at
+    # (4096, 2048), phase 8's rows)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -1508,6 +1627,7 @@ def main() -> int:
     case = lambda rows, name: next(r for r in rows if r["case"] == name)  # noqa: E731
     ssm = lambda name, row: dict(launches=ssm_train_launches[name], **pick(row))  # noqa: E731
     hyb = lambda name, row: dict(launches=hybrid_train_launches[name], **pick(row))  # noqa: E731
+    moe_tr = lambda name, row: dict(launches=moe_train_launches[name], **pick(row))  # noqa: E731
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -1522,19 +1642,22 @@ def main() -> int:
              hybrid=dict(launches=hybrid_launches["flash_fwd"], **pick(_role(flash, "hybrid"))),
              smoke=smoke("flash_fwd", flash), resume=resume("flash_fwd", _role(flash, "train")),
              hybrid_train=hyb("flash_fwd", _role(flash, "hybrid_train")),
-             moe=dict(launches=moe_launches["flash_fwd"], **pick(_role(flash, "moe")))),
+             moe=dict(launches=moe_launches["flash_fwd"], **pick(_role(flash, "moe"))),
+             moe_train=moe_tr("flash_fwd", _role(flash, "moe_train"))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
              smoke=smoke("flash_bwd_dq", flash_bwd["flash_bwd_dq"]),
              resume=resume("flash_bwd_dq", flash_bwd["flash_bwd_dq"][0]),
-             hybrid_train=hyb("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "hybrid"))),
+             hybrid_train=hyb("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "hybrid")),
+             moe_train=moe_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "moe_train"))),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
              smoke=smoke("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"]),
              resume=resume("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"][0]),
-             hybrid_train=hyb("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "hybrid"))),
+             hybrid_train=hyb("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "hybrid")),
+             moe_train=moe_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "moe_train"))),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -1542,12 +1665,14 @@ def main() -> int:
              hybrid=dict(launches=hybrid_launches["rmsnorm_fwd"], **pick(fwd_prefill)),
              resume=resume("rmsnorm_fwd", fwd_2048), ssm_train=ssm("rmsnorm_fwd", fwd_2048),
              hybrid_train=hyb("rmsnorm_fwd", fwd_4096),
-             moe=dict(launches=moe_launches["rmsnorm_fwd"], **pick(rms[0]))),
+             moe=dict(launches=moe_launches["rmsnorm_fwd"], **pick(rms[0])),
+             moe_train=moe_tr("rmsnorm_fwd", fwd_2048)),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
              resume=resume("rmsnorm_bwd", rms_bwd[0]),
-             ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096)),
+             ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096),
+             moe_train=moe_tr("rmsnorm_bwd", bwd_2048)),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -18,9 +18,11 @@ smoke config); ``--attn-impl pallas --norm-impl fused`` select the
 hand-written flash-attention and RMSNorm kernels, whose backward kernels the
 loss then differentiates through.  Every ported family trains: dense
 (llama3.2-1b, ...), hybrid (recurrentgemma-9b: RG-LRU and local attention at
-head_dim 256) and SSM (rwkv6-1.6b: WKV-6); their recurrences train through
-the config's ``seq_impl="parallel"`` (the associative scan and chunked
-WKV-6 in PyTorch), as the reference's blocks train through their jnp forms.
+head_dim 256), SSM (rwkv6-1.6b: WKV-6) and MoE (moonshot-v1-16b-a3b: the
+routers' load-balancing loss joins the loss as ``aux_coef * aux``); the
+recurrences train through the config's ``seq_impl="parallel"`` (the
+associative scan and chunked WKV-6 in PyTorch), as the reference's blocks
+train through their jnp forms.
 The step runs on ``--device`` (default ``cuda``); ``--device cpu`` runs the
 kernels' plain versions.
 
@@ -31,9 +33,8 @@ kernels' plain versions.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2
 
-The pipeline-parallel path (``pipeline_stages``) and MoE configs (their
-loss lacks the router's aux term) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The pipeline-parallel path (``pipeline_stages``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -133,14 +134,13 @@ def _flops_per_step(cfg: ArchConfig, tokens: int) -> float:
     return 6.0 * active * tokens
 
 
-def _check_ported(settings: TrainSettings, cfg: ArchConfig) -> None:
+def _check_ported(settings: TrainSettings) -> None:
     defaults = {f.name: f.default for f in dataclasses.fields(TrainSettings)}
     for name, item in _NOT_YET_PORTED.items():
         if getattr(settings, name) != defaults[name]:
             raise NotImplementedError(
                 f"TrainSettings.{name} is not yet ported (ROADMAP Queue 1 {item})"
             )
-    M.check_trainable(cfg)
 
 
 def run_training(
@@ -163,7 +163,7 @@ def run_training(
         cfg = get_smoke_config(settings.arch) if settings.smoke else get_config(settings.arch)
     overrides = {"attn_impl": settings.attn_impl, "norm_impl": settings.norm_impl}
     cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
-    _check_ported(settings, cfg)
+    _check_ported(settings)
     sess = (
         session
         if session is not None

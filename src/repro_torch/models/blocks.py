@@ -28,9 +28,9 @@ reference's jnp forms; under ``"pallas"`` a loss's backward raises, since
 the recurrence kernels have no backward (the reference has none either).
 
 With ``cfg.moe`` the feed-forward of each attention block is the
-mixture of experts of ``models/moe.py``; its auxiliary loss is dropped here
-(the port serves MoE configs and does not yet train them, see
-``model.check_trainable``).  The ``xattn`` block raises
+mixture of experts of ``models/moe.py``; ``block_apply`` returns its
+auxiliary (load-balancing) loss beside the hidden state, a zero f32 scalar
+for every other block in training, as the reference's does.  The ``xattn`` block raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 """
 
@@ -329,11 +329,20 @@ def _attn_core_decode(cfg, p, h, cache, pos, *, window):
     return h + out, cache
 
 
-def _ffn_apply(cfg, p, h):
+def _no_aux(h, mode):
+    """The aux loss of a block without experts: an f32 zero in training;
+    None in prefill and decode, which ignore it (a zero would cost a launch
+    a layer in every decode step)."""
+    return torch.zeros((), dtype=torch.float32, device=h.device) if mode == "train" else None
+
+
+def _ffn_apply(cfg, p, h, mode):
+    """(h + feed-forward, its aux loss)."""
     x = norm(cfg, h, p["ln2"])
     if cfg.moe is not None:
-        return h + moe_apply(cfg, p["moe"], x)[0]
-    return h + gated_mlp(p["mlp"], x)
+        y, aux = moe_apply(cfg, p["moe"], x)
+        return h + y, aux
+    return h + gated_mlp(p["mlp"], x), _no_aux(h, mode)
 
 
 def _update(cache, fresh):
@@ -463,9 +472,9 @@ def block_apply(
     mode: str = "train",
     cache: dict[str, Any] | None = None,
     pos: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, dict[str, Any] | None]:
-    """Apply one block. Returns (h, new_cache); an MoE feed-forward's aux loss
-    is dropped (serving needs none)."""
+) -> tuple[torch.Tensor, dict[str, Any] | None, torch.Tensor]:
+    """Apply one block. Returns (h, new_cache, aux_loss); serving ignores the
+    aux loss (``_no_aux``)."""
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else None
         if mode == "decode":
@@ -473,10 +482,13 @@ def block_apply(
         else:
             h, new_attn = _attn_core_train(cfg, p, h, rope, window=window, mode=mode,
                                            cache=cache)
-        return _ffn_apply(cfg, p, h), new_attn
+        h, aux = _ffn_apply(cfg, p, h, mode)
+        return h, new_attn, aux
     if kind == "rglru":
         h, new_rnn = _rglru_block(cfg, p, h, mode=mode, cache=cache)
-        return _ffn_apply(cfg, p, h), new_rnn
+        h, aux = _ffn_apply(cfg, p, h, mode)
+        return h, new_rnn, aux
     if kind == "rwkv":
-        return _rwkv_block(cfg, p, h, mode=mode, cache=cache)
+        h, new_cache = _rwkv_block(cfg, p, h, mode=mode, cache=cache)
+        return h, new_cache, _no_aux(h, mode)
     raise _unported(kind)

@@ -56,7 +56,6 @@ __all__ = [
     "cache_specs",
     "cache_axes",
     "init_cache",
-    "check_trainable",
     "decoder_pattern",
     "forward",
     "loss_fn",
@@ -87,16 +86,6 @@ def _check_family(cfg: ArchConfig) -> None:
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: encdec, vlm)"
-        )
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a config whose loss the port cannot yet compute in full: an
-    MoE stack's loss lacks the router's ``aux_coef * aux`` term."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "training an MoE config is not yet ported: its loss needs the router's aux "
-            "loss (ROADMAP Queue 1: MoE training)"
         )
 
 
@@ -209,7 +198,7 @@ def _keep_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg, fn):
-    """Wrap one stacked unit's forward ``fn(h) -> h`` in ``cfg.remat``."""
+    """Wrap one stacked unit's forward ``fn(h) -> (h, aux)`` in ``cfg.remat``."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
@@ -222,44 +211,54 @@ def _remat(cfg, fn):
 
 def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None):
     """Run the stacked units (a loop over the leading ``scan`` axis), then the
-    tail.  Returns (h, {"scan", "tail"} caches): the given caches, updated in
-    place, or — for a prefill without caches — freshly stacked ones; None in
-    ``mode="train"``, where each unit runs under ``cfg.remat``."""
+    tail.  Returns (h, {"scan", "tail"} caches, aux): the given caches,
+    updated in place, or — for a prefill without caches — freshly stacked
+    ones; None in ``mode="train"``, where each unit runs under ``cfg.remat``.
+    In ``mode="train"``, ``aux`` is the f32 sum of every layer's aux loss,
+    unit by unit and then over the tail, in the reference's order; prefill
+    and decode need none and return None (no additions launched for it)."""
     n_scan, pattern, tail_kinds = _split_stack(cfg)
     p_scan = params["scan"]
     n_units = n_scan if p_scan is not None else 0
     c_scan = caches["scan"] if caches is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device) if mode == "train" else None
     fresh_scan = []
     for i, unit_p in enumerate(_unstack(p_scan, n_units)):
         if mode == "train":
 
             def unit(x, unit_p=unit_p):
+                unit_aux = torch.zeros((), dtype=torch.float32, device=x.device)
                 for j, kind in enumerate(pattern):
-                    x, _ = block_apply(cfg, kind, unit_p[j], x, rope=rope, mode=mode)
-                return x
+                    x, _, a = block_apply(cfg, kind, unit_p[j], x, rope=rope, mode=mode)
+                    unit_aux = unit_aux + a
+                return x, unit_aux
 
-            h = _remat(cfg, unit)(h)
+            h, a = _remat(cfg, unit)(h)
+            aux = aux + a
             continue
         unit_c = tree_map(lambda x: x[i], c_scan)  # views: written in place
         unit_new = []
         for j, kind in enumerate(pattern):
             c = unit_c[j] if unit_c is not None else None
-            h, nc = block_apply(cfg, kind, unit_p[j], h, rope=rope, mode=mode, cache=c, pos=pos)
+            h, nc, _ = block_apply(cfg, kind, unit_p[j], h, rope=rope, mode=mode, cache=c,
+                                   pos=pos)
             unit_new.append(nc)
         fresh_scan.append(tuple(unit_new))
     fresh_tail = []
     for i, (kind, bp) in enumerate(zip(tail_kinds, params["tail"])):
         c = caches["tail"][i] if caches is not None else None
-        h, nc = block_apply(cfg, kind, bp, h, rope=rope, mode=mode, cache=c, pos=pos)
+        h, nc, a = block_apply(cfg, kind, bp, h, rope=rope, mode=mode, cache=c, pos=pos)
         fresh_tail.append(nc)
+        if mode == "train":
+            aux = aux + a
     if mode == "train":
-        return h, None
+        return h, None, aux
     if caches is not None:
-        return h, {"scan": caches["scan"], "tail": caches["tail"]}
+        return h, {"scan": caches["scan"], "tail": caches["tail"]}, aux
     return h, {
         "scan": _stack_trees(fresh_scan) if fresh_scan else None,
         "tail": tuple(fresh_tail),
-    }
+    }, aux
 
 
 def _embed_tokens(params, tokens):
@@ -280,18 +279,19 @@ def _rope(cfg, s: int, device):
     return rotary_embedding(torch.arange(s, device=device), cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _hidden(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Full-sequence forward up to and including the final norm."""
+def _hidden(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward up to and including the final norm; returns
+    (h, the stack's summed aux loss)."""
     h = _embed_tokens(params, batch["tokens"])
     rope = _rope(cfg, h.shape[1], h.device)
-    h, _ = _apply_stack(cfg, params, h, rope=rope, mode="train")
+    h, _, aux = _apply_stack(cfg, params, h, rope=rope, mode="train")
     # the final norm is always the unfused rms_norm, whatever norm_impl says
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """Full-sequence forward. Returns logits (B, S, padded_vocab)."""
-    return _logits(cfg, params, _hidden(cfg, params, batch))
+    return _logits(cfg, params, _hidden(cfg, params, batch)[0])
 
 
 def _ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
@@ -315,12 +315,11 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
     plus the z-loss; returns (loss, metrics).  With ``cfg.loss_chunk`` dividing
     the sequence, the logits and CE of each chunk are computed under
     ``torch.utils.checkpoint``, so the (B, S, V) logits never materialize.
-    The ported stacks that train carry no auxiliary loss (``aux`` is 0); an
-    MoE config raises (``check_trainable``)."""
-    check_trainable(cfg)
+    ``aux`` is the stack's summed aux loss (the MoE routers' load-balancing
+    loss; 0 for a stack without experts), added as ``aux_coef * aux``."""
     targets = batch["targets"]
     chunk = cfg.loss_chunk
-    h = _hidden(cfg, params, batch)
+    h, aux = _hidden(cfg, params, batch)
     s = targets.shape[1]
     if chunk and s % chunk == 0 and s > chunk:
 
@@ -338,7 +337,6 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
     n_valid = n_valid.clamp_min(1.0)
     ce = ce_sum / n_valid
     z_loss = z_sum / n_valid
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + z_loss + aux_coef * aux
     metrics = {"loss": loss, "ce": ce, "aux": aux, "z_loss": z_loss, "tokens": n_valid}
     return loss, metrics
@@ -349,7 +347,7 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     h = _embed_tokens(params, batch["tokens"])
     s = h.shape[1]
     rope = _rope(cfg, s, h.device)
-    h, new_caches = _apply_stack(cfg, params, h, rope=rope, mode="prefill", caches=cache)
+    h, new_caches, _ = _apply_stack(cfg, params, h, rope=rope, mode="prefill", caches=cache)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _logits(cfg, params, h)
     new_cache = {
@@ -364,7 +362,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens):
     """One decode step. tokens: (B, 1). Returns (cache, logits (B, padded_vocab))."""
     pos = cache["pos"]
     h = _embed_tokens(params, tokens)
-    h, new_caches = _apply_stack(cfg, params, h, rope=None, mode="decode", caches=cache, pos=pos)
+    h, new_caches, _ = _apply_stack(cfg, params, h, rope=None, mode="decode", caches=cache,
+                                    pos=pos)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _logits(cfg, params, h)
     new_cache = {"pos": pos + 1, "scan": new_caches["scan"], "tail": new_caches["tail"]}

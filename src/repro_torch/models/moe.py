@@ -12,9 +12,13 @@ tensor operations batched over groups and experts, with no Python loop over
 either: 64 experts x 48 layers of per-expert launches would make a decode
 step host-bound.
 
-Router math in f32; Switch-style load-balancing aux loss.  The expert
-products are library GEMMs: the reference computes them outside any Pallas
-kernel.  The reference's ``constrain`` calls are sharding hints that do
+Router math in f32; Switch-style load-balancing aux loss, which the model
+sums over the layers into the training loss.  The expert products are
+library GEMMs: the reference computes them outside any Pallas kernel.  The
+backward is autograd's, through the routing's gathers, the dispatch and
+combine gathers and the batched GEMMs; on the card it repeats its bits
+(the gathers' backward accumulates duplicate rows in a sorted, fixed
+order).  The reference's ``constrain`` calls are sharding hints that do
 nothing on one device; ``cfg.moe_dispatch_mode``, which picks between them,
 is kept as a config field and ignored here until the port distributes
 (ROADMAP Queue 1, item 6).
@@ -66,13 +70,22 @@ def _capacity(cfg: ArchConfig, s: int) -> int:
     return min(cap, s)
 
 
-def route(cfg: ArchConfig, router: torch.Tensor, x: torch.Tensor) -> Routing:
-    """Route x (G, S, D): each group's tokens take slots in token order."""
+def route(cfg: ArchConfig, router: torch.Tensor, x: torch.Tensor,
+          top_i: torch.Tensor | None = None) -> Routing:
+    """Route x (G, S, D): each group's tokens take slots in token order.
+
+    ``top_i`` (G, S, k), when given, replaces the top-k choice: the gates
+    and the renormalised weights are still this call's own.  A comparison of
+    two paths passes one path's choices to the other, so that a near-tie
+    their rounding breaks differently does not move a token."""
     g, s, _ = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     cap = _capacity(cfg, s)
     gates = torch.softmax(x.float() @ router, dim=-1)
-    top_v, top_i = torch.topk(gates, k, dim=-1)
+    if top_i is None:
+        top_v, top_i = torch.topk(gates, k, dim=-1)
+    else:
+        top_v = gates.gather(-1, top_i)
     top_v = top_v / torch.clamp_min(top_v.sum(-1, keepdim=True), 1e-9)
     weights = torch.zeros((g, s, e), dtype=torch.float32, device=x.device)
     weights.scatter_add_(-1, top_i, top_v)
