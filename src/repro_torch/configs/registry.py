@@ -22,10 +22,11 @@ _MODULES: dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "internvl2-26b": "internvl2_26b",
 }
 
 #: architectures the reference package serves that this port does not yet
-_NOT_YET_PORTED = ("seamless-m4t-large-v2", "internvl2-26b")
+_NOT_YET_PORTED = ("seamless-m4t-large-v2",)
 
 ARCH_IDS = tuple(_MODULES)
 

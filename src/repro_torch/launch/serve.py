@@ -21,6 +21,12 @@ reference's names for its kernels).
 
 moonshot-v1-16b-a3b at full width holds 28.06 B parameters, 56.1 GB in bf16:
 its weights are drawn on the card, one layer of each expert stack at a time.
+internvl2-26b (``--arch internvl2-26b``, 19.86 B parameters, 39.7 GB in bf16)
+prefills every prompt behind its 256 zero patch embeddings, so each slot's
+cache holds the prefix too:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch internvl2-26b \
+        --attn-impl pallas --norm-impl fused
 
 ``--metrics-textfile`` writes one Prometheus exposition page on exit (the
 node_exporter textfile-collector path).
@@ -83,7 +89,9 @@ def run_serving(
 ) -> ServeSession:
     """Build a :class:`~repro_torch.serving.ServeSession` and serve ``n_requests``.
 
-    ``prompt_len`` is one length or several, cycled over the requests.
+    ``prompt_len`` is one length or several, cycled over the requests; each
+    slot holds the longest prompt, ``max_new`` tokens and a vlm's patch
+    prefix, so no prompt is truncated.
     ``attn_impl`` / ``norm_impl`` / ``seq_impl`` / ``dtype`` override the
     config's fields.
     Weights are random, drawn from a generator on ``device`` seeded with
@@ -104,7 +112,7 @@ def run_serving(
         cfg, params,
         session=session,
         n_slots=n_slots,
-        max_seq=max(lens) + max_new + 8,
+        max_seq=M.prefix_positions(cfg) + max(lens) + max_new + 8,
         block_size=block_size,
         slo=ServiceLevel(
             target_decode_ms=target_decode_ms,

@@ -18,8 +18,11 @@ smoke config); ``--attn-impl pallas --norm-impl fused`` select the
 hand-written flash-attention and RMSNorm kernels, whose backward kernels the
 loss then differentiates through.  Every ported family trains: dense
 (llama3.2-1b, ...), hybrid (recurrentgemma-9b: RG-LRU and local attention at
-head_dim 256), SSM (rwkv6-1.6b: WKV-6) and MoE (moonshot-v1-16b-a3b: the
-routers' load-balancing loss joins the loss as ``aux_coef * aux``); the
+head_dim 256), SSM (rwkv6-1.6b: WKV-6), MoE (moonshot-v1-16b-a3b: the
+routers' load-balancing loss joins the loss as ``aux_coef * aux``) and vlm
+(internvl2-26b: each batch's 256 patch embeddings run in front of its
+``seq_len`` text tokens, and the loss, the ``tokens`` counter and the
+6 · active params · tokens FLOP count read the text tokens alone); the
 recurrences train through the config's ``seq_impl="parallel"`` (the
 associative scan and chunked WKV-6 in PyTorch), as the reference's blocks
 train through their jnp forms.

@@ -54,7 +54,7 @@ __all__ = ["block_specs", "block_cache_specs", "block_apply", "norm"]
 _RWKV_LORA = 64
 
 #: block kind -> the ROADMAP Queue 1 item that ports it
-_NOT_YET_PORTED = {"xattn": "encdec, vlm"}
+_NOT_YET_PORTED = {"xattn": "encdec"}
 
 #: cfg.seq_impl -> (rglru impl, rwkv impl) in train and prefill
 _SEQ_IMPLS = {"parallel": ("assoc", "chunked"), "ref": ("ref", "ref"), "pallas": ("pallas", "pallas")}

@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port (dense, MoE, hybrid and SSM decoder stacks).
+"""Model API of the PyTorch port (dense, MoE, hybrid, SSM and vlm decoder stacks).
 
 Parameters are the reference's pytree as plain nested dicts/tuples of
 tensors: per-layer weights stacked along a leading ``"scan"`` axis of pattern
@@ -16,6 +16,16 @@ Public surface:
     loss_fn(cfg, params, batch)               -> (loss, metrics)
     prefill(cfg, params, batch, cache)        -> (cache, last_logits)
     decode_step(cfg, params, cache, tokens)   -> (cache, logits)
+    prefix_positions(cfg)                     -> cache positions of a vlm's patch prefix
+
+A vlm batch carries ``patch_embeds`` (B, n_vision_patches, d_model), the
+stub vision frontend's output: ``forward``, ``loss_fn`` and ``prefill`` run
+the stack over the patches followed by the text tokens, and ``forward`` and
+``loss_fn`` score text positions only, as the reference does: index j of
+their output is the position before text token j (the last patch for
+j = 0), so with next-token targets the position that has seen text tokens
+0..j-1 is scored on token j+1.  ``decode_step`` needs no prefix: the cache
+holds it.
 
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
 decode update the tensors of the cache they are given in place (K/V, ring
@@ -61,6 +71,7 @@ __all__ = [
     "loss_fn",
     "prefill",
     "decode_step",
+    "prefix_positions",
 ]
 
 
@@ -83,9 +94,9 @@ def _split_stack(cfg: ArchConfig) -> tuple[int, tuple[str, ...], tuple[str, ...]
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in ("encdec", "vlm"):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: encdec, vlm)"
+            f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: encdec)"
         )
 
 
@@ -265,6 +276,22 @@ def _embed_tokens(params, tokens):
     return params["embed"]["tokens"][tokens]
 
 
+def prefix_positions(cfg: ArchConfig) -> int:
+    """Positions a prefill runs, and a cache holds, before a prompt's text:
+    the vlm family's patch embeddings, none for the others."""
+    return cfg.n_vision_patches if cfg.family == "vlm" else 0
+
+
+def _build_inputs(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, int]:
+    """The embedded input of train and prefill, (h, n_prefix): for vlm the
+    patch embeddings, cast to the model's dtype, in front of the text's."""
+    text = _embed_tokens(params, batch["tokens"])
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(text.dtype)
+        return torch.cat([patches, text], dim=1), patches.shape[1]
+    return text, 0
+
+
 def _logits(cfg, params, h):
     if cfg.tied_embeddings:
         return h @ params["embed"]["tokens"].T
@@ -280,17 +307,22 @@ def _rope(cfg, s: int, device):
 
 
 def _hidden(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward up to and including the final norm; returns
-    (h, the stack's summed aux loss)."""
-    h = _embed_tokens(params, batch["tokens"])
+    """Full-sequence forward up to and including the final norm, at the text
+    positions (a vlm prefix rebased as the reference's ``_hidden_for_loss``
+    does); returns (h, the stack's summed aux loss)."""
+    h, n_prefix = _build_inputs(cfg, params, batch)
     rope = _rope(cfg, h.shape[1], h.device)
     h, _, aux = _apply_stack(cfg, params, h, rope=rope, mode="train")
+    if n_prefix:
+        # the final norm is per row: slicing before it gives the same bits
+        h = h[:, n_prefix - 1 : n_prefix - 1 + batch["tokens"].shape[1]]
     # the final norm is always the unfused rms_norm, whatever norm_impl says
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward(cfg: ArchConfig, params, batch) -> torch.Tensor:
-    """Full-sequence forward. Returns logits (B, S, padded_vocab)."""
+    """Full-sequence forward. Returns logits (B, S, padded_vocab), S the
+    text tokens."""
     return _logits(cfg, params, _hidden(cfg, params, batch)[0])
 
 
@@ -343,8 +375,9 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):
-    """Fill the decode cache from a full prompt; returns (cache, last_logits)."""
-    h = _embed_tokens(params, batch["tokens"])
+    """Fill the decode cache from a full prompt (behind its patch prefix for
+    vlm); returns (cache, last_logits)."""
+    h, _ = _build_inputs(cfg, params, batch)
     s = h.shape[1]
     rope = _rope(cfg, s, h.device)
     h, new_caches, _ = _apply_stack(cfg, params, h, rope=rope, mode="prefill", caches=cache)

@@ -33,7 +33,12 @@ PyTorch port: the model runs eagerly on ``device`` (``"cuda"`` unless the
 caller passes ``"cpu"``).  PyTorch returns before the card finishes, so the
 ``serve/prefill`` and ``serve/decode`` scopes end with a device synchronise —
 without it the timers would measure the launch and the serving controller
-would steer on it.  The dense, MoE, hybrid and SSM families are served.
+would steer on it.  The dense, MoE, hybrid, SSM and vlm families are served.
+
+vlm: the vision frontend is a stub, so each prefill runs behind a prefix of
+``n_vision_patches`` zero patch embeddings (:func:`prefill_batch`, as the
+reference's engine builds it); the prefix takes cache positions, which the
+KV budget and ``validate_request`` count.
 
 MoE: a decode step routes its whole slot batch as one routing group, free
 slots included (they decode their last token on), so under the config's
@@ -61,7 +66,7 @@ from .batching import Slot, make_cache_splicer, slot_stats
 from .kvcache import KVCacheManager
 from .slo import ServiceLevel
 
-__all__ = ["Request", "RequestHandle", "RequestResult", "ServeSession"]
+__all__ = ["Request", "RequestHandle", "RequestResult", "ServeSession", "prefill_batch"]
 
 
 @dataclass
@@ -191,6 +196,17 @@ def validate_request(req: Request, max_seq: int, n_prefix: int = 0) -> int:
     return max(drop, 0)
 
 
+def prefill_batch(cfg: ArchConfig, prompt: list[int], device) -> dict[str, torch.Tensor]:
+    """The batch of one request's prefill: its prompt and, for vlm, the stub
+    frontend's zero patch embeddings (1, n_vision_patches, d_model) bf16."""
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32, device=device)}
+    n_prefix = M.prefix_positions(cfg)
+    if n_prefix:
+        batch["patch_embeds"] = torch.zeros((1, n_prefix, cfg.d_model), dtype=torch.bfloat16,
+                                            device=device)
+    return batch
+
+
 def _percentile(values: list[float], q: float) -> float:
     """``np.percentile`` with the degenerate cases pinned: empty -> 0.0,
     single sample -> that sample (no interpolation over a length-1 axis)."""
@@ -208,8 +224,8 @@ class ServeSession:
     ----------
     cfg / params:
         Model configuration and weights (the families
-        :mod:`repro_torch.models.model` serves: dense, hybrid, SSM), with every
-        weight on ``device``.
+        :mod:`repro_torch.models.model` serves: dense, MoE, hybrid, SSM, vlm),
+        with every weight on ``device``.
     session:
         A :class:`repro_torch.timing.TimingSession` — the primary wiring.  Supplies
         the timer database *and* the control loop the serving controller
@@ -274,7 +290,7 @@ class ServeSession:
                 "(steered by ADAPT/serving from decode latency)",
             validator=lambda v: isinstance(v, int) and v >= 1,
         )
-        self._n_prefix = cfg.n_vision_patches if cfg.family == "vlm" else 0
+        self._n_prefix = M.prefix_positions(cfg)
 
         # phase scopes pre-resolved once; real paths, so `serve` parents them
         self._scope_serve = self._db.scope_handle("serve")
@@ -452,8 +468,8 @@ class ServeSession:
         handle._admitted_at = now
         with self._scope_prefill:
             fresh = M.init_cache(self.cfg, 1, self.max_seq, device=self.device)
-            tokens = torch.tensor([req.prompt], dtype=torch.int32, device=self.device)
-            fresh, logits = M.prefill(self.cfg, self.params, {"tokens": tokens}, fresh)
+            batch = prefill_batch(self.cfg, req.prompt, self.device)
+            fresh, logits = M.prefill(self.cfg, self.params, batch, fresh)
             self._sync()
         tok = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
         handle._tokens = [tok]

@@ -167,11 +167,12 @@ def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
     assert get_config("rwkv6-1.6b").family == "ssm"
     for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b"):
         assert get_config(arch).family == get_smoke_config(arch).family == "moe"
-    for arch in ("seamless-m4t-large-v2", "internvl2-26b"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            get_smoke_config(arch)
+    with pytest.raises(KeyError, match="not yet ported"):
+        get_smoke_config("seamless-m4t-large-v2")
+    # the vlm family is ported: internvl2-26b resolves at both widths
+    assert get_config("internvl2-26b").family == get_smoke_config("internvl2-26b").family == "vlm"
     cfg = get_smoke_config("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec, vlm"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec"):
         PM.model_specs(cfg.replace(block_pattern=("xattn",)))
     from repro_torch.models.config import MoESettings
 
@@ -190,8 +191,15 @@ def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
                                          global_batch=2, seq_len=32, report_every=0),
                            session=TimingSession())
     assert summary["iterations"] == 1 and np.isfinite(summary["final_metrics"]["loss"])
-    with pytest.raises(NotImplementedError, match="family 'vlm' is not yet ported"):
-        PM.model_specs(cfg.replace(family="vlm"))
+    with pytest.raises(NotImplementedError, match="family 'encdec' is not yet ported "
+                                                   r"\(ROADMAP Queue 1: encdec\)"):
+        PM.model_specs(cfg.replace(family="encdec"))
+    # a vlm stack runs its patch prefix and scores the text positions
+    vlm = get_smoke_config("internvl2-26b").replace(dtype="float32")
+    params = PM.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
+    patches = torch.zeros((1, vlm.n_vision_patches, vlm.d_model))
+    logits = PM.forward(vlm, params, dict(batch, patch_embeds=patches))
+    assert logits.shape == (1, 4, vlm.padded_vocab) and bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="unknown seq_impl"):
         PM.forward(cfg.replace(seq_impl="bogus", dtype="float32"),
                    PM.init_params(cfg.replace(dtype="float32"), torch.Generator(), "cpu"),

@@ -114,7 +114,8 @@ def test_specs_and_cache_layout_match_jax():
 
 def test_unported_kinds_name_their_roadmap_item():
     cfg = get_smoke_config("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec, vlm"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec"):
         PM.model_specs(cfg.replace(block_pattern=("rglru", "xattn")))
     with pytest.raises(KeyError, match="not yet ported"):
-        get_smoke_config("internvl2-26b")
+        get_smoke_config("seamless-m4t-large-v2")
+    assert get_smoke_config("internvl2-26b").family == "vlm"  # ported
