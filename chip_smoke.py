@@ -14,8 +14,10 @@ caught):
    moonshot-v1-16b-a3b's serving shape, hd=128 MHA 16/16 heads, S=T=512 and
    ragged 300, and its training shape B=4, S=T=1024 causal bf16;
    internvl2-26b's, hd=128 GQA 48/8 heads, its prefills behind the 256
-   patches S=T=768 and ragged 556, and its training shape B=4, S=T=1280) and
-   time kernel, plain version and
+   patches S=T=768 and ragged 556, and its training shape B=4, S=T=1280;
+   seamless-m4t-large-v2's, hd=64 MHA 16/16 heads not causal, S=T=512,
+   ragged 300, S=300 T=512, f32 S=T=512, and its training shape B=4,
+   S=T=1024) and time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it);
 3. the same for the RMSNorm kernel at (512, 2048), (300, 2048), (4, 2048),
@@ -24,7 +26,9 @@ caught):
    (2560, 4096) (the long prompt's prefill) and (4, 4096) (a decode step
    of 4 slots) bf16, and internvl2-26b's width 6144, past the rows the
    register kernel holds (the looped kernel): (768, 6144), (556, 6144),
-   (4, 6144) and (5120, 6144), with ``F.rms_norm`` as the yardstick; each case
+   (4, 6144) and (5120, 6144), and seamless-m4t-large-v2's width 1024:
+   (512, 1024), (300, 1024), (4, 1024) and (4096, 1024), with
+   ``F.rms_norm`` as the yardstick; each case
    prints the kernel's plan (registers, threads and blocks, one launch);
 4. serve full-width llama3.2-1b (16 layers, d_model 2048, 32/8 heads,
    vocab 128256, tied; seeded random bf16 weights) through
@@ -47,15 +51,18 @@ caught):
    MHA, 16/16 heads): phase 21's path B=4 S=T=1024 causal bf16 and ragged
    S=T=300, and at head_dim 128 under GQA (internvl2-26b's 48/8 heads, the
    dkv kernel summing a group of 6 in each block): phase 23's path B=4
-   S=T=1280 causal bf16 and ragged S=T=300; time them beside the plain
-   versions and the
+   S=T=1280 causal bf16 and ragged S=T=300, and at head_dim 64 not causal
+   (seamless-m4t-large-v2's 16/16 heads): phase 25's path B=4 S=T=1024
+   bf16, ragged S=T=300, S=300 T=512 and f32 S=T=512; time them beside
+   the plain versions and the
    backward of ``F.scaled_dot_product_attention`` (a yardstick only).  Each
    dkv case prints its plan (the split of the GQA group across blocks, the
    grid and the launches a call) and must give the same bits on a second
    call;
 7. the same for the RMSNorm backward kernel at (4096, 2048), (300, 2048),
    (16384, 64) bf16, (7, 100) f32 and phases 18-19's (4096, 4096) and
-   (4096*32, 64) bf16 and phase 23's (5120, 6144) bf16, with
+   (4096*32, 64) bf16, phase 23's (5120, 6144) bf16 and phase 25's
+   (4096, 1024) bf16 with (512, 1024), (300, 1024) and (4, 1024), with
    ``F.rms_norm``'s backward as the yardstick;
 8. train full-width llama3.2-1b (bf16, remat "dots") through
    ``repro_torch.launch.train.run_training`` with both kernel pairs
@@ -200,7 +207,35 @@ caught):
     4 dkv at hd 128 under GQA 48/8, 16 RMSNorm forwards and 8 backwards at
     width 6144, exactly; peak device memory under CUT_TRAIN_MAX_GB; the bf16
     step against the plain path, the kernel path's step twice and bit-equal,
-    the f32 step, and a profiled warm step.
+    the f32 step, and a profiled warm step;
+24. serve full-width seamless-m4t-large-v2 (24 encoder and 24 decoder
+    layers, d_model 1024, 16/16 heads of 64, d_ff 8192, vocab 256206
+    padded to 256256, untied: 2.03 B parameters, 4.07 GB of bf16 weights,
+    nothing cut) as phase 4 serves llama3.2-1b: every prefill encodes the
+    engine's zero source frames, as long as the prompt (the reference's
+    engine does the same), so the launch counters must equal 72 x prefills
+    (flash: the encoder's 24 non-causal self-attentions, the decoder's 24
+    causal self- and 24 non-causal cross-attentions) + 48 x prefills
+    (RMSNorm, the encoder's) + 72 x (prefills + decode steps) (RMSNorm, the
+    decoder's three a layer; both final norms are the unfused ones), and
+    the logits are held to the plain path elementwise at phase 4's
+    tolerance.  Zero frames leave the encoder and the cross-attention out
+    of the logits, so outside the engine a prefill from seeded random
+    frames and ENCDEC_DECODE_STEPS decode steps are held to the plain path
+    too, for each prompt length and for the 300-token prompt from 512
+    frames (S != T), with both paths' distance from the plain path in f32
+    printed (``_encdec_frames_phase``); then a profiled warm window and the
+    architecture in f32 at full depth (8.1 GB of f32 weights), kernel
+    against plain path at 2e-4, from seeded random frames;
+25. train seamless-m4t-large-v2 at full depth, batch 4 x 1024 tokens from
+    1024 source frames a row, as phase 23 trains internvl2-26b: per step 144
+    flash forwards, 72 dq and 72 dkv (48 of each non-causal), 240 RMSNorm
+    forwards and 120 backwards at width 1024, exactly; the bf16 step against
+    the plain path (every encoder leaf among the leaves held), and held to
+    the plain path in f32 leaf by leaf: the kernel path no farther from it
+    than ANCHOR_RATIO times the kernel path with every kernel swapped for
+    its plain version (``_plain_kernels``); the kernel path's step twice
+    and bit-equal, the f32 step, and a profiled warm step.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -208,19 +243,19 @@ and 6 also hold the flash kernels at head_dim 16, at phase 16's shapes (B=2, S=T
 causal and 4/1 heads with window 16; bf16 and f32), elementwise at the
 kernel tolerances.  Memory is freed between the
 serving and the training phases, before phase 10 and around phases 18
-to 23.  Each serving profile also counts the device operations of one
+to 25.  Each serving profile also counts the device operations of one
 decode step of N_SLOTS rows.
 
 Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
-(phases 2, 4, 8, 12, 19 to 23), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases
-6, 8, 19, 21, 23) are tensor-core kernels (``wgmma`` fed by TMA through an
+(phases 2, 4, 8, 12, 19 to 25), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases
+6, 8, 19, 21, 23, 25) are tensor-core kernels (``wgmma`` fed by TMA through an
 mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
 32-key tiles, and dkv keeps dk and dv on the two warpgroups of a 64-key
 block, passing P^T between them through shared memory, and splits the GQA
 group's heads across blocks where that grid is under one wave, adding the
 split's f32 partials in a second, fixed-order launch); their f32
-instances (the f32 cases of phases 2 and 6, the f32 models of phases 13, 20 and 22,
-the f32 gradient steps of phases 16, 19, 21 and 23) and their bf16 instances at
+instances (the f32 cases of phases 2 and 6, the f32 models of phases 13, 20, 22
+and 24, the f32 gradient steps of phases 16, 19, 21, 23 and 25) and their bf16 instances at
 head_dim 16 (phases 2, 6 and 16) are f32-FMA kernels on the CUDA cores,
 as are the RMSNorm, RG-LRU and WKV-6 kernels (the RMSNorm forward holds
 rows of up to 4096 bf16 in registers, narrow rows several to a warp, and
@@ -303,7 +338,18 @@ F32_ATOL = 2e-4
 # 80GB HBM3, 700.00 W).  So the kernel path is held to that f32 path: in
 # relative L2 norm it may lie no farther from it than ANCHOR_RATIO times the
 # plain bf16 path does (0.96-1.01 times in those runs, at 4, 16 and 48
-# layers): it may round differently from the plain path, not worse
+# layers): it may round differently from the plain path, not worse.
+# seamless-m4t-large-v2's bf16 gradients (phase 25) are held the same way,
+# leaf by leaf, against the kernel path run on the kernels' plain versions:
+# the plain path's autograd forms the flash backward's row sums from f32
+# probabilities, while the kernel path, as the reference's flash VJP
+# (src/repro/kernels/flash_attention/ops.py:51), takes delta from the
+# bf16-rounded output, which alone puts its cross-attention leaves (ln, wq,
+# wk) ~3x farther from f32 than the plain path's (tools/delta_precision.py,
+# on the CPU at full width and depth, batch 1 x 1024: cross/ln 9.078e-02
+# with every kernel's arithmetic in f32, 9.105e-02 with the tensor-core
+# kernels' bf16 P and dS, 3.009e-02 with delta from the f32 output; the
+# plain path 3.082e-02)
 ANCHOR_RATIO = 1.25
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # gradient tolerances of the repo (tests/test_kernels_flash.py:62,
@@ -343,6 +389,25 @@ VLM_SHAPE, VLM_PATCHES, VLM_F32_LAYERS = (48, 6144, 48, 8, 128, 92553, None), 25
 # step the launches of phase 21, flash at head_dim 128 under GQA 48/8
 VLM_TRAIN_LAYERS = 4
 VLM_TRAIN_SEQ = VLM_PATCHES + TRAIN_SEQ
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, vocab, window) of the
+# enc-dec serving run (configs/seamless_m4t_large_v2.py: 24 decoder layers
+# behind 24 encoder layers, 2.03 B parameters, 4.07 GB of bf16 weights),
+# served and trained at full depth; its encoder's depth
+ENCDEC_SHAPE, ENCDEC_ENC_LAYERS = (24, 1024, 16, 16, 64, 256206, None), 24
+# per prefill: a flash forward for each encoder layer (not causal), and for
+# each decoder layer's causal self-attention and non-causal cross-attention;
+# an RMSNorm for each encoder layer's ln and ln2 (the encoder runs at
+# prefill only); per call, one for each decoder layer's self, cross and
+# feed-forward norms
+ENCDEC_PER_PREFILL = {"flash_fwd": 3 * 24, "rmsnorm_fwd": 2 * 24}
+ENCDEC_PER_CALL = {"rmsnorm_fwd": 3 * 24}
+# per training step under remat "dots" (``_per_step_launches``): the 24
+# encoder units and 24 decoder units each run twice
+ENCDEC_TRAIN_PER_STEP = {"flash_fwd": 144, "flash_bwd_dq": 72, "flash_bwd_dkv": 72,
+                         "rmsnorm_fwd": 240, "rmsnorm_bwd": 120, "rglru_fwd": 0, "wkv6_fwd": 0}
+# decode steps held against the plain path after each prefill from seeded
+# random source frames (phase 24)
+ENCDEC_DECODE_STEPS = 3
 # the peak device memory of a training run cut in depth (phases 19, 21 and
 # 23) must stay under this
 CUT_TRAIN_MAX_GB = 76.0
@@ -359,6 +424,7 @@ TRAIN_SHAPES = {
     ("recurrentgemma-9b", False): (HYBRID_TRAIN_LAYERS, 4096, 16, 1, 256, 256000, False, 2048),
     ("moonshot-v1-16b-a3b", False): (MOE_TRAIN_LAYERS, 2048, 16, 16, 128, 163840, False, None),
     ("internvl2-26b", False): (VLM_TRAIN_LAYERS, 6144, 48, 8, 128, 92553, False, None),
+    ("seamless-m4t-large-v2", False): ENCDEC_SHAPE[:6] + (False, None),
 }
 # the checkpoint phase: run A trains steps 1-3 of phase 8's 6-step schedule
 # and saves at shutdown (label 3); run B restores it and trains steps 4-6.
@@ -430,10 +496,31 @@ SMOKE_GQA, SMOKE_MQA = (4, 2, 16), (4, 1, 16)
 SMOKE_CASE = f"smoke hd=16 causal B=2 S=T={SMOKE_SEQ} bfloat16"
 
 
+def _mask_pairs(torch, s, t, causal, window):
+    """(S, T) bool mask of the (query, key) pairs a flash call computes."""
+    pos_q = torch.arange(s, device=DEVICE)[:, None]
+    pos_k = torch.arange(t, device=DEVICE)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool, device=DEVICE)
+    if causal:
+        ok &= pos_k <= pos_q
+    if window is not None:
+        ok &= pos_k > pos_q - window
+    return ok
+
+
+# seamless-m4t-large-v2's attention (16/16 heads of 64): the encoder's
+# self-attention and the decoder's cross-attention are not causal; S = T
+# on its entry points (the source as long as the prompt), S != T held too
+ENCDEC_HEADS = (16, 16, 64)
+
+
 def _flash_phase(torch, F, fa_ops, gen):
     llama, hybrid, moe, vlm = (32, 8, 64), (16, 1, 256), (16, 16, 128), (48, 8, 128)
+    encdec = ENCDEC_HEADS
     vlm_prompts = [VLM_PATCHES + n for n in PROMPT_LENS]
-    cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
+    # (role, name, B, S, (H, KV, hd), window, dtype[, causal, T]): causal
+    # with T = S unless the case says otherwise
+    cases = [
         ("serve", "path S=T=512 causal bf16", 1, 512, llama, None, torch.bfloat16),
         ("", "ragged S=T=300 causal bf16", 1, 300, llama, None, torch.bfloat16),
         ("", "window=128 S=T=512 bf16", 1, 512, llama, 128, torch.bfloat16),
@@ -455,6 +542,17 @@ def _flash_phase(torch, F, fa_ops, gen):
          vlm, None, torch.bfloat16),
         ("vlm_train", f"vlm training path hd=128 GQA 48/8 B={TRAIN_BATCH} S=T={VLM_TRAIN_SEQ} "
          "causal bf16", TRAIN_BATCH, VLM_TRAIN_SEQ, vlm, None, torch.bfloat16),
+        ("encdec", "encdec path hd=64 MHA S=T=512 non-causal bf16", 1, 512, encdec, None,
+         torch.bfloat16, False, 512),
+        ("", "encdec ragged hd=64 MHA S=T=300 non-causal bf16", 1, 300, encdec, None,
+         torch.bfloat16, False, 300),
+        ("", "encdec hd=64 MHA S=300 T=512 non-causal bf16", 1, 300, encdec, None,
+         torch.bfloat16, False, 512),
+        ("", "encdec f32 hd=64 MHA S=T=512 non-causal", 1, 512, encdec, None, torch.float32,
+         False, 512),
+        ("encdec_train", f"encdec training path hd=64 MHA B={TRAIN_BATCH} S=T={TRAIN_SEQ} "
+         "non-causal bf16", TRAIN_BATCH, TRAIN_SEQ, encdec, None, torch.bfloat16, False,
+         TRAIN_SEQ),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -463,30 +561,29 @@ def _flash_phase(torch, F, fa_ops, gen):
         for dtype in (torch.bfloat16, torch.float32)
     ]
     rows = []
-    for role, name, b, s, (h, kv, hd), window, dtype in cases:
+    for role, name, b, s, (h, kv, hd), window, dtype, *rest in cases:
+        causal, t = rest or (True, s)
+        mask = dict(causal=causal, window=window)
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dtype)
-        out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=window)
+        k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+        out, lse = fa_ops.flash_fwd(q, k, v, **mask)
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=window)
+        ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
         tol = KERNEL_TOL[str(dtype).split(".")[1]]
         torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
         err = (out.float() - ref_out.float()).abs().max().item()
 
-        pos = torch.arange(s, device="cuda")
-        ok = pos[None, :] <= pos[:, None]
-        if window is not None:
-            ok &= pos[None, :] > pos[:, None] - window
+        ok = _mask_pairs(torch, s, t, causal, window)
         pairs = int(ok.sum())
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        mask = None if window is None else ok
-        ms = _device_ms(torch, lambda: fa_ops.flash_fwd(q, k, v, causal=True, window=window))
-        plain_ms = _device_ms(
-            torch, lambda: fa_ops.flash_fwd_plain(q, k, v, causal=True, window=window))
+        sdpa_mask = None if window is None else ok
+        ms = _device_ms(torch, lambda: fa_ops.flash_fwd(q, k, v, **mask))
+        plain_ms = _device_ms(torch, lambda: fa_ops.flash_fwd_plain(q, k, v, **mask))
         library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True))
+            qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None,
+            enable_gqa=True))
         n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, lse))
         flops = 4.0 * b * h * pairs * hd
         bound_ms, bound_by = _bound_ms(
@@ -519,6 +616,8 @@ def _rmsnorm_phase(torch, F, rn_ops, gen):
              (TRAIN_BATCH * TRAIN_SEQ * 32, 64), (HYBRID_PROMPT_LENS[0], 4096), (N_SLOTS, 4096)]
     cases += [(VLM_PATCHES + n, 6144) for n in PROMPT_LENS]
     cases += [(N_SLOTS, 6144), (TRAIN_BATCH * VLM_TRAIN_SEQ, 6144)]
+    # the enc-dec paths' width (1024): its prefills, a decode step, a training step
+    cases += [(n, 1024) for n in PROMPT_LENS] + [(N_SLOTS, 1024), (TRAIN_BATCH * TRAIN_SEQ, 1024)]
     rows = []
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -598,6 +697,16 @@ def _f32_units(torch):
         M._unstack = unstack
 
 
+def _f32_outside_units(params):
+    """``params`` with every leaf outside the stacked units (``scan`` and an
+    encoder's ``enc_scan``, which ``_f32_units`` upcasts one unit at a time)
+    in f32."""
+    from repro_torch.models.layers import tree_map
+
+    return {k: v if k in ("scan", "enc_scan") else tree_map(lambda x: x.float(), v)
+            for k, v in params.items()}
+
+
 def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol, *,
                  smoke=False, n_requests=N_REQUESTS, max_new=MAX_NEW, n_slots=N_SLOTS):
     """Serve ``arch`` at full width (its smoke config with ``smoke``) through
@@ -608,7 +717,6 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol,
 
     from repro_torch.launch.serve import make_requests, run_serving
     from repro_torch.models import model as M
-    from repro_torch.models.layers import tree_map
     from repro_torch.serving.engine import prefill_batch
     from repro_torch.timing import TimingSession
 
@@ -665,9 +773,7 @@ def _serve_phase(torch, K, arch, prompt_lens, per_prefill, per_call, shape, tol,
         paths.append((plain.replace(seq_impl="ref"), engine.params))
     anchored = tol[0] == "anchor"
     if anchored:  # the plain path in f32, its stacked units upcast one at a time
-        paths.append((plain.replace(dtype="float32"),
-                      {k: v if k == "scan" else tree_map(lambda x: x.float(), v)
-                       for k, v in engine.params.items()}))
+        paths.append((plain.replace(dtype="float32"), _f32_outside_units(engine.params)))
     dist = []  # (kernel, plain) path's distance from the f32 path, by prompt
     outside = 0.0  # the largest share of logits past phase 4's elementwise tolerance
 
@@ -717,8 +823,9 @@ def _f32_phase(torch, arch, n_layers, prompt_lens):
     """The served architecture in f32 at full width (``n_layers`` deep, seeded
     random weights): prefill logits of the kernel path against the plain path
     on the card, elementwise at the f32 model tolerance, for a prompt of each
-    length (for vlm behind a prefix of seeded random patch embeddings, 0.02
-    x N(0, 1) as the synthetic data's)."""
+    length (for vlm behind a prefix of seeded random patch embeddings, for
+    encdec from as many seeded random source frames as the prompt has
+    tokens, both 0.02 x N(0, 1) as the synthetic data's)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
@@ -736,6 +843,9 @@ def _f32_phase(torch, arch, n_layers, prompt_lens):
         if n_prefix:
             batch["patch_embeds"] = 0.02 * torch.randn((1, n_prefix, cfg.d_model), generator=rng,
                                                        device="cuda")
+        if cfg.family == "encdec":
+            batch["src_frames"] = 0.02 * torch.randn((1, n, cfg.d_model), generator=rng,
+                                                     device="cuda")
         logits = []
         for c in (cfg, plain):
             cache = M.init_cache(c, 1, n_prefix + n + 8, device="cuda")
@@ -896,7 +1006,9 @@ def _dtype_name(dtype) -> str:
 
 def _flash_bwd_phase(torch, F, fa_ops, gen):
     llama, hybrid, moe, vlm = (32, 8, 64), (16, 1, 256), (16, 16, 128), (48, 8, 128)
-    cases = [  # (role, name, B, S=T, (H, KV, hd), window, dtype)
+    encdec = ENCDEC_HEADS
+    # (role, name, B, S, (H, KV, hd), window, dtype[, causal, T]), as phase 2's
+    cases = [
         ("train", "path B=4 S=T=1024 causal bf16", TRAIN_BATCH, TRAIN_SEQ, llama, None,
          torch.bfloat16),
         ("", "ragged B=4 S=T=300 causal bf16", TRAIN_BATCH, 300, llama, None, torch.bfloat16),
@@ -916,6 +1028,15 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
          "causal bf16", TRAIN_BATCH, VLM_TRAIN_SEQ, vlm, None, torch.bfloat16),
         ("", f"vlm ragged hd=128 GQA 48/8 B={TRAIN_BATCH} S=T=300 causal bf16", TRAIN_BATCH, 300,
          vlm, None, torch.bfloat16),
+        ("encdec_train", f"encdec training path hd=64 MHA B={TRAIN_BATCH} S=T={TRAIN_SEQ} "
+         "non-causal bf16", TRAIN_BATCH, TRAIN_SEQ, encdec, None, torch.bfloat16, False,
+         TRAIN_SEQ),
+        ("", f"encdec ragged hd=64 MHA B={TRAIN_BATCH} S=T=300 non-causal bf16", TRAIN_BATCH,
+         300, encdec, None, torch.bfloat16, False, 300),
+        ("", f"encdec hd=64 MHA B={TRAIN_BATCH} S=300 T=512 non-causal bf16", TRAIN_BATCH, 300,
+         encdec, None, torch.bfloat16, False, 512),
+        ("", f"encdec f32 hd=64 MHA B={TRAIN_BATCH} S=T=512 non-causal", TRAIN_BATCH, 512,
+         encdec, None, torch.float32, False, 512),
     ] + [
         ("", f"smoke hd=16 {name} B=2 S=T={SMOKE_SEQ} {_dtype_name(dtype)}", 2, SMOKE_SEQ,
          heads, window, dtype)
@@ -924,12 +1045,13 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
         for dtype in (torch.bfloat16, torch.float32)
     ]
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for role, name, b, s, (h, kv, hd), window, dtype in cases:
+    for role, name, b, s, (h, kv, hd), window, dtype, *rest in cases:
+        causal, t = rest or (True, s)
         q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
-        k = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
-        v = torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn((b, t, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn((b, t, kv, hd), generator=gen, device=DEVICE).to(dtype)
         do = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
-        mask = dict(causal=True, window=window)
+        mask = dict(causal=causal, window=window)
         out, lse = fa_ops.flash_fwd(q, k, v, **mask)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
@@ -949,7 +1071,7 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
         # the split's partials are added in a fixed order: the same bits again
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv), name
         del dk2, dv2
-        plan = fa_ops.dkv_plan(b, s, kv, h // kv, hd, dtype,
+        plan = fa_ops.dkv_plan(b, t, kv, h // kv, hd, dtype,
                                torch.cuda.get_device_properties(0).multi_processor_count)
         _print(f"[flash_bwd_dkv] {name}: split={plan['split']} grid={plan['blocks']} blocks "
                f"launches_per_call={plan['launches']} workspace_MB="
@@ -969,15 +1091,12 @@ def _flash_bwd_phase(torch, F, fa_ops, gen):
         err_dkv = max((dk.float() - ref_dk.float()).abs().max().item(),
                       (dv.float() - ref_dv.float()).abs().max().item())
 
-        pos = torch.arange(s, device=DEVICE)
-        ok = pos[None, :] <= pos[:, None]
-        if window is not None:
-            ok &= pos[None, :] > pos[:, None] - window
+        ok = _mask_pairs(torch, s, t, causal, window)
         pairs = int(ok.sum())
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=None if window is None else ok, is_causal=window is None,
-            enable_gqa=True)
+            qt, kt, vt, attn_mask=None if window is None else ok,
+            is_causal=causal and window is None, enable_gqa=True)
         dot = do.transpose(1, 2).contiguous()
         # one call computes dq, dk and dv: the yardstick of both kernels
         library_ms = _device_ms(torch, lambda: torch.autograd.grad(
@@ -1015,6 +1134,9 @@ def _rmsnorm_bwd_phase(torch, F, rn_ops, gen):
              (HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ, 4096, torch.bfloat16),
              (TRAIN_BATCH * TRAIN_SEQ * 32, 64, torch.bfloat16),
              (TRAIN_BATCH * VLM_TRAIN_SEQ, 6144, torch.bfloat16)]
+    # the enc-dec training path's width, and its serving path's rows
+    cases += [(TRAIN_BATCH * TRAIN_SEQ, 1024, torch.bfloat16)] + [
+        (n, 1024, torch.bfloat16) for n in PROMPT_LENS + (N_SLOTS,)]
     rows = []
     for n, d, dtype in cases:
         x = torch.randn((n, d), generator=gen, device=DEVICE).to(dtype)
@@ -1069,6 +1191,28 @@ def _read_counters(K) -> dict[str, int]:
     return {name: getattr(getattr(K, mod), attr) for name, mod, attr in COUNTERS}
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Swap each flash and RMSNorm kernel wrapper for its plain version (f32
+    inside, no launch, no count): the kernel path's own algorithm (the flash
+    backward's delta from the rounded output included, as the reference's
+    ``flash_attention`` VJP forms it) with no CUDA kernel in it."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+
+    swaps = [(fa, "flash_fwd", fa.flash_fwd_plain), (fa, "flash_bwd_dq", fa.flash_bwd_dq_plain),
+             (fa, "flash_bwd_dkv", fa.flash_bwd_dkv_plain), (rn, "rms_norm_fwd", rn.rms_norm_plain),
+             (rn, "rms_norm_bwd", rn.rms_norm_bwd_plain)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, wrapper in kept:
+            setattr(mod, name, wrapper)
+
+
 def _named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for key, value in tree.items():
@@ -1093,13 +1237,21 @@ def _per_step_launches(cfg) -> dict[str, int]:
     forwards, 3L backwards; recurrentgemma-9b at 4 layers (one unit and an
     rglru tail): 4 flash forwards, 2 dq, 2 dkv, 14 RMSNorm forwards, 8
     backwards (``tests/test_torch_train_hybrid_ssm.py`` counts the same on
-    the CPU)."""
-    kinds = cfg.layer_kinds()
-    p = len(cfg.block_pattern)
+    the CPU).  An enc-dec model adds its encoder's ``attn`` layers (all
+    stacked), and each decoder layer (``xattn``, all stacked) runs two
+    flash calls (self- and cross-attention) and three norms; so
+    seamless-m4t-large-v2 (24 + 24 layers): 144 flash forwards, 72 dq, 72
+    dkv, 240 RMSNorm forwards, 120 backwards."""
+    from repro_torch.models.model import decoder_pattern
+
+    pattern = decoder_pattern(cfg)
+    p = len(pattern)
+    kinds = [pattern[i % p] for i in range(cfg.n_layers)] + ["attn"] * cfg.n_enc_layers
     runs = [2 if i < cfg.n_layers // p * p else 1 for i in range(cfg.n_layers)]
-    norms = [3 if kind == "rwkv" else 2 for kind in kinds]
-    attn = [kind.startswith("attn") for kind in kinds]
-    return {"flash_fwd": sum(r for r, a in zip(runs, attn) if a), "flash_bwd_dq": sum(attn),
+    runs += [2] * cfg.n_enc_layers
+    norms = [3 if kind in ("rwkv", "xattn") else 2 for kind in kinds]
+    attn = [2 if kind == "xattn" else int(kind.startswith("attn")) for kind in kinds]
+    return {"flash_fwd": sum(r * a for r, a in zip(runs, attn)), "flash_bwd_dq": sum(attn),
             "flash_bwd_dkv": sum(attn), "rmsnorm_fwd": sum(r * n for r, n in zip(runs, norms)),
             "rmsnorm_bwd": sum(norms), "rglru_fwd": 0, "wkv6_fwd": 0}
 
@@ -1254,13 +1406,18 @@ def _loss_and_grads(torch, cfg, params, batch):
 
 def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
                          loss_rtol=TRAIN_RTOL, leaf_rtol=LEAF_RTOL, label="[train]",
-                         f32_anchor=False, repeat=False):
+                         f32_anchor=False, repeat=False, anchor_ratio=None):
     """One loss-and-gradient step, kernel path vs plain path, same weights and
     batch, on the card.  With ``f32_anchor`` it also prints each path's
     distance, leaf by leaf in relative norm, from the plain path in f32 on
     the same weights upcast: the rounding of the working dtype alone, which
-    the kernel-vs-plain difference is to be read against.  With ``repeat``
-    the kernel path's step runs a second time and must give the same bits.
+    the kernel-vs-plain difference is to be read against.  With
+    ``anchor_ratio`` (and ``f32_anchor``) the kernel path runs once more
+    with every kernel swapped for its plain version (``_plain_kernels``),
+    and leaf by leaf the kernel path may lie no farther from the f32 path
+    than ``anchor_ratio`` times that one does: the kernels may round
+    differently from their plain versions, not worse.  With ``repeat`` the
+    kernel path's step runs a second time and must give the same bits.
 
     With experts (``cfg.moe``), the routing: in bf16 the two paths' rounding
     breaks near-ties in the top-k differently, and one moved choice sends a
@@ -1310,14 +1467,34 @@ def _train_compare_phase(torch, cfg, batch_size=TRAIN_BATCH, seq=TRAIN_SEQ,
             loss_a, gn_a, g_a = _loss_and_grads(torch, plain.replace(dtype="float32"), up,
                                                 batch)
         del up
-        for path, grads in (("kernel", g_k), ("plain", g_p)):
-            dist = {name: ((g.float() - a).norm() / a.norm()).item()
-                    for name, g, a in zip(names, grads, g_a)}
-            far = max(dist, key=dist.get)
+        paths = [("kernel", g_k), ("plain", g_p)]
+        if anchor_ratio is not None:
+            with _plain_kernels():
+                _, _, g_v = _loss_and_grads(torch, cfg, params, batch)
+            paths.append(("kernel (plain versions)", g_v))
+        dist = {}
+        for path, grads in paths:
+            dist[path] = {name: ((g.float() - a).norm() / a.norm()).item()
+                          for name, g, a in zip(names, grads, g_a)}
+            far = max(dist[path], key=dist[path].get)
             _print(f"{label} {path} path vs the plain path in f32 (loss {loss_a:.6f}, "
-                   f"grad_norm {gn_a:.6f}): largest leaf relative error {dist[far]:.3e} "
-                   f"({far}), median {sorted(dist.values())[len(dist) // 2]:.3e}")
+                   f"grad_norm {gn_a:.6f}): largest leaf relative error {dist[path][far]:.3e} "
+                   f"({far}), median {sorted(dist[path].values())[len(names) // 2]:.3e}")
         del g_a
+        if anchor_ratio is not None:
+            mine, theirs = dist["kernel"], dist["kernel (plain versions)"]
+            ratio = {name: mine[name] / theirs[name] for name in names}
+            top = max(ratio, key=ratio.get)
+            vs_plain = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                        for name, a, b in zip(names, g_k, g_v)}
+            del g_v
+            _print(f"{label} from the f32 path, the kernel path / the kernel path on plain "
+                   f"versions: largest leaf ratio {ratio[top]:.4f} ({top}: {mine[top]:.3e} / "
+                   f"{theirs[top]:.3e}; limit {anchor_ratio}), median "
+                   f"{sorted(ratio.values())[len(ratio) // 2]:.4f}; kernels vs their plain "
+                   f"versions, largest leaf {max(vs_plain.values()):.3e} "
+                   f"({max(vs_plain, key=vs_plain.get)})")
+            assert ratio[top] <= anchor_ratio, ratio
     rel = {}
     for name, a, b in zip(names, g_k, g_p):
         for tag, g in (("kernel", a), ("plain", b)):
@@ -1560,7 +1737,7 @@ def _ckpt_phase(torch, K, train_losses):
 
 
 def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEAF_RTOL,
-                        repeat=False):
+                        repeat=False, anchor_ratio=None):
     """Phases 18, 19 and 21: train ``arch`` at full width (``n_layers`` deep
     when given) through ``run_training`` on the card, TRAIN_STEPS AdamW
     steps, with exact launch counts, finite losses and the step's seconds,
@@ -1569,16 +1746,19 @@ def _train_family_phase(torch, K, arch, batch, seq, n_layers=None, leaf_rtol=LEA
     gradient norm at TRAIN_RTOL, as phase 8; each leaf in relative norm
     under ``leaf_rtol``, each path's distance from the plain path in f32
     printed beside it; with ``repeat`` the kernel path's step again, bit for
-    bit) and in f32 (loss and gradient norm to 1e-4, each leaf to 1e-3 in
-    relative norm, as phase 16; at head_dim 256 the f32-FMA flash instances
-    in a model); and profile one warm step."""
+    bit; with ``anchor_ratio`` each leaf held to the f32 path against the
+    kernel path on the kernels' plain versions) and in f32 (loss and
+    gradient norm to 1e-4, each leaf to 1e-3 in relative norm, as phase 16;
+    at head_dim 256 the f32-FMA flash instances in a model); and profile one
+    warm step."""
     tag = f"[train {arch}]"
     launches, cfg, *_ = _train_phase(torch, K, arch=arch, batch=batch, seq=seq,
                                      n_layers=n_layers, tag=tag)
     _free(torch)
     params, data = _train_compare_phase(torch, cfg, batch_size=batch, seq=seq,
                                         leaf_rtol=leaf_rtol, label=f"{tag} bf16",
-                                        f32_anchor=True, repeat=repeat)
+                                        f32_anchor=True, repeat=repeat,
+                                        anchor_ratio=anchor_ratio)
     _train_profile_phase(torch, cfg, params, data, tag=f"[profile-train {arch}]")
     del params, data
     _free(torch)
@@ -1670,6 +1850,87 @@ def _vlm_train_phase(torch, K):
     assert _per_step_launches(cfg) == MOE_TRAIN_PER_STEP, _per_step_launches(cfg)
     return _train_family_phase(torch, K, "internvl2-26b", TRAIN_BATCH, TRAIN_SEQ,
                                n_layers=VLM_TRAIN_LAYERS, repeat=True)
+
+
+def _encdec_frames_phase(torch, engine, tol):
+    """Phase 24's check of the encoder and the cross-attention, which the
+    engine's zero source frames leave out (RMSNorm of zeros is zero, so
+    their encoder output, cross K/V and cross-attention outputs are zero):
+    outside the engine, on the served weights, a prefill from seeded random
+    source frames (0.02 x N(0, 1), as the synthetic data's) and
+    ENCDEC_DECODE_STEPS decode steps of given tokens, on the kernel path,
+    the plain path and the plain path in f32 (its stacked units upcast one
+    at a time).  The prompts of PROMPT_LENS from as many frames, then the
+    short prompt from the long prompt's frame count (S != T in every
+    cross-attention).  The kernel path's logits are held to the plain
+    path's under ``tol`` (``_hold``); each path's distance from the f32
+    path and the share of logits past phase 4's elementwise tolerance are
+    printed first."""
+    from repro_torch.models import model as M
+
+    cfg = engine.cfg
+    plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
+    paths = (("kernel", cfg, engine.params), ("plain", plain, engine.params),
+             ("f32", plain.replace(dtype="float32"), _f32_outside_units(engine.params)))
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tag = f"[serve {cfg.name} random frames]"
+    held = []
+    for n_tok, n_src in [(n, n) for n in PROMPT_LENS] + [(min(PROMPT_LENS), max(PROMPT_LENS))]:
+        tokens = torch.randint(0, cfg.vocab_size, (1, n_tok + ENCDEC_DECODE_STEPS),
+                               generator=rng, device="cuda", dtype=torch.int32)
+        batch = {"tokens": tokens[:, :n_tok],
+                 "src_frames": 0.02 * torch.randn((1, n_src, cfg.d_model), generator=rng,
+                                                  device="cuda")}
+        logits = {}
+        for name, c, p in paths:
+            with _f32_units(torch) if name == "f32" else contextlib.nullcontext():
+                cache, first = M.prefill(c, p, batch, M.init_cache(c, 1, engine.max_seq,
+                                                                   device="cuda"))
+                assert cache["scan"][0]["xlen"].tolist() == [[n_src]] * cfg.n_layers
+                out = [first]
+                for i in range(n_tok, n_tok + ENCDEC_DECODE_STEPS):
+                    cache, step = M.decode_step(c, p, cache, tokens[:, i : i + 1])
+                    out.append(step)
+            logits[name] = torch.cat(out)[:, : cfg.vocab_size].float()
+            del cache, out
+        lk, lp, la = logits["kernel"], logits["plain"], logits["f32"]
+        assert bool(torch.isfinite(lk).all()), (n_tok, n_src)
+        outside = ((lk - lp).abs() > MODEL_ATOL + MODEL_RTOL * lp.abs()).float().mean().item()
+        plain_outside = ((lp - la).abs() > MODEL_ATOL + MODEL_RTOL * la.abs()).float().mean()
+        _print(f"{tag} prompt {n_tok} from {n_src} frames, prefill and {ENCDEC_DECODE_STEPS} "
+               f"decode steps: kernel vs plain max_abs_diff={(lk - lp).abs().max().item():.4f} "
+               f"rel_l2={_rel(lk, lp):.4e}, share outside atol {MODEL_ATOL} rtol {MODEL_RTOL} "
+               f"{outside:.4f} (plain vs f32: {plain_outside.item():.4f}); relative L2 from the "
+               f"f32 path: kernel {_rel(lk, la):.5f}, plain {_rel(lp, la):.5f}; argmax equal "
+               f"{(lk.argmax(-1) == lp.argmax(-1)).tolist()}")
+        held.append((lk, lp, la))
+    for lk, lp, la in held:
+        _hold(torch, lk, lp, tol, la)
+    _print(f"{tag} held under {tol}")
+
+
+def _encdec_phase(torch, K):
+    """Phase 24: serve full-width seamless-m4t-large-v2 (module docstring)."""
+    launches, engine, sess = _serve_phase(
+        torch, K, "seamless-m4t-large-v2", PROMPT_LENS, ENCDEC_PER_PREFILL, ENCDEC_PER_CALL,
+        ENCDEC_SHAPE, ("elementwise", MODEL_ATOL))
+    assert engine.cfg.n_enc_layers == ENCDEC_ENC_LAYERS, engine.cfg
+    _encdec_frames_phase(torch, engine, ("elementwise", MODEL_ATOL))
+    _profile_phase(torch, engine, sess, PROMPT_LENS, "[profile seamless-m4t-large-v2]")
+    del engine, sess
+    _free(torch)
+    _f32_phase(torch, "seamless-m4t-large-v2", ENCDEC_SHAPE[0], PROMPT_LENS)
+    _free(torch)
+    return launches
+
+
+def _encdec_train_phase(torch, K):
+    """Phase 25: train seamless-m4t-large-v2 at full depth (module docstring)."""
+    cfg = _train_cfg("seamless-m4t-large-v2")
+    assert cfg.n_enc_layers == ENCDEC_ENC_LAYERS, cfg
+    assert _per_step_launches(cfg) == ENCDEC_TRAIN_PER_STEP, _per_step_launches(cfg)
+    return _train_family_phase(torch, K, "seamless-m4t-large-v2", TRAIN_BATCH, TRAIN_SEQ,
+                               repeat=True, anchor_ratio=ANCHOR_RATIO)
 
 
 def _setup(torch):
@@ -1770,6 +2031,11 @@ def main() -> int:
     # each at width 6144, behind a 256-patch prefix; then its training at 4
     vlm_launches = _vlm_phase(torch, K)
     vlm_train_launches = _vlm_train_phase(torch, K)
+    # seamless-m4t-large-v2: 24 encoder and 24 decoder layers (16/16 heads
+    # of 64, width 1024), the non-causal flash instances; served, then
+    # trained, at full depth
+    encdec_launches = _encdec_phase(torch, K)
+    encdec_train_launches = _encdec_train_phase(torch, K)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -1787,7 +2053,10 @@ def main() -> int:
     # (4096, 2048), phase 8's rows); under "vlm", phase 22's serving path
     # (flash at head_dim 128 under GQA 48/8 behind the 256 patches, the
     # norms at width 6144 at the long prompt's prefill rows); under
-    # "vlm_train", phase 23's training path (B=4 x 1280 positions)
+    # "vlm_train", phase 23's training path (B=4 x 1280 positions); under
+    # "encdec", phase 24's serving path (flash not causal at head_dim 64,
+    # the norms at width 1024 at the long prompt's prefill rows); under
+    # "encdec_train", phase 25's training path (B=4 x 1024, width 1024)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -1803,6 +2072,7 @@ def main() -> int:
     hyb = lambda name, row: dict(launches=hybrid_train_launches[name], **pick(row))  # noqa: E731
     moe_tr = lambda name, row: dict(launches=moe_train_launches[name], **pick(row))  # noqa: E731
     vlm_tr = lambda name, row: dict(launches=vlm_train_launches[name], **pick(row))  # noqa: E731
+    enc_tr = lambda name, row: dict(launches=encdec_train_launches[name], **pick(row))  # noqa: E731
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -1812,6 +2082,9 @@ def main() -> int:
     rows_6144 = f"({TRAIN_BATCH * VLM_TRAIN_SEQ}, 6144)"
     fwd_vlm = case(rms, f"({VLM_PATCHES + PROMPT_LENS[0]}, 6144) bf16")
     fwd_6144, bwd_6144 = case(rms, f"{rows_6144} bf16"), case(rms_bwd, f"{rows_6144} bfloat16")
+    rows_1024 = f"({TRAIN_BATCH * TRAIN_SEQ}, 1024)"
+    fwd_encdec = case(rms, f"({PROMPT_LENS[0]}, 1024) bf16")
+    fwd_1024, bwd_1024 = case(rms, f"{rows_1024} bf16"), case(rms_bwd, f"{rows_1024} bfloat16")
     record = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=csrc + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:93",
@@ -1823,7 +2096,9 @@ def main() -> int:
              moe=dict(launches=moe_launches["flash_fwd"], **pick(_role(flash, "moe"))),
              moe_train=moe_tr("flash_fwd", _role(flash, "moe_train")),
              vlm=dict(launches=vlm_launches["flash_fwd"], **pick(_role(flash, "vlm"))),
-             vlm_train=vlm_tr("flash_fwd", _role(flash, "vlm_train"))),
+             vlm_train=vlm_tr("flash_fwd", _role(flash, "vlm_train")),
+             encdec=dict(launches=encdec_launches["flash_fwd"], **pick(_role(flash, "encdec"))),
+             encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train"))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -1831,7 +2106,9 @@ def main() -> int:
              resume=resume("flash_bwd_dq", flash_bwd["flash_bwd_dq"][0]),
              hybrid_train=hyb("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "hybrid")),
              moe_train=moe_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "moe_train")),
-             vlm_train=vlm_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "vlm_train"))),
+             vlm_train=vlm_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "vlm_train")),
+             encdec_train=enc_tr("flash_bwd_dq",
+                                 _role(flash_bwd["flash_bwd_dq"], "encdec_train"))),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
@@ -1839,7 +2116,9 @@ def main() -> int:
              resume=resume("flash_bwd_dkv", flash_bwd["flash_bwd_dkv"][0]),
              hybrid_train=hyb("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "hybrid")),
              moe_train=moe_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "moe_train")),
-             vlm_train=vlm_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "vlm_train"))),
+             vlm_train=vlm_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "vlm_train")),
+             encdec_train=enc_tr("flash_bwd_dkv",
+                                 _role(flash_bwd["flash_bwd_dkv"], "encdec_train"))),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -1850,14 +2129,17 @@ def main() -> int:
              moe=dict(launches=moe_launches["rmsnorm_fwd"], **pick(rms[0])),
              moe_train=moe_tr("rmsnorm_fwd", fwd_2048),
              vlm=dict(launches=vlm_launches["rmsnorm_fwd"], **pick(fwd_vlm)),
-             vlm_train=vlm_tr("rmsnorm_fwd", fwd_6144)),
+             vlm_train=vlm_tr("rmsnorm_fwd", fwd_6144),
+             encdec=dict(launches=encdec_launches["rmsnorm_fwd"], **pick(fwd_encdec)),
+             encdec_train=enc_tr("rmsnorm_fwd", fwd_1024)),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
              resume=resume("rmsnorm_bwd", rms_bwd[0]),
              ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096),
              moe_train=moe_tr("rmsnorm_bwd", bwd_2048),
-             vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144)),
+             vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144),
+             encdec_train=enc_tr("rmsnorm_bwd", bwd_1024)),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for launchers/tests.
 
-Only the architectures whose model code the PyTorch port already carries are
-listed; asking for another id raises ``KeyError`` naming it as not yet ported.
+Every architecture of the reference package resolves here, each from the
+port's own copy of its config module; an unknown id raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -23,18 +23,14 @@ _MODULES: dict[str, str] = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "internvl2-26b": "internvl2_26b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
-
-#: architectures the reference package serves that this port does not yet
-_NOT_YET_PORTED = ("seamless-m4t-large-v2",)
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch: str):
     if arch not in _MODULES:
-        if arch in _NOT_YET_PORTED:
-            raise KeyError(f"arch {arch!r} is not yet ported; ported: {sorted(_MODULES)}")
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 

@@ -28,6 +28,13 @@ cache holds the prefix too:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch internvl2-26b \
         --attn-impl pallas --norm-impl fused
 
+seamless-m4t-large-v2 (``--arch seamless-m4t-large-v2``, 2.04 B parameters,
+4.07 GB in bf16) encodes each prompt's stub source frames, zeros as long as
+the prompt, and its slots hold each request's cross K/V beside its own:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --arch seamless-m4t-large-v2 \
+        --attn-impl pallas --norm-impl fused --prompt-len 512,300 --slots 4
+
 ``--metrics-textfile`` writes one Prometheus exposition page on exit (the
 node_exporter textfile-collector path).
 """

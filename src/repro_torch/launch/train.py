@@ -19,10 +19,13 @@ hand-written flash-attention and RMSNorm kernels, whose backward kernels the
 loss then differentiates through.  Every ported family trains: dense
 (llama3.2-1b, ...), hybrid (recurrentgemma-9b: RG-LRU and local attention at
 head_dim 256), SSM (rwkv6-1.6b: WKV-6), MoE (moonshot-v1-16b-a3b: the
-routers' load-balancing loss joins the loss as ``aux_coef * aux``) and vlm
+routers' load-balancing loss joins the loss as ``aux_coef * aux``), vlm
 (internvl2-26b: each batch's 256 patch embeddings run in front of its
 ``seq_len`` text tokens, and the loss, the ``tokens`` counter and the
-6 · active params · tokens FLOP count read the text tokens alone); the
+6 · active params · tokens FLOP count read the text tokens alone) and
+encdec (seamless-m4t-large-v2: each batch's ``seq_len`` source frames run
+through the 24-layer encoder, whose output every decoder layer attends to,
+and the gradient flows back through it); the
 recurrences train through the config's ``seq_impl="parallel"`` (the
 associative scan and chunked WKV-6 in PyTorch), as the reference's blocks
 train through their jnp forms.
@@ -32,6 +35,8 @@ kernels' plain versions.
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-1b \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024 --report
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch rwkv6-1.6b \\
+        --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --full --arch seamless-m4t-large-v2 \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2

@@ -1,4 +1,4 @@
-"""Per-kind layer blocks of the PyTorch port: attn / attn_local / rglru / rwkv.
+"""Per-kind layer blocks of the PyTorch port: attn / attn_local / xattn / rglru / rwkv.
 
 Every block exposes three pieces:
   * ``block_specs(cfg, kind, stack)``        — PSpec tree for one layer,
@@ -11,11 +11,16 @@ Every block exposes three pieces:
 Cache design: global attention keeps (B, Smax, KV, hd) K/V written at
 absolute positions; sliding-window attention keeps a ring buffer of
 ``window`` slots plus per-slot absolute positions (``slot_pos``, -1 when
-empty); RG-LRU keeps the (B, D) f32 recurrence state and the (B, cw-1, D)
-conv tail; RWKV keeps the (B, H, K, V) f32 WKV state and the two token-shift
-vectors.  Unlike the reference, whose arrays are immutable, prefill and
-decode write into the cache tensors they are given, in place (no copy of the
-cache per step), and return that same cache.
+empty); an enc-dec decoder block (``xattn``) keeps its self-attention's
+K/V, the cross K/V over the encoder output (``xk``/``xv``, (B, Smax, KV,
+hd), rows 0..T-1 filled at prefill) and each row's source length T
+(``xlen``, int32 (B,): a leaf the reference lacks, whose cross K/V are T
+long, so decode attends to exactly the T source positions); RG-LRU keeps
+the (B, D) f32 recurrence state and the (B, cw-1, D) conv tail; RWKV keeps
+the (B, H, K, V) f32 WKV state and the two token-shift vectors.  Unlike the
+reference, whose arrays are immutable, prefill and decode write into the
+cache tensors they are given, in place (no copy of the cache per step), and
+return that same cache.
 
 The recurrences of rglru and rwkv run as ``cfg.seq_impl`` says in train and
 prefill ("parallel": the reference blocks' associative scan and chunked
@@ -30,8 +35,13 @@ the recurrence kernels have no backward (the reference has none either).
 With ``cfg.moe`` the feed-forward of each attention block is the
 mixture of experts of ``models/moe.py``; ``block_apply`` returns its
 auxiliary (load-balancing) loss beside the hidden state, a zero f32 scalar
-for every other block in training, as the reference's does.  The ``xattn`` block raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+for every other block in training, as the reference's does.
+
+The ``xattn`` block is self-attention (causal), cross-attention and the
+feed-forward.  Its cross-attention takes q from the block's hidden state and
+k/v from the encoder output, with no rotary embedding and no qk-norm, and is
+not causal; the encoder's own blocks are ``attn`` blocks run with
+``causal=False``.
 """
 
 from __future__ import annotations
@@ -53,19 +63,8 @@ __all__ = ["block_specs", "block_cache_specs", "block_apply", "norm"]
 
 _RWKV_LORA = 64
 
-#: block kind -> the ROADMAP Queue 1 item that ports it
-_NOT_YET_PORTED = {"xattn": "encdec"}
-
 #: cfg.seq_impl -> (rglru impl, rwkv impl) in train and prefill
 _SEQ_IMPLS = {"parallel": ("assoc", "chunked"), "ref": ("ref", "ref"), "pallas": ("pallas", "pallas")}
-
-
-def _unported(kind: str) -> NotImplementedError:
-    if kind in _NOT_YET_PORTED:
-        return NotImplementedError(
-            f"block kind {kind!r} is not yet ported (ROADMAP Queue 1: {_NOT_YET_PORTED[kind]})"
-        )
-    return NotImplementedError(f"unknown block kind {kind!r}")
 
 
 def _seq_impls(cfg: ArchConfig) -> tuple[str, str]:
@@ -178,13 +177,17 @@ def block_specs(cfg: ArchConfig, kind: str, stack: tuple[int, ...] = ()) -> dict
         specs = _attn_specs(cfg, stack)
         specs.update(_ffn_specs(cfg, stack))
         return specs
+    if kind == "xattn":  # decoder block: self-attn + cross-attn + ffn
+        specs = {"self": _attn_specs(cfg, stack), "cross": _attn_specs(cfg, stack)}
+        specs.update(_ffn_specs(cfg, stack))
+        return specs
     if kind == "rglru":
         specs = {"rnn": _rglru_specs(cfg, stack)}
         specs.update(_ffn_specs(cfg, stack))
         return specs
     if kind == "rwkv":
         return _rwkv_specs(cfg, stack)
-    raise _unported(kind)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_cache_specs(
@@ -210,6 +213,15 @@ def block_cache_specs(
             "slot_pos": PSpec(lead + (batch, w), lax_ + ("batch", None), init="const",
                               const=-1, dtype=torch.int32),
         }
+    if kind == "xattn":
+        # cross K/V over the encoder output at max_seq, filled once at prefill
+        cross = block_cache_specs(cfg, "attn", batch, max_seq, stack)
+        return {
+            "self": block_cache_specs(cfg, "attn", batch, max_seq, stack),
+            "xk": cross["k"],
+            "xv": cross["v"],
+            "xlen": PSpec(lead + (batch,), lax_ + ("batch",), init="zeros", dtype=torch.int32),
+        }
     if kind == "rglru":
         return {
             "h": PSpec(lead + (batch, d), lax_ + ("batch", "ffn"), init="zeros",
@@ -225,7 +237,7 @@ def block_cache_specs(
             "shift_tm": PSpec(lead + (batch, d), lax_ + ("batch", None), init="zeros", dtype=dt),
             "shift_cm": PSpec(lead + (batch, d), lax_ + ("batch", None), init="zeros", dtype=dt),
         }
-    raise _unported(kind)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -271,15 +283,16 @@ def _fill_ring(k, v, cache, window):
     return cache
 
 
-def _attn_core_train(cfg, p, h, rope, *, window, mode, cache):
-    """Causal self-attention over a full sequence (train or prefill)."""
+def _attn_core_train(cfg, p, h, rope, *, window, mode, cache, causal=True):
+    """Self-attention over a full sequence (train or prefill); the encoder's
+    is not causal."""
     x = norm(cfg, h, p["ln"])
     q, k, v = _project_qkv(cfg, p, x)
     if rope is not None:
         cos, sin = rope
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    att = attention(q, k, v, impl=cfg.attn_impl, causal=True, window=window,
+    att = attention(q, k, v, impl=cfg.attn_impl, causal=causal, window=window,
                     chunk=cfg.attn_chunk)
     out = att.reshape(att.shape[0], att.shape[1], -1) @ p["wo"]
     h = h + out
@@ -327,6 +340,37 @@ def _attn_core_decode(cfg, p, h, cache, pos, *, window):
     att = decode_attention(q, cache["k"], cache["v"], valid)
     out = att.reshape(b, 1, -1) @ p["wo"]
     return h + out, cache
+
+
+def _cross_attn(cfg, p, h, *, enc_out, mode, cache):
+    """Cross-attention: q from ``h``, k/v from the encoder output, neither
+    rotated nor qk-normed; not causal.  Prefill writes the cross K/V into
+    rows 0..T-1 of ``xk``/``xv`` and T into ``xlen`` in place, or returns
+    them as a fresh T-long cache when there is none; decode attends to the
+    first ``xlen`` rows of each."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    x = norm(cfg, h, p["ln"])
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    fresh = None
+    if mode == "decode":
+        t = cache["xk"].shape[1]
+        valid = torch.arange(t, device=h.device)[None, :] < cache["xlen"][:, None]
+        att = decode_attention(q, cache["xk"], cache["xv"], valid)
+    else:
+        t = enc_out.shape[1]
+        xk = (enc_out @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
+        xv = (enc_out @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+        att = attention(q, xk, xv, impl=cfg.attn_impl, causal=False, chunk=cfg.attn_chunk)
+        if mode == "prefill" and cache is None:
+            fresh = {"xk": xk, "xv": xv,
+                     "xlen": torch.full((b,), t, dtype=torch.int32, device=h.device)}
+        elif mode == "prefill":
+            cache["xk"][:, :t] = xk
+            cache["xv"][:, :t] = xv
+            cache["xlen"].fill_(t)
+    out = att.reshape(b, s, -1) @ p["wo"]
+    return h + out, fresh
 
 
 def _no_aux(h, mode):
@@ -472,18 +516,32 @@ def block_apply(
     mode: str = "train",
     cache: dict[str, Any] | None = None,
     pos: torch.Tensor | None = None,
+    enc_out: torch.Tensor | None = None,
+    causal: bool = True,
 ) -> tuple[torch.Tensor, dict[str, Any] | None, torch.Tensor]:
     """Apply one block. Returns (h, new_cache, aux_loss); serving ignores the
-    aux loss (``_no_aux``)."""
+    aux loss (``_no_aux``).  ``enc_out`` is the encoder output an ``xattn``
+    block attends to in train and prefill; ``causal=False`` is the
+    encoder's self-attention."""
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else None
         if mode == "decode":
             h, new_attn = _attn_core_decode(cfg, p, h, cache, pos, window=window)
         else:
             h, new_attn = _attn_core_train(cfg, p, h, rope, window=window, mode=mode,
-                                           cache=cache)
+                                           cache=cache, causal=causal)
         h, aux = _ffn_apply(cfg, p, h, mode)
         return h, new_attn, aux
+    if kind == "xattn":
+        if mode == "decode":
+            h, new_self = _attn_core_decode(cfg, p["self"], h, cache["self"], pos, window=None)
+        else:
+            h, new_self = _attn_core_train(cfg, p["self"], h, rope, window=None, mode=mode,
+                                           cache=cache["self"] if cache is not None else None)
+        h, fresh = _cross_attn(cfg, p["cross"], h, enc_out=enc_out, mode=mode, cache=cache)
+        new_cache = {"self": new_self, **fresh} if fresh is not None else cache
+        h, aux = _ffn_apply(cfg, p, h, mode)
+        return h, new_cache, aux
     if kind == "rglru":
         h, new_rnn = _rglru_block(cfg, p, h, mode=mode, cache=cache)
         h, aux = _ffn_apply(cfg, p, h, mode)
@@ -491,4 +549,4 @@ def block_apply(
     if kind == "rwkv":
         h, new_cache = _rwkv_block(cfg, p, h, mode=mode, cache=cache)
         return h, new_cache, _no_aux(h, mode)
-    raise _unported(kind)
+    raise ValueError(f"unknown block kind {kind!r}")

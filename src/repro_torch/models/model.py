@@ -1,4 +1,4 @@
-"""Model API of the PyTorch port (dense, MoE, hybrid, SSM and vlm decoder stacks).
+"""Model API of the PyTorch port (dense, MoE, hybrid, SSM, vlm and enc-dec stacks).
 
 Parameters are the reference's pytree as plain nested dicts/tuples of
 tensors: per-layer weights stacked along a leading ``"scan"`` axis of pattern
@@ -26,6 +26,17 @@ their output is the position before text token j (the last patch for
 j = 0), so with next-token targets the position that has seen text tokens
 0..j-1 is scored on token j+1.  ``decode_step`` needs no prefix: the cache
 holds it.
+
+An encdec batch carries ``src_frames`` (B, T, d_model), the stub audio
+frontend's output: ``forward``, ``loss_fn`` and ``prefill`` first run the
+encoder (``enc_scan``: ``attn`` blocks, not causal, rotary over source
+positions, then the unfused ``enc_final_norm``) over them, and every decoder
+block (``xattn``) attends to its output.  The encoder's arithmetic is
+the same in training and prefill, as the reference's is (its
+``mode="train"`` from prefill too): under ``cfg.remat`` in training; in
+prefill as blocks without a cache, which add no aux loss.  A prefill fills
+each layer's cross K/V and source length into the cache, so ``decode_step``
+needs no encoder.
 
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
 decode update the tensors of the cache they are given in place (K/V, ring
@@ -93,19 +104,11 @@ def _split_stack(cfg: ArchConfig) -> tuple[int, tuple[str, ...], tuple[str, ...]
     return n_scan, pattern, tail
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (ROADMAP Queue 1: encdec)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Parameter and cache specs
 # ---------------------------------------------------------------------------
 
 def model_specs(cfg: ArchConfig) -> dict[str, Any]:
-    _check_family(cfg)
     dt = _dtype(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
     n_scan, pattern, tail = _split_stack(cfg)
@@ -117,6 +120,10 @@ def model_specs(cfg: ArchConfig) -> dict[str, Any]:
     }
     if not cfg.tied_embeddings:
         specs["lm_head"] = PSpec((d, vp), ("embed", "vocab"), dtype=dt)
+    if cfg.family == "encdec":
+        n_enc = cfg.n_enc_layers
+        specs["enc_scan"] = (block_specs(cfg, "attn", (n_enc,)),) if n_enc else None
+        specs["enc_final_norm"] = PSpec((d,), (None,), init="ones", dtype=dt)
     return specs
 
 
@@ -156,7 +163,6 @@ def param_counts(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_seq: int) -> dict[str, Any]:
-    _check_family(cfg)
     n_scan, pattern, tail = _split_stack(cfg)
     return {
         "pos": PSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
@@ -209,7 +215,10 @@ def _keep_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg, fn):
-    """Wrap one stacked unit's forward ``fn(h) -> (h, aux)`` in ``cfg.remat``."""
+    """Wrap one stacked unit's forward ``fn(h) -> (h, aux)`` in ``cfg.remat``.
+    The checkpoints are non-reentrant, so ``fn`` may close over tensors that
+    need gradients (the encoder output a decoder unit attends to): the
+    gradient reaches them through the recompute."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
@@ -220,17 +229,26 @@ def _remat(cfg, fn):
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
-def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None):
+def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None, encoder=False,
+                 enc_out=None):
     """Run the stacked units (a loop over the leading ``scan`` axis), then the
-    tail.  Returns (h, {"scan", "tail"} caches, aux): the given caches,
-    updated in place, or — for a prefill without caches — freshly stacked
-    ones; None in ``mode="train"``, where each unit runs under ``cfg.remat``.
+    tail; with ``encoder`` the encoder's units (``enc_scan``, no tail, not
+    causal) instead, in ``mode="train"`` or, keeping no cache, ``"prefill"``.
+    ``enc_out`` is what the decoder's ``xattn`` blocks attend to in train and
+    prefill.  Returns (h, {"scan", "tail"} caches, aux): the given caches,
+    updated in place, or — for a decoder prefill without caches — freshly
+    stacked ones; None in ``mode="train"``, where each unit runs under
+    ``cfg.remat``, and for the encoder.
     In ``mode="train"``, ``aux`` is the f32 sum of every layer's aux loss,
     unit by unit and then over the tail, in the reference's order; prefill
     and decode need none and return None (no additions launched for it)."""
-    n_scan, pattern, tail_kinds = _split_stack(cfg)
-    p_scan = params["scan"]
+    if encoder:
+        n_scan, pattern, tail_kinds = cfg.n_enc_layers, ("attn",), ()
+    else:
+        n_scan, pattern, tail_kinds = _split_stack(cfg)
+    p_scan = params["enc_scan" if encoder else "scan"]
     n_units = n_scan if p_scan is not None else 0
+    run = dict(rope=rope, mode=mode, enc_out=enc_out, causal=not encoder)
     c_scan = caches["scan"] if caches is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=h.device) if mode == "train" else None
     fresh_scan = []
@@ -240,7 +258,7 @@ def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None):
             def unit(x, unit_p=unit_p):
                 unit_aux = torch.zeros((), dtype=torch.float32, device=x.device)
                 for j, kind in enumerate(pattern):
-                    x, _, a = block_apply(cfg, kind, unit_p[j], x, rope=rope, mode=mode)
+                    x, _, a = block_apply(cfg, kind, unit_p[j], x, **run)
                     unit_aux = unit_aux + a
                 return x, unit_aux
 
@@ -251,14 +269,16 @@ def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None):
         unit_new = []
         for j, kind in enumerate(pattern):
             c = unit_c[j] if unit_c is not None else None
-            h, nc, _ = block_apply(cfg, kind, unit_p[j], h, rope=rope, mode=mode, cache=c,
-                                   pos=pos)
+            h, nc, _ = block_apply(cfg, kind, unit_p[j], h, cache=c, pos=pos, **run)
             unit_new.append(nc)
-        fresh_scan.append(tuple(unit_new))
+        if not encoder:  # its K/V are not kept
+            fresh_scan.append(tuple(unit_new))
+    if encoder:
+        return h, None, aux
     fresh_tail = []
     for i, (kind, bp) in enumerate(zip(tail_kinds, params["tail"])):
         c = caches["tail"][i] if caches is not None else None
-        h, nc, a = block_apply(cfg, kind, bp, h, rope=rope, mode=mode, cache=c, pos=pos)
+        h, nc, a = block_apply(cfg, kind, bp, h, cache=c, pos=pos, **run)
         fresh_tail.append(nc)
         if mode == "train":
             aux = aux + a
@@ -306,13 +326,28 @@ def _rope(cfg, s: int, device):
     return rotary_embedding(torch.arange(s, device=device), cfg.resolved_head_dim, cfg.rope_theta)
 
 
+def _encode(cfg: ArchConfig, params, batch, *, training: bool) -> torch.Tensor | None:
+    """The encoder output over ``batch["src_frames"]`` (cast to the model's
+    dtype) for an encdec config, else None: the stack under ``cfg.remat``
+    when ``training``, else as prefill blocks without a cache (the same
+    arithmetic, with no aux loss and no remat), then the unfused
+    ``enc_final_norm``."""
+    if cfg.family != "encdec":
+        return None
+    src = batch["src_frames"].to(_dtype(cfg))
+    h, _, _ = _apply_stack(cfg, params, src, rope=_rope(cfg, src.shape[1], src.device),
+                           mode="train" if training else "prefill", encoder=True)
+    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
 def _hidden(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward up to and including the final norm, at the text
     positions (a vlm prefix rebased as the reference's ``_hidden_for_loss``
     does); returns (h, the stack's summed aux loss)."""
+    enc_out = _encode(cfg, params, batch, training=True)
     h, n_prefix = _build_inputs(cfg, params, batch)
     rope = _rope(cfg, h.shape[1], h.device)
-    h, _, aux = _apply_stack(cfg, params, h, rope=rope, mode="train")
+    h, _, aux = _apply_stack(cfg, params, h, rope=rope, mode="train", enc_out=enc_out)
     if n_prefix:
         # the final norm is per row: slicing before it gives the same bits
         h = h[:, n_prefix - 1 : n_prefix - 1 + batch["tokens"].shape[1]]
@@ -376,11 +411,14 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
 
 def prefill(cfg: ArchConfig, params, batch, cache):
     """Fill the decode cache from a full prompt (behind its patch prefix for
-    vlm); returns (cache, last_logits)."""
+    vlm; with the encoder output's cross K/V for encdec); returns (cache,
+    last_logits)."""
+    enc_out = _encode(cfg, params, batch, training=False)
     h, _ = _build_inputs(cfg, params, batch)
     s = h.shape[1]
     rope = _rope(cfg, s, h.device)
-    h, new_caches, _ = _apply_stack(cfg, params, h, rope=rope, mode="prefill", caches=cache)
+    h, new_caches, _ = _apply_stack(cfg, params, h, rope=rope, mode="prefill", caches=cache,
+                                    enc_out=enc_out)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _logits(cfg, params, h)
     new_cache = {

@@ -33,12 +33,20 @@ PyTorch port: the model runs eagerly on ``device`` (``"cuda"`` unless the
 caller passes ``"cpu"``).  PyTorch returns before the card finishes, so the
 ``serve/prefill`` and ``serve/decode`` scopes end with a device synchronise —
 without it the timers would measure the launch and the serving controller
-would steer on it.  The dense, MoE, hybrid, SSM and vlm families are served.
+would steer on it.  Every family of the reference is served: dense, MoE,
+hybrid, SSM, vlm and encdec.
 
 vlm: the vision frontend is a stub, so each prefill runs behind a prefix of
 ``n_vision_patches`` zero patch embeddings (:func:`prefill_batch`, as the
 reference's engine builds it); the prefix takes cache positions, which the
 KV budget and ``validate_request`` count.
+
+encdec: the audio frontend is a stub too, so each prefill encodes
+``len(prompt)`` zero source frames (:func:`prefill_batch`, as the
+reference's engine builds them).  RMSNorm of zeros is zero, so the encoder
+output, the cross K/V and every cross-attention output are zero on this
+path; the cache row holds the cross K/V and the source length, which the
+splice copies with the rest of the row.
 
 MoE: a decode step routes its whole slot batch as one routing group, free
 slots included (they decode their last token on), so under the config's
@@ -197,13 +205,18 @@ def validate_request(req: Request, max_seq: int, n_prefix: int = 0) -> int:
 
 
 def prefill_batch(cfg: ArchConfig, prompt: list[int], device) -> dict[str, torch.Tensor]:
-    """The batch of one request's prefill: its prompt and, for vlm, the stub
-    frontend's zero patch embeddings (1, n_vision_patches, d_model) bf16."""
+    """The batch of one request's prefill: its prompt and the stub
+    frontends' zeros, bf16, as the reference's engine builds them: for vlm
+    the patch embeddings (1, n_vision_patches, d_model), for encdec the
+    source frames (1, len(prompt), d_model)."""
     batch = {"tokens": torch.tensor([prompt], dtype=torch.int32, device=device)}
     n_prefix = M.prefix_positions(cfg)
     if n_prefix:
         batch["patch_embeds"] = torch.zeros((1, n_prefix, cfg.d_model), dtype=torch.bfloat16,
                                             device=device)
+    if cfg.family == "encdec":
+        batch["src_frames"] = torch.zeros((1, len(prompt), cfg.d_model), dtype=torch.bfloat16,
+                                          device=device)
     return batch
 
 
@@ -224,7 +237,8 @@ class ServeSession:
     ----------
     cfg / params:
         Model configuration and weights (the families
-        :mod:`repro_torch.models.model` serves: dense, MoE, hybrid, SSM, vlm),
+        :mod:`repro_torch.models.model` serves: dense, MoE, hybrid, SSM, vlm,
+        encdec),
         with every weight on ``device``.
     session:
         A :class:`repro_torch.timing.TimingSession` — the primary wiring.  Supplies

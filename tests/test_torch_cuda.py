@@ -37,6 +37,10 @@ def gen():
     (128, 128, 4, 2, 16, True, None),        # the smoke configs' hd 16
     (128, 128, 4, 1, 16, True, 16),          # recurrentgemma-9b smoke: MQA, window 16
     (37, 37, 4, 2, 16, True, None),          # hd 16, ragged S
+    (512, 512, 16, 16, 64, False, None),     # seamless-m4t-large-v2: MHA, not causal
+    (300, 300, 16, 16, 64, False, None),     # its encoder, ragged
+    (300, 512, 16, 16, 64, False, None),     # its cross-attention, S != T
+    (512, 300, 16, 16, 64, False, None),
 ])
 def test_flash_kernel_matches_plain(gen, dtype, s, t, h, kv, hd, causal, window):
     q = torch.randn((2, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -52,7 +56,8 @@ def test_flash_kernel_matches_plain(gen, dtype, s, t, h, kv, hd, causal, window)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(512, 2048), (4, 2048), (16384, 64), (7, 100)])
+@pytest.mark.parametrize("n,d", [(512, 2048), (4, 2048), (16384, 64), (7, 100),
+                                 (512, 1024), (300, 1024), (4, 1024), (4096, 1024)])
 def test_rmsnorm_kernel_matches_plain(gen, dtype, n, d):
     x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
     w = torch.randn((d,), generator=gen, device="cuda").to(dtype)
@@ -81,6 +86,10 @@ BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-4}  # tests/test_kernels_flas
     (1, 512, 512, 16, 1, 256, True, 2048),   # recurrentgemma-9b: MQA, hd 256
     (1, 300, 300, 16, 1, 256, True, 128),    # hd 256, ragged, the window bites
     (1, 256, 256, 4, 2, 256, False, None),   # hd 256, no mask, GQA group 2
+    (2, 512, 512, 16, 16, 64, False, None),  # seamless-m4t-large-v2: MHA, not causal
+    (1, 300, 300, 16, 16, 64, False, None),  # its encoder, ragged
+    (1, 300, 512, 16, 16, 64, False, None),  # its cross-attention, S != T
+    (1, 512, 300, 16, 16, 64, False, None),
 ])
 def test_flash_bwd_kernels_match_plain(gen, dtype, b, s, t, h, kv, hd, causal, window):
     q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
@@ -222,6 +231,7 @@ def test_flash_autograd_runs_the_kernels(gen):
     (300, 5120, 0),   # qwen3-14b d_model
     (2048, 128, 0),   # qwen3's qk-norm over head_dim
     (300, 2048, 1),   # rows one element past a 16-byte boundary: one element a lane
+    (4096, 1024, 0),  # seamless-m4t-large-v2's d_model, its training rows
 ])
 def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d, offset):
     def rows():
@@ -560,3 +570,51 @@ def test_moe_smoke_config_serves_through_the_kernels(gen, dtype):
             torch.testing.assert_close(logits[0], logits[1], atol=2e-4, rtol=2e-4)
         else:
             torch.testing.assert_close(logits[0], logits[1], atol=0.1, rtol=0.05)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_encdec_smoke_config_runs_through_the_kernels(gen, dtype):
+    """seamless-m4t-large-v2's smoke config (2 + 2 layers, 4/4 heads of 16)
+    on the card with ``attn_impl="pallas"``, ``norm_impl="fused"``, from
+    random source frames of another length than the prompt: a prefill
+    launches three flash kernels a decoder layer and one an encoder layer
+    (the encoder's and the cross-attention's not causal), and its logits
+    and a decode step's hold against the plain path (f32 at 2e-4, bf16 at
+    the repo's model tolerance, atol 0.1, rtol 0.05); the loss's gradient
+    reaches every leaf, the encoder's included, through the flash
+    backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as PM
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    cfg = get_smoke_config("seamless-m4t-large-v2").replace(
+        attn_impl="pallas", norm_impl="fused", dtype=dtype)
+    plain = cfg.replace(attn_impl="chunked", norm_impl="ref")
+    params = PM.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen, device="cuda")
+    frames = 0.02 * torch.randn((2, 77, cfg.d_model), generator=gen, device="cuda")
+    batch = {"tokens": tokens[:, :40], "src_frames": frames}
+    tol = dict(atol=2e-4, rtol=2e-4) if dtype == "float32" else dict(atol=0.1, rtol=0.05)
+    n_flash = cfg.n_enc_layers + 2 * cfg.n_layers
+    logits, launched = [], []
+    for c in (cfg, plain):
+        before = fa_ops.launches
+        cache, first = PM.prefill(c, params, batch, PM.init_cache(c, 2, 96, device="cuda"))
+        _, step = PM.decode_step(c, params, cache, tokens[:, 40:])
+        torch.cuda.synchronize()
+        launched.append(fa_ops.launches - before)
+        logits.append((first.float(), step.float()))
+    assert launched == [n_flash, 0]
+    for got, want in zip(*logits):
+        torch.testing.assert_close(got, want, **tol)
+    before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    loss, _ = PM.loss_fn(cfg.replace(remat="none"), live,
+                         dict(batch, targets=tokens[:, 1:41]))
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches - before[0], fa_ops.dq_launches - before[1],
+            fa_ops.dkv_launches - before[2]) == (n_flash, n_flash, n_flash)
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in grads)

@@ -167,13 +167,17 @@ def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
     assert get_config("rwkv6-1.6b").family == "ssm"
     for arch in ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b"):
         assert get_config(arch).family == get_smoke_config(arch).family == "moe"
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_smoke_config("seamless-m4t-large-v2")
     # the vlm family is ported: internvl2-26b resolves at both widths
     assert get_config("internvl2-26b").family == get_smoke_config("internvl2-26b").family == "vlm"
+    # and the encdec family: seamless-m4t-large-v2 builds its encoder's and
+    # its decoder's (xattn) specs
+    encdec = get_smoke_config("seamless-m4t-large-v2")
+    assert encdec.family == "encdec"
+    specs = PM.model_specs(encdec)
+    assert {"enc_scan", "enc_final_norm"} <= set(specs)
+    assert {"self", "cross"} <= set(specs["scan"][0])
+    assert "xlen" in PM.cache_specs(encdec, 1, 8)["scan"][0]
     cfg = get_smoke_config("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec"):
-        PM.model_specs(cfg.replace(block_pattern=("xattn",)))
     from repro_torch.models.config import MoESettings
 
     moe = cfg.replace(moe=MoESettings(n_experts=4, top_k=2, d_expert=32), dtype="float32")
@@ -191,9 +195,6 @@ def test_registry_serves_hybrid_and_ssm_only_as_far_as_ported():
                                          global_batch=2, seq_len=32, report_every=0),
                            session=TimingSession())
     assert summary["iterations"] == 1 and np.isfinite(summary["final_metrics"]["loss"])
-    with pytest.raises(NotImplementedError, match="family 'encdec' is not yet ported "
-                                                   r"\(ROADMAP Queue 1: encdec\)"):
-        PM.model_specs(cfg.replace(family="encdec"))
     # a vlm stack runs its patch prefix and scores the text positions
     vlm = get_smoke_config("internvl2-26b").replace(dtype="float32")
     params = PM.init_params(vlm, torch.Generator().manual_seed(0), "cpu")

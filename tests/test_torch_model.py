@@ -9,6 +9,8 @@ Tolerances: f32 2e-4; bf16 atol 0.1 / rtol 0.05 with argmax agreement above
 0.95 (``tests/test_model_pallas_path.py``).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,10 +114,48 @@ def test_specs_and_cache_layout_match_jax():
     assert PM.cache_axes(cfg_t, 3, 40)["scan"][0]["k"] == ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 
-def test_unported_kinds_name_their_roadmap_item():
-    cfg = get_smoke_config("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: encdec"):
-        PM.model_specs(cfg.replace(block_pattern=("rglru", "xattn")))
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_smoke_config("seamless-m4t-large-v2")
-    assert get_smoke_config("internvl2-26b").family == "vlm"  # ported
+def _spec_shapes(tree):
+    """{path: (shape, dtype name)} of a PSpec tree of either package."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                walk(value, f"{path}/{key}")
+        elif isinstance(node, (tuple, list)):
+            for i, value in enumerate(node):
+                walk(value, f"{path}/{i}")
+        elif node is not None:
+            out[path] = (tuple(node.shape), str(np.dtype(node.dtype)) if not isinstance(
+                node.dtype, torch.dtype) else str(node.dtype).removeprefix("torch."))
+
+    walk(tree, "")
+    return out
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_every_reference_arch_resolves_with_the_references_trees(smoke):
+    """Every architecture of the reference's registry resolves in the port's
+    and builds parameter and cache spec trees (nothing allocated) whose
+    paths, shapes and dtypes equal the reference's; the one leaf the port
+    adds is each enc-dec decoder layer's source length ``xlen``, int32 on
+    the batch axis, so the splicer copies it with the row."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
+    for arch in JAX_ARCH_IDS:
+        cfg_j = (jax_smoke_config if smoke else jax_config)(arch)
+        cfg_t = (get_smoke_config if smoke else get_config)(arch)
+        fields_j = dataclasses.asdict(cfg_j)  # the port adds fields of its own (seq_impl)
+        assert {k: v for k, v in dataclasses.asdict(cfg_t).items() if k in fields_j} == fields_j
+        assert _spec_shapes(PM.model_specs(cfg_t)) == _spec_shapes(JM.model_specs(cfg_j)), arch
+        cache_t = _spec_shapes(PM.cache_specs(cfg_t, 3, 40))
+        extra = {path for path in cache_t if path.endswith("/xlen")}
+        assert bool(extra) == (cfg_t.family == "encdec"), arch
+        for path in extra:
+            assert cache_t.pop(path)[1] == "int32"
+        if extra:
+            assert PM.cache_axes(cfg_t, 3, 40)["scan"][0]["xlen"] == ("layers", "batch")
+        assert cache_t == _spec_shapes(JM.cache_specs(cfg_j, 3, 40)), arch
