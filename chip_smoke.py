@@ -235,7 +235,32 @@ caught):
     the plain path in f32 leaf by leaf: the kernel path no farther from it
     than ANCHOR_RATIO times the kernel path with every kernel swapped for
     its plain version (``_plain_kernels``); the kernel path's step twice
-    and bit-equal, the f32 step, and a profiled warm step.
+    and bit-equal, the f32 step, and a profiled warm step;
+26. llama3.2-1b through the 1F1B pipeline schedule (``_pipeline_phase``):
+    first the five training kernels at the shapes one microbatch gives them
+    inside the stages (flash B=1 S=T=1024, 32/8 heads of 64 causal bf16;
+    RMSNorm (1024, 2048) bf16), held against their plain versions and
+    timed; then (a) ``run_training`` at full width with
+    ``pipeline_stages=1``, ``pipeline_model=True``, ``pipeline_micro=4``,
+    batch 4 x 1024, bf16, 4 steps (the whole tick clock runs with one
+    stage): per step exactly 2LM flash forwards (the forward tick and the
+    backward's recompute), LM dq, LM dkv, 4LM + M RMSNorm forwards and
+    2LM + M backwards (the final norm is the fused kernel on this path;
+    L = 16 units, M = 4: 128 / 64 / 64 / 260 / 132), finite losses,
+    ``summary["pipeline"]``, the median step and the peak memory; (b) 4
+    ranks on one card (``Mesh([cuda:0] * 4, ("pod",))``), 16 units over 4
+    stages, 8 microbatches of batch 1 x 1024: one loss-and-gradient call
+    held against the non-pipelined kernel path (remat dots) from the same
+    weights and batch (loss and gradient norm at TRAIN_RTOL, each leaf at
+    LEAF_RTOL in relative norm), then stage 1 derated to weight 0.5
+    (depths 5/3/4/4, 4 padded slots) and the call again: loss, every
+    gradient leaf and the launch counts bit-equal (the same layers run in
+    the same order; padded slots launch nothing); then (c) one warm step
+    of (b) with AdamW under ``torch.profiler`` (busy share, device
+    operations, ms a tick and the card's wait on the host a tick; the
+    ranks share the card and run one after another, so the phase times
+    hold no bubble); and the same pipeline in f32 cut to 4 layers against
+    the non-pipelined path at the f32 model tolerance 2e-4.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -408,6 +433,16 @@ ENCDEC_TRAIN_PER_STEP = {"flash_fwd": 144, "flash_bwd_dq": 72, "flash_bwd_dkv": 
 # decode steps held against the plain path after each prefill from seeded
 # random source frames (phase 24)
 ENCDEC_DECODE_STEPS = 3
+# phase 26, llama3.2-1b through the 1F1B pipeline schedule: (a) the
+# launcher with one stage, PIPE_MICRO microbatches of phase 8's batch x seq,
+# PIPE_STEPS steps; (b) PIPE_RANKS ranks sharing the card, 16 units over 4
+# stages, PIPE_RANK_MICRO microbatches of batch PIPE_RANK_BATCH x seq, and in
+# f32 at PIPE_F32_LAYERS layers
+PIPE_MICRO, PIPE_STEPS = 4, 4
+PIPE_RANKS, PIPE_RANK_MICRO, PIPE_RANK_BATCH, PIPE_F32_LAYERS = 4, 8, 8, 4
+# per pipelined step at (a)'s L = 16 units and M = 4 (``_pipeline_launches``)
+PIPE_PER_STEP = {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 64,
+                 "rmsnorm_fwd": 260, "rmsnorm_bwd": 132, "rglru_fwd": 0, "wkv6_fwd": 0}
 # the peak device memory of a training run cut in depth (phases 19, 21 and
 # 23) must stay under this
 CUT_TRAIN_MAX_GB = 76.0
@@ -1256,6 +1291,29 @@ def _per_step_launches(cfg) -> dict[str, int]:
             "rmsnorm_bwd": sum(norms), "rglru_fwd": 0, "wkv6_fwd": 0}
 
 
+def _pipeline_launches(cfg, n_micro) -> dict[str, int]:
+    """Kernel launches of one 1F1B pipelined step of ``n_micro``
+    microbatches (``repro_torch.models.pipeline``), from the model's
+    structure: each of the L stacked units runs at its forward tick and
+    again in its backward's recompute (no remat inside), one dq and one dkv
+    per attention layer and microbatch, as many RMSNorm backwards as
+    forwards per run; the final norm is the fused kernel here, one forward
+    and one backward a microbatch at the last rank's forward tick.  Padded
+    slots of a restaged plan run nothing.  So llama3.2-1b (L = 16): 2LM
+    flash forwards, LM dq, LM dkv, 4LM + M RMSNorm forwards, 2LM + M
+    backwards."""
+    from repro_torch.models.model import decoder_pattern
+    from repro_torch.models.pipeline import check_pipelineable
+
+    units, pattern = check_pipelineable(cfg), decoder_pattern(cfg)
+    attn = sum(kind.startswith("attn") for kind in pattern)
+    norms = sum(3 if kind == "rwkv" else 2 for kind in pattern)
+    m = units * n_micro
+    return {"flash_fwd": 2 * attn * m, "flash_bwd_dq": attn * m, "flash_bwd_dkv": attn * m,
+            "rmsnorm_fwd": 2 * norms * m + n_micro, "rmsnorm_bwd": norms * m + n_micro,
+            "rglru_fwd": 0, "wkv6_fwd": 0}
+
+
 def _train_cfg(arch, smoke=False, n_layers=None):
     """The trained configuration: bf16, the kernel settings, remat "dots"."""
     from repro_torch.configs import get_config, get_smoke_config
@@ -1933,6 +1991,291 @@ def _encdec_train_phase(torch, K):
                                repeat=True, anchor_ratio=ANCHOR_RATIO)
 
 
+def _pipeline_kernels_phase(torch, F, K, gen):
+    """Phase 26's kernels at the shapes one microbatch gives them inside the
+    stages (batch 1 x TRAIN_SEQ, llama3.2-1b's 32/8 heads of 64 causal
+    bf16; RMSNorm rows of 1024 x 2048), held against their plain versions
+    and timed as phases 2, 3, 6 and 7 time theirs.  Returns ``{kernel:
+    row}``."""
+    fa_ops, rn_ops = K.fa, K.rn
+    s, (h, kv, hd), d = TRAIN_SEQ, (32, 8, 64), 2048
+    q = torch.randn((1, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((1, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=None)
+    ref_out, _ = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dq = fa_ops.flash_bwd_dq(*args, causal=True, window=None)
+    dk, dv = fa_ops.flash_bwd_dkv(*args, causal=True, window=None)
+    ref_dq = fa_ops.flash_bwd_dq_plain(*args, causal=True, window=None)
+    ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(*args, causal=True, window=None)
+    x = torch.randn((s, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)).to(torch.bfloat16)
+    dy = torch.randn((s, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    y = rn_ops.rms_norm_fused(x, w, 1e-5)
+    dx, dw = rn_ops.rms_norm_bwd(x, w, dy, 1e-5)
+    ref_y = rn_ops.rms_norm_plain(x, w, 1e-5)
+    ref_dx, ref_dw = rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
+    tol, gtol = KERNEL_TOL["bfloat16"], GRAD_TOL["bfloat16"]
+    for got, want, t in ((out, ref_out, tol), (dq, ref_dq, gtol), (dk, ref_dk, gtol),
+                         (dv, ref_dv, gtol), (y, ref_y, tol), (dx, ref_dx, tol),
+                         (dw, ref_dw, DW_TOL["bfloat16"])):
+        torch.testing.assert_close(got.float(), want.float(), atol=t, rtol=t)
+    nbytes = lambda *xs: sum(t.numel() * t.element_size() for t in xs)  # noqa: E731
+    pairs = s * (s + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd = _device_ms(torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                              retain_graph=True))
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yl = F.rms_norm(xl, (d,), wl, 1e-5)
+    attn, norm = f"B=1 S=T={s} 32/8 heads of 64 causal bf16", f"({s}, {d}) bf16"
+    cases = [
+        ("flash_fwd", attn, err(out, ref_out), lambda: fa_ops.flash_fwd(q, k, v, causal=True),
+         lambda: fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None),
+         _device_ms(torch, lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True)),
+         nbytes(q, k, v, out, lse), 4.0 * h * pairs * hd, "bf16_tensor"),
+        ("flash_bwd_dq", attn, err(dq, ref_dq), lambda: fa_ops.flash_bwd_dq(*args, causal=True),
+         lambda: fa_ops.flash_bwd_dq_plain(*args, causal=True, window=None), sdpa_bwd,
+         nbytes(q, k, v, do, lse, delta, dq), 6.0 * h * pairs * hd, "bf16_tensor"),
+        ("flash_bwd_dkv", attn, max(err(dk, ref_dk), err(dv, ref_dv)),
+         lambda: fa_ops.flash_bwd_dkv(*args, causal=True),
+         lambda: fa_ops.flash_bwd_dkv_plain(*args, causal=True, window=None), sdpa_bwd,
+         nbytes(q, k, v, do, lse, delta, dk, dv), 8.0 * h * pairs * hd, "bf16_tensor"),
+        ("rmsnorm_fwd", norm, err(y, ref_y), lambda: rn_ops.rms_norm_fused(x, w, 1e-5),
+         lambda: rn_ops.rms_norm_plain(x, w, 1e-5),
+         _device_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5)),
+         2 * nbytes(x) + nbytes(w), 4.0 * s * d, "f32"),
+        ("rmsnorm_bwd", norm, max(err(dx, ref_dx), err(dw, ref_dw)),
+         lambda: rn_ops.rms_norm_bwd(x, w, dy, 1e-5),
+         lambda: rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5),
+         _device_ms(torch, lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)),
+         3 * nbytes(x) + nbytes(w) + 4 * d, 10.0 * s * d, "f32"),
+    ]
+    rows = {}
+    for name, shape, e, fn, plain, library_ms, moved, flops, peak in cases:
+        ms, plain_ms = _device_ms(torch, fn), _device_ms(torch, plain)
+        bound_ms, bound_by = _bound_ms(moved, flops, peak)
+        rows[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        _print(f"[pipeline kernels] {name} at one microbatch, {shape}: max_abs_err={e:.3e} "
+               f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
+               f"({bound_by}) library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)}")
+    return rows
+
+
+def _pipeline_launcher_phase(torch, K):
+    """Phase 26 (a): ``run_training`` on full-width llama3.2-1b through the
+    1F1B schedule with one stage (the reference's tier-1 and drill setting:
+    the whole tick clock still runs), PIPE_MICRO microbatches of batch
+    TRAIN_BATCH x TRAIN_SEQ, PIPE_STEPS steps, the launches exact."""
+    from repro_torch.core import TimerLogger
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.timing import TimingSession
+
+    cfg = _train_cfg("llama3.2-1b")
+    per_step = _pipeline_launches(cfg, PIPE_MICRO)
+    assert per_step == PIPE_PER_STEP, per_step
+    tag = "[pipeline llama3.2-1b]"
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "train.jsonl")
+        settings = TrainSettings(
+            arch="llama3.2-1b", smoke=False, steps=PIPE_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED, report_every=0, ckpt_mode="off",
+            log_path=log_path, device=DEVICE, pipeline_stages=1, pipeline_model=True,
+            pipeline_micro=PIPE_MICRO)
+        sess = TimingSession()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(K)
+        t0 = time.perf_counter()
+        summary = run_training(settings, cfg=cfg, session=sess)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters(K)
+        records = TimerLogger(log_path, sess.db).read_all()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert launches == {k: v * PIPE_STEPS for k, v in per_step.items()}, launches
+    losses = [r["extra"]["loss"] for r in records]
+    assert len(losses) == PIPE_STEPS and all(math.isfinite(x) for x in losses), losses
+    cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
+    step_s = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+    median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    pipe = summary["pipeline"]
+    assert pipe["n_stages"] == 1 and pipe["workload"] == cfg.name and pipe["depths"] == {0: cfg.n_layers}
+    phases = {name: round(sec / PIPE_STEPS, 5) for name, sec in pipe["phase_seconds"].items()}
+    _print(f"{tag} run_training, pipeline_stages=1 pipeline_model=True pipeline_micro="
+           f"{PIPE_MICRO}, bf16, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {PIPE_STEPS} steps: "
+           f"wall_s={wall:.3f} launches={launches} (per step {per_step})")
+    _print(f"{tag} summary['pipeline']={json.dumps(pipe)}")
+    _print(f"{tag} losses={[round(x, 5) for x in losses]} step_s={[round(x, 5) for x in step_s]} "
+           f"median_s(steps 2-{PIPE_STEPS})={median_s:.5f} tokens_per_s(median step)="
+           f"{TRAIN_BATCH * TRAIN_SEQ / median_s:.1f} phase_s_per_step={phases} "
+           f"max_memory_allocated_GB={peak_gb:.3f}")
+    return launches
+
+
+def _pipeline_grads(torch, built, params, batch):
+    """(loss, gradient leaves) of one pipelined loss-and-gradient call."""
+    from repro_torch.models.layers import tree_leaves
+
+    loss, grads = built.pipeline_call(params, batch)
+    return loss.item(), tree_leaves(grads)
+
+
+def _pipeline_ranks_phase(torch, K):
+    """Phase 26 (b) and (c): PIPE_RANKS ranks on one card (an explicit
+    ``Mesh`` that repeats it), 16 units over 4 stages, PIPE_RANK_MICRO
+    microbatches; the equal plan against the non-pipelined kernel path, the
+    restaged plan bit-equal to it with equal launches, f32 at
+    PIPE_F32_LAYERS layers at the f32 model tolerance, and one profiled
+    warm step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.meshutil import Mesh
+    from repro_torch.dist.pipeline import StagePlan, phase_ticks
+    from repro_torch.launch.steps import make_transformer_pipeline_train_step
+    from repro_torch.optim import AdamWConfig, global_norm, init_opt_state
+
+    tag = f"[pipeline {PIPE_RANKS} ranks]"
+    mesh = Mesh([torch.device(DEVICE, 0)] * PIPE_RANKS, ("pod",))
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def timed_phase(name):
+        t0 = time.perf_counter()
+        yield  # the step synchronizes the card before the scope closes
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+
+    def build(cfg, plan):
+        return make_transformer_pipeline_train_step(
+            cfg, mesh, plan, seq_len=TRAIN_SEQ, global_batch=PIPE_RANK_BATCH,
+            n_micro=PIPE_RANK_MICRO, seed=SEED, device=DEVICE, phase_cb=timed_phase,
+            peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+
+    def data(cfg):
+        b = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, PIPE_RANK_BATCH,
+                                        mode="copy", seed=SEED), arch=cfg).batch_at(0)
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+
+    cfg = _train_cfg("llama3.2-1b")
+    plan = StagePlan.equal(range(PIPE_RANKS), cfg.n_layers)
+    built = build(cfg, plan)
+    params, batch = built.init_params(), data(cfg)
+    names = [name for name, _ in _named_leaves(params)]
+    want = _pipeline_launches(cfg, PIPE_RANK_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(K)
+    loss_e, g_e = _pipeline_grads(torch, built, params, batch)
+    torch.cuda.synchronize()
+    launches = _read_counters(K)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert launches == want, (launches, want)
+    depths_equal = plan.depths()
+    plan.set_weight(1, 0.5)
+    _zero_counters(K)
+    loss_r, g_r = _pipeline_grads(torch, built, params, batch)
+    torch.cuda.synchronize()
+    assert _read_counters(K) == launches, _read_counters(K)
+    assert loss_r == loss_e, (loss_r, loss_e)
+    moved = [name for name, a, b in zip(names, g_e, g_r) if not torch.equal(a, b)]
+    assert not moved, f"leaves whose gradient changed with the restage: {moved}"
+    _print(f"{tag} {cfg.name} full width, bf16, {PIPE_RANK_MICRO} microbatches of batch "
+           f"{PIPE_RANK_BATCH // PIPE_RANK_MICRO} x seq {TRAIN_SEQ}, ranks on "
+           f"{[str(d) for d in mesh.devices.flat]}: equal plan depths {depths_equal} and "
+           f"restaged plan (stage 1 at weight 0.5) depths {plan.depths()} (max depth "
+           f"{plan.max_depth()}, {PIPE_RANKS * plan.max_depth() - cfg.n_layers} padded slots): "
+           f"loss {loss_e:.6f}, every one of {len(names)} gradient leaves and the launches "
+           f"{launches} bit-equal; peak memory of the call {peak_gb:.3f} GB")
+    del g_r
+    # the non-pipelined kernel path from the same weights and batch
+    loss_n, gn_n, g_n = _loss_and_grads(torch, cfg, params, batch)
+    gn_e = global_norm(list(g_e)).item()
+    rel = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for name, a, b in zip(names, g_e, g_n)}
+    for name, g in zip(names, g_e):
+        assert bool(torch.isfinite(g).all()) and g.abs().max().item() > 0, name
+    worst = max(rel, key=rel.get)
+    assert abs(loss_e - loss_n) <= TRAIN_RTOL * abs(loss_n), (loss_e, loss_n)
+    assert abs(gn_e - gn_n) <= TRAIN_RTOL * gn_n, (gn_e, gn_n)
+    assert rel[worst] < LEAF_RTOL, rel
+    _print(f"{tag} pipelined vs the non-pipelined kernel path (remat dots, one batch of "
+           f"{PIPE_RANK_BATCH}): loss {loss_e:.6f} vs {loss_n:.6f}; grad_norm {gn_e:.6f} vs "
+           f"{gn_n:.6f}; worst leaf relative error {rel[worst]:.3e} ({worst}; limit "
+           f"{LEAF_RTOL}), median {sorted(rel.values())[len(rel) // 2]:.3e}")
+    del g_e, g_n
+    _free(torch)
+
+    # (c) one warm step of (b), the optimizer included, under the profiler
+    opt_state = init_opt_state(AdamWConfig(), params)
+    params, opt_state, metrics = built.fn(params, opt_state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    phase_s.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, metrics = built.fn(params, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    ticks = PIPE_RANK_MICRO + 2 * PIPE_RANKS - 1
+    _print(f"[profile-train pipeline {PIPE_RANKS} ranks] one warm step (AdamW included): "
+           f"wall_s={wall:.4f} device_kernel_s={device_s:.4f} device_busy_share="
+           f"{device_s / wall:.4f} device_operations={sum(e.count for e in kernels)} "
+           f"ms_per_tick={1e3 * wall / ticks:.3f} of which the card waited on the host "
+           f"{1e3 * (wall - device_s) / ticks:.3f} ({ticks} ticks) "
+           f"phase_s={ {k: round(v, 5) for k, v in phase_s.items()} } (ticks "
+           f"{phase_ticks(PIPE_RANK_MICRO, PIPE_RANKS)}); the {PIPE_RANKS} ranks share one "
+           f"card and run one after another, so these phase times hold no bubble")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        _print(f"[profile-train pipeline {PIPE_RANKS} ranks]   "
+               f"{e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    del params, opt_state, metrics, built, prof
+    _free(torch)
+
+    # f32 at PIPE_F32_LAYERS layers: pipelined against non-pipelined at 2e-4
+    cfg32 = cfg.replace(dtype="float32", n_layers=PIPE_F32_LAYERS)
+    built = build(cfg32, StagePlan.equal(range(PIPE_RANKS), PIPE_F32_LAYERS))
+    params, batch = built.init_params(), data(cfg32)
+    loss_p, g_p = _pipeline_grads(torch, built, params, batch)
+    loss_n, _, g_n = _loss_and_grads(torch, cfg32, params, batch)
+    diff = {name: (a - b).abs().max().item()
+            for name, a, b in zip([n for n, _ in _named_leaves(params)], g_p, g_n)}
+    worst = max(diff, key=diff.get)
+    assert abs(loss_p - loss_n) <= F32_ATOL, (loss_p, loss_n)
+    assert diff[worst] <= F32_ATOL, diff
+    _print(f"{tag} f32 at {PIPE_F32_LAYERS} layers, one unit a rank: loss {loss_p:.7f} vs "
+           f"non-pipelined {loss_n:.7f}; largest gradient difference {diff[worst]:.3e} "
+           f"({worst}; limit {F32_ATOL})")
+    del built, params, batch, g_p, g_n
+    _free(torch)
+    return launches
+
+
+def _pipeline_phase(torch, F, K, gen):
+    """Phase 26: llama3.2-1b through the 1F1B pipeline schedule (module
+    docstring).  Returns the kernels' rows at one microbatch's shapes and
+    the launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    rows = _pipeline_kernels_phase(torch, F, K, gen)
+    _free(torch)
+    launches = {"pipeline": _pipeline_launcher_phase(torch, K)}
+    _free(torch)
+    launches["pipeline_4"] = _pipeline_ranks_phase(torch, K)
+    _print(f"[pipeline] phase 26 took {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
 def _setup(torch):
     """Phase 1: print the card and its power limit, build and load the
     kernels; returns their wrapper modules.  One phase alone runs as
@@ -2036,6 +2379,9 @@ def main() -> int:
     # trained, at full depth
     encdec_launches = _encdec_phase(torch, K)
     encdec_train_launches = _encdec_train_phase(torch, K)
+    # llama3.2-1b through the 1F1B pipeline schedule: one stage through the
+    # launcher, then 4 ranks sharing the card
+    pipe_rows, pipe_launches = _pipeline_phase(torch, F, K, gen)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -2056,7 +2402,10 @@ def main() -> int:
     # "vlm_train", phase 23's training path (B=4 x 1280 positions); under
     # "encdec", phase 24's serving path (flash not causal at head_dim 64,
     # the norms at width 1024 at the long prompt's prefill rows); under
-    # "encdec_train", phase 25's training path (B=4 x 1024, width 1024)
+    # "encdec_train", phase 25's training path (B=4 x 1024, width 1024);
+    # under "pipeline" and "pipeline_4", phase 26's two pipelined paths (the
+    # launches of (a)'s 4 steps and of (b)'s one equal-plan call; the
+    # kernels at one microbatch's shapes, B=1 x 1024 and 1024 RMSNorm rows)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -2073,6 +2422,8 @@ def main() -> int:
     moe_tr = lambda name, row: dict(launches=moe_train_launches[name], **pick(row))  # noqa: E731
     vlm_tr = lambda name, row: dict(launches=vlm_train_launches[name], **pick(row))  # noqa: E731
     enc_tr = lambda name, row: dict(launches=encdec_train_launches[name], **pick(row))  # noqa: E731
+    pipe = lambda name: {path: dict(launches=n[name], **pick(pipe_rows[name]))  # noqa: E731
+                         for path, n in pipe_launches.items()}
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -2098,7 +2449,8 @@ def main() -> int:
              vlm=dict(launches=vlm_launches["flash_fwd"], **pick(_role(flash, "vlm"))),
              vlm_train=vlm_tr("flash_fwd", _role(flash, "vlm_train")),
              encdec=dict(launches=encdec_launches["flash_fwd"], **pick(_role(flash, "encdec"))),
-             encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train"))),
+             encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train")),
+             **pipe("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -2108,7 +2460,8 @@ def main() -> int:
              moe_train=moe_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "moe_train")),
              vlm_train=vlm_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dq",
-                                 _role(flash_bwd["flash_bwd_dq"], "encdec_train"))),
+                                 _role(flash_bwd["flash_bwd_dq"], "encdec_train")),
+             **pipe("flash_bwd_dq")),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
@@ -2118,7 +2471,8 @@ def main() -> int:
              moe_train=moe_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "moe_train")),
              vlm_train=vlm_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dkv",
-                                 _role(flash_bwd["flash_bwd_dkv"], "encdec_train"))),
+                                 _role(flash_bwd["flash_bwd_dkv"], "encdec_train")),
+             **pipe("flash_bwd_dkv")),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -2131,7 +2485,7 @@ def main() -> int:
              vlm=dict(launches=vlm_launches["rmsnorm_fwd"], **pick(fwd_vlm)),
              vlm_train=vlm_tr("rmsnorm_fwd", fwd_6144),
              encdec=dict(launches=encdec_launches["rmsnorm_fwd"], **pick(fwd_encdec)),
-             encdec_train=enc_tr("rmsnorm_fwd", fwd_1024)),
+             encdec_train=enc_tr("rmsnorm_fwd", fwd_1024), **pipe("rmsnorm_fwd")),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
@@ -2139,7 +2493,7 @@ def main() -> int:
              ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096),
              moe_train=moe_tr("rmsnorm_bwd", bwd_2048),
              vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144),
-             encdec_train=enc_tr("rmsnorm_bwd", bwd_1024)),
+             encdec_train=enc_tr("rmsnorm_bwd", bwd_1024), **pipe("rmsnorm_bwd")),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -3,13 +3,14 @@ actions (the paper's "profile itself and dynamically adapt itself to a
 changing environment at run time", Sec. 1 & 3).
 
 The port carries the controller protocol, AdaptCheck checkpoint admission
-(:class:`CheckpointControl`), straggler response (:class:`StragglerResponse`)
-and the serving controller; the simulated fleet comes with the distribution
-slice.
+(:class:`CheckpointControl`), straggler response (:class:`StragglerResponse`),
+the serving controller, and :class:`SimulatedFleet`, an n-host simulation of
+the whole loop in one process for tests and drills.
 """
 
 from .checkpoint import CheckpointControl
 from .controller import ControlAction, Controller, ControlLoop, Measurement
+from .fleet import SimulatedFleet
 from .serving import ServingControl
 from .stragglers import StragglerResponse
 
@@ -21,4 +22,5 @@ __all__ = [
     "CheckpointControl",
     "ServingControl",
     "StragglerResponse",
+    "SimulatedFleet",
 ]

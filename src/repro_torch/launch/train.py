@@ -32,6 +32,17 @@ train through their jnp forms.
 The step runs on ``--device`` (default ``cuda``); ``--device cpu`` runs the
 kernels' plain versions.
 
+``--pipeline-stages N`` trains through the 1F1B pipeline schedule over an
+N-rank ``pod`` mesh (one card a rank: N > 1 needs N cards; on ``--device
+cpu`` the ranks share the host): the synthetic residual-MLP stack by default
+(``--pipeline-layers``/``--pipeline-width``), or with ``--pipeline-model``
+the architecture's own transformer stack, one block-pattern period per
+stage slot, embedding and head pinned to the end ranks, the kernels inside
+the stages.  ``--pipeline-micro`` sets the microbatch count; the phases are
+timed as ``train/pipeline/{warmup,steady,cooldown}``, and a straggler that
+owns a stage is answered by moving the stage boundary (``restage``), which
+the next step runs.
+
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-1b \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024 --report
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch rwkv6-1.6b \\
@@ -40,9 +51,9 @@ kernels' plain versions.
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 8 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-mode fixed --ckpt-every 2
-
-The pipeline-parallel path (``pipeline_stages``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+    PYTHONPATH=src python -m repro_torch.launch.train --full --pipeline-stages 1 \\
+        --pipeline-model --pipeline-micro 4 --attn-impl pallas --norm-impl fused \\
+        --steps 4 --batch 4 --seq 1024
 """
 
 from __future__ import annotations
@@ -76,22 +87,23 @@ from ..core import (
 )
 from ..core.clocks import CounterClock, register_clock
 from ..data import DataLoader, SyntheticConfig, SyntheticLM
-from ..dist.pipeline import MicrobatchPlan
+from ..dist.meshutil import local_mesh
+from ..dist.pipeline import MicrobatchPlan, StagePlan, phase_ticks
 from ..dist.stragglers import StragglerDetector
+from ..fleet.topology import stage_for_host
 from ..kernels import build
-from ..models import model as M
+from ..models import model as M, pipeline as model_pipeline
 from ..models.config import ArchConfig, ShapeConfig
 from ..monitor import MetricsExporter, MonitorServer, StatusWriter
 from ..optim import AdamWConfig, init_opt_state
 from ..timing import TimingSession
-from .steps import make_train_step
+from .steps import (
+    make_pipeline_train_step,
+    make_train_step,
+    make_transformer_pipeline_train_step,
+)
 
 __all__ = ["TrainSettings", "run_training", "main"]
-
-#: settings whose code is not yet ported -> the ROADMAP Queue 1 item that ports it
-_NOT_YET_PORTED = {
-    "pipeline_stages": "item 6, distribution",
-}
 
 
 @dataclasses.dataclass
@@ -129,7 +141,17 @@ class TrainSettings:
     #: LR-schedule horizon; decoupled from `steps` so an interrupted run and
     #: its resumption share the same schedule (restart determinism)
     lr_total_steps: int | None = None
+    #: pipeline-parallel (1F1B) training path: 0 = off; N > 0 pipelines the
+    #: stages over an N-rank "pod" mesh (N cards on "cuda"; the ranks share
+    #: the host on "cpu"); 1 still runs the full tick schedule
     pipeline_stages: int = 0
+    pipeline_layers: int = 8          # homogeneous stage-stack depth (MLP path)
+    pipeline_micro: int = 4           # 1F1B microbatch count
+    pipeline_width: int = 32          # stage activation width (MLP path)
+    #: pipeline the real transformer (cfg's block stack; one pattern period
+    #: per slot, embed/head pinned to the end ranks) instead of the
+    #: synthetic residual-MLP stack
+    pipeline_model: bool = False
     #: where the step runs; the kernels need "cuda", "cpu" runs their plain versions
     device: str = "cuda"
     #: config overrides (None keeps the config's value)
@@ -140,15 +162,6 @@ class TrainSettings:
 def _flops_per_step(cfg: ArchConfig, tokens: int) -> float:
     _, active = M.param_counts(cfg)
     return 6.0 * active * tokens
-
-
-def _check_ported(settings: TrainSettings) -> None:
-    defaults = {f.name: f.default for f in dataclasses.fields(TrainSettings)}
-    for name, item in _NOT_YET_PORTED.items():
-        if getattr(settings, name) != defaults[name]:
-            raise NotImplementedError(
-                f"TrainSettings.{name} is not yet ported (ROADMAP Queue 1 {item})"
-            )
 
 
 def run_training(
@@ -171,7 +184,9 @@ def run_training(
         cfg = get_smoke_config(settings.arch) if settings.smoke else get_config(settings.arch)
     overrides = {"attn_impl": settings.attn_impl, "norm_impl": settings.norm_impl}
     cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
-    _check_ported(settings)
+    pipelined = settings.pipeline_stages > 0
+    # the 1F1B path pipelines homogeneous stages over a dedicated pod axis
+    mesh = local_mesh((settings.pipeline_stages,), ("pod",), settings.device) if pipelined else None
     sess = (
         session
         if session is not None
@@ -201,7 +216,14 @@ def run_training(
     monitor = None
     logger = TimerLogger(settings.log_path, db) if settings.log_path else None
     status = StatusWriter(settings.status_path, db) if settings.status_path else None
-    model_flops = _flops_per_step(cfg, settings.global_batch * settings.seq_len)
+    if pipelined and not settings.pipeline_model:
+        # the MLP pipeline path trains the residual-MLP stage stack, not the
+        # transformer cfg: same 6 * active-params * tokens convention, with
+        # the stack's actual parameter count (n_layers x 2 W x W matmuls)
+        active = settings.pipeline_layers * 2 * settings.pipeline_width ** 2
+        model_flops = 6.0 * active * settings.global_batch * settings.seq_len
+    else:
+        model_flops = _flops_per_step(cfg, settings.global_batch * settings.seq_len)
 
     # --- the control plane: one loop, every adaptation registered on it ----------
     ckpt_timer_name = "CHECKPOINT/adaptcheck::write"
@@ -224,10 +246,18 @@ def run_training(
 
     def topology_meta() -> dict[str, Any]:
         """Topology block stamped into every checkpoint's metadata — what a
-        resume into a different stage count re-apportions from.  Only the
-        pipeline path has one, and it comes with ROADMAP Queue 1 item 6
-        (``pipeline_stages`` raises until then), so nothing is stamped."""
-        return {}
+        resume into a *different* stage count re-apportions from."""
+        if not pipelined:
+            return {}
+        return {
+            "topology": {
+                "n_layers": stage_plan.n_layers,
+                "n_micro": settings.pipeline_micro,
+                "stage_weights": {
+                    int(k): float(v) for k, v in stage_plan.weights.items()
+                },
+            }
+        }
 
     def current_state() -> dict[str, Any]:
         return {
@@ -256,7 +286,20 @@ def run_training(
     if ckpt_active:
         ckpt_control.bind_durable_save(durable_save)
     # single-process topology: this host feeds its own EVOL step timer into
-    # the reduction; multi-host launchers hand the detector a transport
+    # the reduction; multi-host launchers hand the detector a transport.  On
+    # the pipeline path the response controller additionally owns the
+    # StagePlan, so a confirmed straggler that owns a stage is answered by
+    # moving the stage boundary (restage) before any microbatch derate.
+    pipeline_units = (
+        model_pipeline.check_pipelineable(cfg)
+        if pipelined and settings.pipeline_model
+        else settings.pipeline_layers
+    )
+    stage_plan = (
+        StagePlan.equal(range(settings.pipeline_stages), pipeline_units)
+        if pipelined
+        else None
+    )
     detector = StragglerDetector(n_hosts=1, db=db)
     loop.register(
         StragglerResponse(
@@ -264,6 +307,13 @@ def run_training(
             MicrobatchPlan.equal([0], n_micro=1),
             check_every=8,
             local_feed=(0, "EVOL/trainer::train_step"),
+            stage_plan=stage_plan,
+            # stage ownership derived from membership coordinates, not
+            # hard-coded: one live host on an S-stage pipeline owns stage 0
+            # (the rest ride along in-process)
+            stage_for_host=(
+                stage_for_host([0], settings.pipeline_stages) if pipelined else None
+            ),
             evict_barrier=ckpt_control.evict_barrier if ckpt_active else None,
         )
     )
@@ -290,12 +340,28 @@ def run_training(
         nonlocal manager, monitor
         opt_cfg = AdamWConfig()
         horizon = settings.lr_total_steps or settings.steps
-        built = make_train_step(
-            cfg, shape, opt_cfg=opt_cfg,
-            peak_lr=settings.peak_lr, total_steps=max(horizon, 2),
-            warmup_steps=max(min(100, horizon // 10), 1),
-        )
+        schedule = dict(peak_lr=settings.peak_lr, total_steps=max(horizon, 2),
+                        warmup_steps=max(min(100, horizon // 10), 1))
+        if pipelined:
+            # each schedule phase is a separately synchronized segment
+            # recorded under its own timing scope
+            phase_handles = {
+                name: sess.scope_handle(f"train/pipeline/{name}")
+                for name in phase_ticks(settings.pipeline_micro, settings.pipeline_stages)
+            }
+            common = dict(seq_len=settings.seq_len, global_batch=settings.global_batch,
+                          n_micro=settings.pipeline_micro, opt_cfg=opt_cfg, seed=settings.seed,
+                          phase_cb=lambda name: phase_handles[name], device=device,
+                          **schedule)
+            if settings.pipeline_model:
+                built = make_transformer_pipeline_train_step(cfg, mesh, stage_plan, **common)
+            else:
+                built = make_pipeline_train_step(mesh, stage_plan, width=settings.pipeline_width,
+                                                 vocab_size=cfg.vocab_size, **common)
+        else:
+            built = make_train_step(cfg, shape, opt_cfg=opt_cfg, **schedule)
         s["built"] = built
+        # the pipeline's fn re-packs the live StagePlan every step
         s["exec"] = built.fn
         # absolute-path scope: nests under the STARTUP driver routine in the
         # tree report; on the card it holds the kernels' nvcc build
@@ -323,16 +389,34 @@ def run_training(
                 with sess.scope_handle("STARTUP/restore"):
                     restored = manager.restore_latest(device=device)
         if restored is not None:
-            start_step, tree, _meta = restored
+            start_step, tree, meta = restored
             s["params"] = tree["params"]
             s["opt_state"] = tree["opt_state"]
             s.iteration = start_step
             s["updates"] = start_step
+            topo = (meta or {}).get("topology")
+            if pipelined and topo and int(topo.get("n_layers", -1)) == stage_plan.n_layers:
+                # N->M topology restore: re-apportion the saved stage capacity
+                # weights onto the *current* stage set.  The parameter stack is
+                # flat per-layer, so adopting the retargeted weights in place
+                # is all it takes — the next step's pack() splits the same
+                # layers along the new boundaries.  (Manifest JSON stringifies
+                # the stage keys; convert back.)
+                saved = StagePlan(
+                    n_layers=stage_plan.n_layers,
+                    weights={int(k): float(v) for k, v in topo["stage_weights"].items()},
+                )
+                adopted = saved.retarget(range(settings.pipeline_stages))
+                stage_plan.weights.clear()
+                stage_plan.weights.update(adopted.weights)
             print(f"[train] restored checkpoint at step {start_step}")
         else:
             with sess.scope_handle("STARTUP/init_params"):
                 generator = torch.Generator(device=device).manual_seed(settings.seed)
-                s["params"] = M.init_params(cfg, generator, device)
+                if pipelined:
+                    s["params"] = built.init_params(generator)
+                else:
+                    s["params"] = M.init_params(cfg, generator, device)
                 s["opt_state"] = init_opt_state(opt_cfg, s["params"])
         s["loader"] = DataLoader(source, start_step=start_step)
 
@@ -484,6 +568,22 @@ def run_training(
         # from the scope stack (simulation/total → bins → routines → scopes)
         "timer_tree": tree_rows(db),
     }
+    if pipelined:
+        summary["pipeline"] = {
+            "n_stages": settings.pipeline_stages,
+            "n_layers": stage_plan.n_layers,
+            "workload": cfg.name if settings.pipeline_model else "mlp",
+            "n_micro": settings.pipeline_micro,
+            "depths": stage_plan.depths(),
+            "phase_seconds": {
+                name: (
+                    db.get(f"train/pipeline/{name}").seconds()
+                    if db.exists(f"train/pipeline/{name}")
+                    else 0.0
+                )
+                for name in phase_ticks(settings.pipeline_micro, settings.pipeline_stages)
+            },
+        }
     return summary
 
 
@@ -513,7 +613,15 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-textfile", default=None,
                     help="write the Prometheus exposition here on the report "
                          "cadence (textfile-collector scrape path)")
-    ap.add_argument("--pipeline-stages", type=int, default=0)
+    ap.add_argument("--pipeline-stages", type=int, default=0,
+                    help="1F1B pipeline-parallel path: pod-axis size (0 = off)")
+    ap.add_argument("--pipeline-layers", type=int, default=8)
+    ap.add_argument("--pipeline-micro", type=int, default=4)
+    ap.add_argument("--pipeline-width", type=int, default=32)
+    ap.add_argument("--pipeline-model", action="store_true",
+                    help="pipeline the real transformer stack (one block-pattern "
+                         "period per stage slot, embed/head pinned to the end "
+                         "ranks) instead of the synthetic residual-MLP stack")
     ap.add_argument("--attn-impl", choices=["naive", "chunked", "pallas"], default=None,
                     help="attention implementation; 'pallas' = the CUDA flash kernels")
     ap.add_argument("--norm-impl", choices=["ref", "fused"], default=None,
@@ -532,6 +640,10 @@ def main(argv=None) -> int:
         monitor_port=args.monitor_port,
         metrics_textfile=args.metrics_textfile,
         pipeline_stages=args.pipeline_stages,
+        pipeline_layers=args.pipeline_layers,
+        pipeline_micro=args.pipeline_micro,
+        pipeline_width=args.pipeline_width,
+        pipeline_model=args.pipeline_model,
         device=args.device, attn_impl=args.attn_impl, norm_impl=args.norm_impl,
     )
     sess = TimingSession(timer_db())

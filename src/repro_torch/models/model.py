@@ -229,6 +229,22 @@ def _remat(cfg, fn):
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
+def _unit_apply(cfg, kinds, unit_p, h, *, rope, mode, unit_cache, pos, enc_out, causal):
+    """One stacked unit: the blocks of ``kinds`` in order.  Returns (h, the
+    blocks' caches, aux): in ``mode="train"`` the f32 sum of the blocks' aux
+    losses, else None (no additions launched for it)."""
+    new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device) if mode == "train" else None
+    for i, kind in enumerate(kinds):
+        c = unit_cache[i] if unit_cache is not None else None
+        h, nc, a = block_apply(cfg, kind, unit_p[i], h, rope=rope, mode=mode, cache=c, pos=pos,
+                               enc_out=enc_out, causal=causal)
+        new_caches.append(nc)
+        if mode == "train":
+            aux = aux + a
+    return h, tuple(new_caches), aux
+
+
 def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None, encoder=False,
                  enc_out=None):
     """Run the stacked units (a loop over the leading ``scan`` axis), then the
@@ -256,23 +272,17 @@ def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None, encoder=F
         if mode == "train":
 
             def unit(x, unit_p=unit_p):
-                unit_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-                for j, kind in enumerate(pattern):
-                    x, _, a = block_apply(cfg, kind, unit_p[j], x, **run)
-                    unit_aux = unit_aux + a
+                x, _, unit_aux = _unit_apply(cfg, pattern, unit_p, x, unit_cache=None, pos=None,
+                                             **run)
                 return x, unit_aux
 
             h, a = _remat(cfg, unit)(h)
             aux = aux + a
             continue
         unit_c = tree_map(lambda x: x[i], c_scan)  # views: written in place
-        unit_new = []
-        for j, kind in enumerate(pattern):
-            c = unit_c[j] if unit_c is not None else None
-            h, nc, _ = block_apply(cfg, kind, unit_p[j], h, cache=c, pos=pos, **run)
-            unit_new.append(nc)
+        h, unit_new, _ = _unit_apply(cfg, pattern, unit_p, h, unit_cache=unit_c, pos=pos, **run)
         if not encoder:  # its K/V are not kept
-            fresh_scan.append(tuple(unit_new))
+            fresh_scan.append(unit_new)
     if encoder:
         return h, None, aux
     fresh_tail = []

@@ -360,10 +360,17 @@ def test_run_training_cpu_smoke():
 
 
 def test_unported_settings_name_their_roadmap_item():
-    settings = TrainSettings(device="cpu", steps=1, pipeline_stages=2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 6, distribution"):
-        run_training(settings, session=TimingSession())
+    """``pipeline_stages``, the last setting that raised for want of a port,
+    now trains: 2 stages on 2 CPU ranks (the 1F1B schedule over the
+    residual-MLP stack, ``tests/test_torch_pipeline_train.py``)."""
+    settings = TrainSettings(device="cpu", steps=2, global_batch=4, seq_len=8,
+                             ckpt_mode="off", report_every=0, pipeline_stages=2)
+    summary = run_training(settings, session=TimingSession())
+    assert summary["iterations"] == 2
+    assert summary["pipeline"]["n_stages"] == 2
+    assert summary["pipeline"]["depths"] == {0: 4, 1: 4}
+    loss = summary["final_metrics"]["loss"]
+    assert loss == loss and loss >= 0.0
 
 
 _EFFECT_STEPS = 3
