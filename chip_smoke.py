@@ -10,7 +10,8 @@ caught):
    kernels from ``src/repro_torch/kernels/csrc`` and print the build time;
 2. hold the flash-attention kernel against its plain PyTorch version on the
    card (serving shape B=1, H=32, KV=8, hd=64, S=T=512 causal bf16; ragged
-   S=T=300; window 128; f32; the training shape B=4, S=T=1024 causal bf16;
+   S=T=300; the serving soak's longest and shortest prefills S=T=15 and 4;
+   window 128; f32; the training shape B=4, S=T=1024 causal bf16;
    moonshot-v1-16b-a3b's serving shape, hd=128 MHA 16/16 heads, S=T=512 and
    ragged 300, and its training shape B=4, S=T=1024 causal bf16;
    internvl2-26b's, hd=128 GQA 48/8 heads, its prefills behind the 256
@@ -27,7 +28,8 @@ caught):
    of 4 slots) bf16, and internvl2-26b's width 6144, past the rows the
    register kernel holds (the looped kernel): (768, 6144), (556, 6144),
    (4, 6144) and (5120, 6144), and seamless-m4t-large-v2's width 1024:
-   (512, 1024), (300, 1024), (4, 1024) and (4096, 1024), with
+   (512, 1024), (300, 1024), (4, 1024) and (4096, 1024), and the serving
+   soak's longest prefill (15, 2048), with
    ``F.rms_norm`` as the yardstick; each case
    prints the kernel's plan (registers, threads and blocks, one launch);
 4. serve full-width llama3.2-1b (16 layers, d_model 2048, 32/8 heads,
@@ -261,6 +263,29 @@ caught):
     ranks share the card and run one after another, so the phase times
     hold no bubble); and the same pipeline in f32 cut to 4 layers against
     the non-pipelined path at the f32 model tolerance 2e-4.
+27. soak and fleet (``_soak_phase``): (a) ``run_soak`` serves full-width
+    llama3.2-1b through the flash and RMSNorm kernels for SOAK_BUDGET_S of
+    wall clock (seeded bursts of prompts 4 to 15 tokens long, 6 new tokens,
+    4 slots, the reference's SLO of a 5 ms decode step, so the serving
+    controller narrows and sheds), scraping its live ``MonitorServer`` over
+    HTTP on 127.0.0.1 every SOAK_INTERVAL_S: the soak invariants hold on
+    every page (``check_snapshots``), ``completed > 0``, and the launches are
+    exactly 16 flash forwards a prefill and 32 RMSNorm forwards a model call
+    (prefills and decode steps counted by the soak's ``serve/prefill`` and
+    ``serve/decode`` timers), every other kernel 0; it prints the ADAPT
+    actions, the median decode step and the peak memory; (b) the training
+    soak (the simulated fleet under seeded faults, on the card) with its
+    invariants and faults injected; (c) the fault drills
+    (``repro_torch.faults.soak.main --seed 1 --steps 200 --device cuda``:
+    the simulated fleet's recovery and bounded timers, then training the
+    MLP stack through the one-stage pipeline on the card, corrupting its
+    newest checkpoint, planting killed-writer debris and resuming from the
+    newest valid step with both quarantined); (d) real ranks: the seeded
+    fleet drill (seed 0, 3 ranks, 40 polls) with every rank done or fenced,
+    and a 2-rank fleet (FLEET_POLLS polls, liveness FLEET_LIVENESS_S) with
+    a join at poll 6 and a SIGKILL at poll 18 whose join and leave (rank 0,
+    after poll 18) are ``ADAPT/fleet::*`` rows and whose epoch, joins and
+    leaves move between the first and the last scraped page.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -433,6 +458,8 @@ ENCDEC_TRAIN_PER_STEP = {"flash_fwd": 144, "flash_bwd_dq": 72, "flash_bwd_dkv": 
 # decode steps held against the plain path after each prefill from seeded
 # random source frames (phase 24)
 ENCDEC_DECODE_STEPS = 3
+# the serving soak's prompts are 4 to 15 tokens long (phase 27)
+SOAK_PROMPT_MAX = 15
 # phase 26, llama3.2-1b through the 1F1B pipeline schedule: (a) the
 # launcher with one stage, PIPE_MICRO microbatches of phase 8's batch x seq,
 # PIPE_STEPS steps; (b) PIPE_RANKS ranks sharing the card, 16 units over 4
@@ -558,6 +585,9 @@ def _flash_phase(torch, F, fa_ops, gen):
     cases = [
         ("serve", "path S=T=512 causal bf16", 1, 512, llama, None, torch.bfloat16),
         ("", "ragged S=T=300 causal bf16", 1, 300, llama, None, torch.bfloat16),
+        ("soak", f"soak path S=T={SOAK_PROMPT_MAX} causal bf16", 1, SOAK_PROMPT_MAX, llama, None,
+         torch.bfloat16),
+        ("", "soak shortest S=T=4 causal bf16", 1, 4, llama, None, torch.bfloat16),
         ("", "window=128 S=T=512 bf16", 1, 512, llama, 128, torch.bfloat16),
         ("", "f32 S=T=512 causal", 1, 512, llama, None, torch.float32),
         ("train", f"training path B={TRAIN_BATCH} S=T={TRAIN_SEQ} causal bf16", TRAIN_BATCH,
@@ -653,6 +683,8 @@ def _rmsnorm_phase(torch, F, rn_ops, gen):
     cases += [(N_SLOTS, 6144), (TRAIN_BATCH * VLM_TRAIN_SEQ, 6144)]
     # the enc-dec paths' width (1024): its prefills, a decode step, a training step
     cases += [(n, 1024) for n in PROMPT_LENS] + [(N_SLOTS, 1024), (TRAIN_BATCH * TRAIN_SEQ, 1024)]
+    # the serving soak's longest prefill (phase 27)
+    cases += [(SOAK_PROMPT_MAX, 2048)]
     rows = []
     for n, d in cases:
         x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -2276,6 +2308,143 @@ def _pipeline_phase(torch, F, K, gen):
     return rows, launches
 
 
+# phase 27: the serving soak's wall-clock budget and scrape cadence, the
+# training soak's, and the real-process fleet run beside the seeded drill
+SOAK_BUDGET_S, SOAK_INTERVAL_S = 20.0, 2.0
+SOAK_TRAIN_BUDGET_S, SOAK_TRAIN_INTERVAL_S = 5.0, 0.5
+# full-width llama3.2-1b: 16 flash forwards a prefill, 32 RMSNorm forwards a
+# model call (prefill or decode step), as phase 4
+SOAK_PER_PREFILL, SOAK_PER_CALL = {"flash_fwd": 16}, {"rmsnorm_fwd": 32}
+# the real fleet: 2 ranks, a join at poll 6, a SIGKILL at poll 18. On the
+# H100 host a rank that starts cold may first beat more than 0.8 s after the
+# launcher publishes its membership (at a 0.8 s timeout rank 0 was fenced
+# at poll 7, before its kill), so the liveness timeout leaves seconds of
+# margin, and the run lasts long enough for the kill to expire (polls take
+# at least 0.1 s each)
+FLEET_POLLS, FLEET_LIVENESS_S = 60, 2.5
+
+
+def _soak_serve_phase(torch, K):
+    """Phase 27 (a): the serving soak at full width through the kernels,
+    scraped over HTTP; returns its launches."""
+    from repro_torch.models import model as M
+    from repro_torch.soak import SoakConfig, run_soak
+
+    decode_s = []
+    decode_step = M.decode_step
+
+    def timed_decode(*args, **kwargs):  # the engine syncs right after, so this adds no wait
+        t0 = time.perf_counter()
+        out = decode_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    M.decode_step = timed_decode
+    _zero_counters(K)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as out_dir:
+            cfg = SoakConfig(mode="serve", smoke=False, arch="llama3.2-1b", attn_impl="pallas",
+                             norm_impl="fused", dtype="bfloat16", device="cuda",
+                             budget_s=SOAK_BUDGET_S, interval_s=SOAK_INTERVAL_S, seed=SEED,
+                             out_dir=out_dir)
+            t0 = time.perf_counter()
+            result = run_soak(cfg)
+            wall = time.perf_counter() - t0
+            n_pages = len(os.listdir(out_dir))
+    finally:
+        M.decode_step = decode_step
+    launches = _read_counters(K)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = result.summary
+    prefills, decodes = summary["prefills"], summary["decode_steps"]
+    expected = {name: SOAK_PER_PREFILL.get(name, 0) * prefills
+                + SOAK_PER_CALL.get(name, 0) * (prefills + decodes) for name, _, _ in COUNTERS}
+    assert result.failures == [], result.failures
+    assert summary["completed"] > 0, summary
+    assert len(result.snapshots) >= cfg.min_snapshots, len(result.snapshots)
+    assert n_pages == len(result.snapshots)
+    assert all(snap.source == "http" and snap.parse_error is None for snap in result.snapshots)
+    assert launches == expected, (launches, expected, prefills, decodes)
+    assert len(decode_s) == decodes > 0, (len(decode_s), decodes)
+    adapt = summary["adapt"]
+    _print(f"[soak serve] llama3.2-1b full width, {SOAK_BUDGET_S:g} s budget, scrape every "
+           f"{SOAK_INTERVAL_S:g} s over HTTP: wall_s={wall:.3f} steps={result.steps} "
+           f"submitted={summary['submitted']} completed={summary['completed']:g} "
+           f"shed={summary['shed']:g} prefills={prefills} decode_steps={decodes} "
+           f"snapshots={len(result.snapshots)} launches={launches}")
+    _print(f"[soak serve] ADAPT actions {adapt['n_actions']}: {adapt['action_counts']}; "
+           f"median decode step {1e3 * sorted(decode_s)[len(decode_s) // 2]:.4f} ms (SLO "
+           f"target 5 ms); max_memory_allocated_GB={peak_gb:.3f}; invariants held on "
+           f"{len(result.snapshots)} scraped pages")
+    del result
+    return launches
+
+
+def _soak_phase(torch, K):
+    """Phase 27: soak and fleet (module docstring).  Returns (a)'s launches."""
+    from repro_torch.faults import soak as drills
+    from repro_torch.fleet.drill import run_drill
+    from repro_torch.fleet.launch import FleetSettings, run_fleet
+    from repro_torch.monitor.promparse import parse_exposition
+    from repro_torch.soak import SoakConfig, run_soak
+
+    t0 = time.perf_counter()
+    launches = _soak_serve_phase(torch, K)
+    _free(torch)
+
+    # (b) the training soak: the simulated fleet under seeded faults
+    result = run_soak(SoakConfig(mode="train", device="cuda", budget_s=SOAK_TRAIN_BUDGET_S,
+                                 interval_s=SOAK_TRAIN_INTERVAL_S, seed=SEED))
+    assert result.failures == [], result.failures
+    assert result.summary["faults_injected"] > 0, result.summary
+    _print(f"[soak train] {result.steps} steps, {len(result.snapshots)} snapshots, "
+           f"faults_injected={result.summary['faults_injected']} "
+           f"evicted={result.summary['evicted_hosts']} "
+           f"ADAPT {result.summary['adapt']['action_counts']}")
+
+    # (c) the fault drills: the simulated fleet, then train, corrupt, plant
+    # killed-writer debris and resume on the card
+    rc = drills.main(["--seed", "1", "--steps", "200", "--device", "cuda"])
+    assert rc == 0, rc
+    _free(torch)
+
+    # (d) real ranks: the seeded drill, then a join and a kill
+    drill = run_drill(0, hosts=3, steps=40)
+    assert drill["failures"] == [], drill["failures"]
+    statuses = {host: final["status"] for host, final in drill["finals"].items()}
+    assert statuses and set(statuses.values()) <= {"done", "fenced"}, statuses
+    _print(f"[fleet drill] seed 0, 3 ranks, 40 polls: epoch={drill['epoch']} "
+           f"ranks={statuses} ADAPT {drill['action_counts']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as root:
+        fleet = run_fleet(FleetSettings(hosts=2, steps=FLEET_POLLS, step_floor_s=0.02,
+                                        poll_interval_s=0.1, liveness_timeout_s=FLEET_LIVENESS_S,
+                                        snapshot_every=5, rendezvous=root,
+                                        join_at=[(6, 2)], kill_at=[(18, 0)]))
+    counts = fleet["action_counts"]
+    assert counts.get("fleet::join") == 1 and counts.get("fleet::leave") == 1, counts
+    # the leave is the kill's expiry, not a slow start's: rank 0 leaves after poll 18
+    rows = {row.split(": ")[1].split()[0]: row for row in fleet["actions"]
+            if row.startswith("[fleet]")}
+    assert int(rows["leave"].split()[2].rstrip(":")) >= 18 and " host=0 " in rows["leave"], rows
+    assert " host=2 " in rows["join"], rows
+    first, last = (parse_exposition(fleet["snapshots"][i]["exposition"]) for i in (0, -1))
+    delta = {name: last.value(f"repro_fleet_{name}") - first.value(f"repro_fleet_{name}")
+             for name in ("membership_epoch", "joins_total", "leaves_total")}
+    evicts = counts.get("stragglers::evict", 0)
+    assert delta == {"membership_epoch": fleet["epoch"] - 1.0, "joins_total": 1.0,
+                     "leaves_total": 1.0}, delta
+    assert fleet["epoch"] == 1 + fleet["joins_total"] + fleet["leaves_total"] + evicts
+    assert 0 not in fleet["hosts"] and "0" not in fleet["finals"], fleet["hosts"]
+    _print(f"[fleet] 2 ranks, {FLEET_POLLS} polls, liveness {FLEET_LIVENESS_S:g} s, join of rank "
+           f"2 at poll 6, SIGKILL of rank 0 at poll 18: "
+           f"epoch={fleet['epoch']} hosts={fleet['hosts']} wire deltas {delta}; "
+           + "; ".join(row for row in fleet["actions"] if row.startswith("[fleet]")))
+    _print(f"[soak] phase 27 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _setup(torch):
     """Phase 1: print the card and its power limit, build and load the
     kernels; returns their wrapper modules.  One phase alone runs as
@@ -2382,6 +2551,10 @@ def main() -> int:
     # llama3.2-1b through the 1F1B pipeline schedule: one stage through the
     # launcher, then 4 ranks sharing the card
     pipe_rows, pipe_launches = _pipeline_phase(torch, F, K, gen)
+    _free(torch)
+    # the serving soak at full width under its live /metrics scrape, the
+    # training soak, the fault drills, and real multi-process fleets
+    soak_launches = _soak_phase(torch, K)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -2405,7 +2578,9 @@ def main() -> int:
     # "encdec_train", phase 25's training path (B=4 x 1024, width 1024);
     # under "pipeline" and "pipeline_4", phase 26's two pipelined paths (the
     # launches of (a)'s 4 steps and of (b)'s one equal-plan call; the
-    # kernels at one microbatch's shapes, B=1 x 1024 and 1024 RMSNorm rows)
+    # kernels at one microbatch's shapes, B=1 x 1024 and 1024 RMSNorm rows);
+    # under "soak", phase 27's serving soak (its launches; the kernels at its
+    # longest prefill, S=T=15 and 15 RMSNorm rows)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -2450,7 +2625,8 @@ def main() -> int:
              vlm_train=vlm_tr("flash_fwd", _role(flash, "vlm_train")),
              encdec=dict(launches=encdec_launches["flash_fwd"], **pick(_role(flash, "encdec"))),
              encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train")),
-             **pipe("flash_fwd")),
+             **pipe("flash_fwd"),
+             soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak")))),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -2485,7 +2661,9 @@ def main() -> int:
              vlm=dict(launches=vlm_launches["rmsnorm_fwd"], **pick(fwd_vlm)),
              vlm_train=vlm_tr("rmsnorm_fwd", fwd_6144),
              encdec=dict(launches=encdec_launches["rmsnorm_fwd"], **pick(fwd_encdec)),
-             encdec_train=enc_tr("rmsnorm_fwd", fwd_1024), **pipe("rmsnorm_fwd")),
+             encdec_train=enc_tr("rmsnorm_fwd", fwd_1024), **pipe("rmsnorm_fwd"),
+             soak=dict(launches=soak_launches["rmsnorm_fwd"],
+                       **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16")))),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),

@@ -5,5 +5,7 @@ It mirrors ``repro``'s module layout and names: the timer infrastructure
 the model code is plain PyTorch on tensors with an explicit ``device``, and
 where ``repro`` runs a Pallas TPU kernel this package runs a kernel written by
 hand in CUDA C++ for ``sm_90a`` (``kernels/csrc``).  It imports neither JAX
-nor ``repro``.  So far it carries the serving path of the dense decoder.
+nor ``repro``.  It carries every model family's serving and training paths,
+the 1F1B pipeline, checkpointing, the monitor, and the soak and fleet
+harnesses (``soak``, ``fleet``, ``faults.soak``).
 """

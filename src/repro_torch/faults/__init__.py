@@ -1,4 +1,4 @@
-"""Fault injection: deterministic failure schedules for drills and tests.
+"""Fault injection: deterministic failure schedules for drills, tests, soaks.
 
 The harshest environment change a long-running adaptive application must
 survive is failure — preemption, corrupted storage, a dead or wedged host.
@@ -10,9 +10,11 @@ This package makes failure a first-class, *replayable* input:
 * :mod:`repro_torch.faults.inject` — the injectors: checkpoint corruption
   (the full matrix the validation layer must catch), fleet degradation
   (slow/hang/restore a simulated host), and process preemption (SIGTERM
-  with a save deadline).
-
-The soak drill comes with the fleet (ROADMAP Queue 1 item 7).
+  with a save deadline);
+* :mod:`repro_torch.faults.soak` — the nightly drill: train under a
+  :class:`~repro_torch.adapt.fleet.SimulatedFleet` with injected faults,
+  assert recovery and bounded timer/counter growth, then corrupt, kill and
+  resume a checkpointed training run.
 """
 
 from .inject import (

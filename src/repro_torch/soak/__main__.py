@@ -1,0 +1,4 @@
+from .run import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

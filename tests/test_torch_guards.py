@@ -131,6 +131,19 @@ def test_gpu_entry_points_raise_without_a_gpu():
         ServeSession(cfg, params)
     with pytest.raises(gpu_errors):
         run_serving(n_requests=1)
+    from repro_torch.faults.soak import checkpoint_drill, fleet_drill
+    from repro_torch.soak import SoakConfig, run_soak
+
+    with pytest.raises(gpu_errors):
+        run_soak(SoakConfig(mode="serve", budget_s=0.1, scrape_http=False))
+    # the simulated fleet's meshes, and the drills', refuse a card that is
+    # not there
+    with pytest.raises(ValueError, match="only 0 are visible"):
+        run_soak(SoakConfig(mode="train", budget_s=0.1, scrape_http=False))
+    with pytest.raises(ValueError, match="only 0 are visible"):
+        fleet_drill(0, 4)
+    with pytest.raises(ValueError, match="only 0 are visible"):  # its one pipeline stage
+        checkpoint_drill(0, 2)
     if shutil.which("nvcc") is None and not Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.build_all()
@@ -231,3 +244,61 @@ def test_wkv6_check_refuses_more_batch_heads_than_its_grid_holds():
     r = torch.empty((65536, 1, 1, 16), device="meta")
     with pytest.raises(ValueError, match="at most 65535 batch rows x heads"):
         wk_ops._check(r, r, r, r, u, None)
+
+
+def test_fleet_ranks_load_neither_torch_nor_jax():
+    """A rank spawns fast: ``import repro_torch.fleet`` and the worker module
+    load none of torch, JAX or the reference package (the control-plane
+    classes resolve lazily)."""
+    code = (
+        "import sys, runpy\n"
+        "import repro_torch.fleet\n"
+        "sys.argv = ['worker', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.fleet.worker', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "assert 'numpy' in sys.modules and 'repro_torch.fleet.worker' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--max-steps" in out.stdout
+    out = subprocess.run([sys.executable, "-c", "import sys, repro_torch.fleet; "
+                          "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+                          "('torch', 'numpy', 'jax', 'repro')))"],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", (out.stdout, out.stderr)
+
+
+def test_fleet_launcher_spawns_the_ports_worker(tmp_path, monkeypatch):
+    """``run_fleet``'s ranks run ``-m repro_torch.fleet.worker`` with the
+    checkout's ``src`` on their ``PYTHONPATH``."""
+    from repro_torch.fleet import launch
+
+    spawned = []
+
+    class _Proc:
+        def __init__(self, cmd, env, stdout, stderr):
+            spawned.append((cmd, env))
+
+        def send_signal(self, sig):
+            pass
+
+        def wait(self, timeout=None):
+            return 0
+
+    monkeypatch.setattr(launch.subprocess, "Popen", _Proc)
+    summary = launch.run_fleet(launch.FleetSettings(
+        hosts=2, steps=2, poll_interval_s=0.0, liveness_timeout_s=60.0,
+        rendezvous=str(tmp_path / "rdzv"), join_at=[(1, 5)]))
+    assert summary["epoch"] == 1 and summary["finals"] == {}
+    assert len(spawned) == 3
+    for cmd, env in spawned:
+        assert cmd[1:3] == ["-m", "repro_torch.fleet.worker"]
+        assert str(ROOT / "src") in env["PYTHONPATH"].split(os.pathsep)
+    assert spawned[-1][0][-1] == "--join" and spawned[-1][0][cmd.index("--host") + 1] == "5"
