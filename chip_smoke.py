@@ -286,6 +286,27 @@ caught):
     a join at poll 6 and a SIGKILL at poll 18 whose join and leave (rank 0,
     after poll 18) are ``ADAPT/fleet::*`` rows and whose epoch, joins and
     leaves move between the first and the last scraped page.
+28. sharded training (``_dist_train_phase``): the five training kernels at
+    a rank's local shapes (flash B=2 S=T=1024, 16/4 heads of 64 causal
+    bf16; RMSNorm (2048, 2048)), held and timed as in phase 26; the
+    unsharded kernel path's loss-and-gradient step from phase 8's weights
+    and batch, saved to the host; DTensor's own all-gather on the card
+    over gloo in 2 ranks with nothing routed (its outcome printed); then
+    4 ranks on the card (``dist.spawn.run_ranks``, gloo, each capped at
+    DIST_MEMORY_FRACTION of the card) on a (2, 2) ("data", "model")
+    ``DeviceMesh``: the five collectives through DTensor on bf16 and f32
+    tensors over "data" (routed through the process group,
+    ``dist.collectives``), then (a) "tp" and (b) "tp+fsdp":
+    ``run_training`` at full width with ``mesh_shape=(2, 2)``, 3 steps of
+    phase 8's schedule, each rank's launches exactly phase 8's per-step
+    counts x 3, the losses at TRAIN_RTOL of phase 8's first three; one
+    sharded loss-and-gradient step whose gathered leaves are held to the
+    unsharded step at LEAF_RTOL (its loss at TRAIN_RTOL); after (a)
+    ``cross_pod_mean_compressed`` over "data" on each rank's own part of
+    that gradient against the mean of the ranks' dequantized payloads.
+    It prints each rank's peak memory and time in collectives (the
+    ``dist/collective/*`` timers), the median step, the card's name and
+    power limit, and that 4 ranks share one card over gloo.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -2029,12 +2050,23 @@ def _pipeline_kernels_phase(torch, F, K, gen):
     bf16; RMSNorm rows of 1024 x 2048), held against their plain versions
     and timed as phases 2, 3, 6 and 7 time theirs.  Returns ``{kernel:
     row}``."""
+    return _training_kernels_rows(torch, F, K, gen, 1, (32, 8), "[pipeline kernels]",
+                                  "at one microbatch")
+
+
+def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where):
+    """The five training kernels at llama3.2-1b's shapes for a batch of
+    ``b`` x TRAIN_SEQ and ``heads`` (q, KV) heads of 64, causal bf16, and
+    RMSNorm rows of ``b`` x TRAIN_SEQ x 2048: held against their plain
+    versions and timed as phases 2, 3, 6 and 7 time theirs.  Returns
+    ``{kernel: row}``."""
     fa_ops, rn_ops = K.fa, K.rn
-    s, (h, kv, hd), d = TRAIN_SEQ, (32, 8, 64), 2048
-    q = torch.randn((1, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
-    k, v = (torch.randn((1, s, kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    s, (h, kv), hd, d = TRAIN_SEQ, heads, 64, 2048
+    n = b * s
+    q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
             for _ in range(2))
-    do = torch.randn((1, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    do = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
     out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=None)
     ref_out, _ = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -2043,9 +2075,9 @@ def _pipeline_kernels_phase(torch, F, K, gen):
     dk, dv = fa_ops.flash_bwd_dkv(*args, causal=True, window=None)
     ref_dq = fa_ops.flash_bwd_dq_plain(*args, causal=True, window=None)
     ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(*args, causal=True, window=None)
-    x = torch.randn((s, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    x = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
     w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=DEVICE)).to(torch.bfloat16)
-    dy = torch.randn((s, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    dy = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)
     y = rn_ops.rms_norm_fused(x, w, 1e-5)
     dx, dw = rn_ops.rms_norm_bwd(x, w, dy, 1e-5)
     ref_y = rn_ops.rms_norm_plain(x, w, 1e-5)
@@ -2058,7 +2090,7 @@ def _pipeline_kernels_phase(torch, F, K, gen):
                          (dw, ref_dw, DW_TOL["bfloat16"])):
         torch.testing.assert_close(got.float(), want.float(), atol=t, rtol=t)
     nbytes = lambda *xs: sum(t.numel() * t.element_size() for t in xs)  # noqa: E731
-    pairs = s * (s + 1) // 2
+    pairs = b * s * (s + 1) // 2
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
@@ -2066,7 +2098,7 @@ def _pipeline_kernels_phase(torch, F, K, gen):
                                                               retain_graph=True))
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     yl = F.rms_norm(xl, (d,), wl, 1e-5)
-    attn, norm = f"B=1 S=T={s} 32/8 heads of 64 causal bf16", f"({s}, {d}) bf16"
+    attn, norm = f"B={b} S=T={s} {h}/{kv} heads of 64 causal bf16", f"({n}, {d}) bf16"
     cases = [
         ("flash_fwd", attn, err(out, ref_out), lambda: fa_ops.flash_fwd(q, k, v, causal=True),
          lambda: fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None),
@@ -2083,12 +2115,12 @@ def _pipeline_kernels_phase(torch, F, K, gen):
         ("rmsnorm_fwd", norm, err(y, ref_y), lambda: rn_ops.rms_norm_fused(x, w, 1e-5),
          lambda: rn_ops.rms_norm_plain(x, w, 1e-5),
          _device_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-5)),
-         2 * nbytes(x) + nbytes(w), 4.0 * s * d, "f32"),
+         2 * nbytes(x) + nbytes(w), 4.0 * n * d, "f32"),
         ("rmsnorm_bwd", norm, max(err(dx, ref_dx), err(dw, ref_dw)),
          lambda: rn_ops.rms_norm_bwd(x, w, dy, 1e-5),
          lambda: rn_ops.rms_norm_bwd_plain(x, w, dy, 1e-5),
          _device_ms(torch, lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)),
-         3 * nbytes(x) + nbytes(w) + 4 * d, 10.0 * s * d, "f32"),
+         3 * nbytes(x) + nbytes(w) + 4 * d, 10.0 * n * d, "f32"),
     ]
     rows = {}
     for name, shape, e, fn, plain, library_ms, moved, flops, peak in cases:
@@ -2096,7 +2128,7 @@ def _pipeline_kernels_phase(torch, F, K, gen):
         bound_ms, bound_by = _bound_ms(moved, flops, peak)
         rows[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
-        _print(f"[pipeline kernels] {name} at one microbatch, {shape}: max_abs_err={e:.3e} "
+        _print(f"{tag} {name} {where}, {shape}: max_abs_err={e:.3e} "
                f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
                f"({bound_by}) library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)}")
     return rows
@@ -2445,6 +2477,305 @@ def _soak_phase(torch, K):
     return launches
 
 
+# phase 28: llama3.2-1b on a ("data", "model") DeviceMesh of DIST_MESH
+# processes sharing the card (gloo), (a) "tp" and (b) "tp+fsdp", DIST_STEPS
+# steps of phase 8's 6-step schedule at its batch x seq; each rank capped at
+# DIST_MEMORY_FRACTION of the card, its allocator on expandable segments
+# (development runs on the card: under a cap of 0.22 without expandable
+# segments a rank ran out with 13.04 GiB allocated and 3.95 GiB reserved but
+# free; with them, at 0.23, the peaks were 15.054 GB a rank under "tp" and
+# 17.658-18.732 GB under "tp+fsdp")
+DIST_MESH, DIST_STEPS, DIST_MEMORY_FRACTION = (2, 2), 3, 0.235
+DIST_ALLOC_CONF = "expandable_segments:True"
+DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
+DIST_NOTE = f"{DIST_RANKS} ranks sharing one card, gloo; not a multi-card number"
+
+
+def _probe_cases(torch, mesh, rank, world):
+    """The five collectives the sharded step needs, through DTensor on
+    bf16 and f32 tensors on the card over the 1-D ``mesh``: {case: (result,
+    functional calls routed)}; each result held against the value computed
+    on one rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist import collectives
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator().manual_seed(SEED)
+        full = torch.randn((world * 4, world * 8), generator=gen).to(dtype)
+        parts = [torch.randn(full.shape, generator=gen).to(dtype) for _ in range(world)]
+        total = sum(p.float() for p in parts).to(dtype)
+        dev = lambda t: t.to(DEVICE)  # noqa: E731
+        mine = DTensor.from_local(dev(parts[rank]), mesh, [Partial()], run_check=False)
+        shard = DTensor.from_local(dev(full.chunk(world)[rank]), mesh, [Shard(0)],
+                                   run_check=False)
+        cases = {
+            "all_reduce": (lambda: mine.redistribute(mesh, [Replicate()]), total),
+            "all_gather": (lambda: shard.redistribute(mesh, [Replicate()]), full),
+            "reduce_scatter": (lambda: mine.redistribute(mesh, [Shard(0)]),
+                               total.chunk(world)[rank]),
+            "broadcast": (lambda: distribute_tensor(dev(full if rank == 0 else 0 * full), mesh,
+                                                    [Replicate()]), full),
+            "all_to_all": (lambda: shard.redistribute(mesh, [Shard(1)]),
+                           full.chunk(world, 1)[rank]),
+        }
+        for name, (fn, want) in cases.items():
+            before = dict(collectives.COUNTS)
+            got = fn().to_local()
+            torch.cuda.synchronize()
+            ok = torch.allclose(got.float().cpu(), want.float(), rtol=1e-2, atol=1e-2)
+            routed = sum(collectives.COUNTS[k] - before[k] for k in before)
+            out[f"{name}/{_dtype_name(dtype)}"] = ("ok" if ok else "wrong", routed)
+    return out
+
+
+def _native_all_gather_rank(rank, world):
+    """DTensor's own all-gather (Shard(0) -> Replicate) on a bf16 tensor on
+    the card, with nothing routed (the mesh is built directly)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    full = torch.arange(world * 8, dtype=torch.bfloat16).reshape(world * 4, 2)
+    local = full.chunk(world)[rank].to(DEVICE)
+    got = DTensor.from_local(local, mesh, [Shard(0)], run_check=False).redistribute(
+        mesh, [Replicate()]).to_local()
+    return bool(torch.equal(got.cpu(), full))
+
+
+def _dist_rank(rank, world, ref_path, log_dir):
+    """One rank of phase 28: the routed collectives' check, then for each
+    preset ``run_training`` (DIST_STEPS steps, the launches counted), one
+    loss-and-gradient step of the sharded path, gathered and (rank 0) held
+    leaf by leaf against the unsharded step's gradient saved at
+    ``ref_path``, and after "tp" the compressed cross-pod mean over "data".
+    Returns what the parent prints and holds."""
+    import types
+
+    import torch
+
+    from repro_torch.core import TimerLogger
+    from repro_torch.core.clocks import reset_default_clocks
+    from repro_torch.core.params import reset_param_registry
+    from repro_torch.core.timers import reset_timer_db
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.context import use_sharding
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.dist.sharding import Axes, distribute_tree
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import compression
+    from repro_torch.timing import TimingSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_per_process_memory_fraction(DIST_MEMORY_FRACTION)
+    K = types.SimpleNamespace(fa=fa, rn=rn)
+    counters = COUNTERS[:5]  # the flash and RMSNorm kernels
+    mesh = device_mesh(DIST_MESH, ("data", "model"), DEVICE, allow_shared_card=True)
+    out = {"probe": _probe_cases(torch, mesh["data"], mesh.get_local_rank(0), DIST_MESH[0]),
+           "runs": {}}
+    ref = torch.load(ref_path, mmap=True, weights_only=True) if rank == 0 else None
+    for preset in ("tp", "tp+fsdp"):
+        run = {}
+        cfg = _train_cfg("llama3.2-1b").replace(sharding=preset)
+        reset_timer_db()
+        reset_param_registry()
+        reset_default_clocks()
+        log_path = os.path.join(log_dir, f"{preset}.jsonl")
+        settings = TrainSettings(
+            arch="llama3.2-1b", smoke=False, steps=DIST_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED, report_every=0, log_path=log_path,
+            device=DEVICE, lr_total_steps=TRAIN_STEPS, mesh_shape=DIST_MESH,
+            allow_shared_card=True)
+        sess = TimingSession()
+        torch.cuda.reset_peak_memory_stats()
+        for name, mod, attr in counters:
+            setattr(getattr(K, mod), attr, 0)
+        t0 = time.perf_counter()
+        summary = run_training(settings, cfg=cfg, session=sess)
+        torch.cuda.synchronize()
+        run["wall_s"] = time.perf_counter() - t0
+        run["launches"] = {name: getattr(getattr(K, mod), attr) for name, mod, attr in counters}
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["mesh"] = summary["mesh"]
+        if rank == 0:
+            records = TimerLogger(log_path, sess.db).read_all()
+            run["losses"] = [r["extra"]["loss"] for r in records]
+            cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
+            run["step_s"] = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+        del sess, summary
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one loss-and-gradient step of the sharded path, from phase 8's weights and batch
+        rules = ST.rules_for(cfg)
+        params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        params = distribute_tree(params, M.param_axes(cfg), mesh, rules)
+        data = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+                                           seed=SEED), arch=cfg).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+        axes = {k: Axes(v) for k, v in ST.batch_axes(cfg, "train").items()}
+        with use_sharding(mesh, rules):
+            grads, metrics = ST._grads(cfg, params, distribute_tree(batch, axes, mesh, rules))
+            run["loss"] = metrics["loss"].full_tensor().item()
+            if preset == "tp":
+                # each rank's own part of the gradient (its batch rows) over "data"
+                own = tree_map(lambda g: g.to_local(), grads)
+                ef = compression.ef_init(own)
+                mean, _ = compression.cross_pod_mean_compressed(own, ef, axis_name="data")
+                q, sc, _ = compression.ef_quantize(own, ef)
+                group = mesh.get_group("data")
+                err = 0.0
+                for qq, ss, got in zip(tree_leaves(q), tree_leaves(sc), tree_leaves(mean)):
+                    dq = qq.float() * ss  # this rank's dequantized payload
+                    every = [torch.empty_like(dq) for _ in range(DIST_MESH[0])]
+                    torch.distributed.all_gather(every, dq, group=group)
+                    plain = torch.stack(every).sum(0) / DIST_MESH[0]
+                    err = max(err, ((got - plain).abs().max() / plain.abs().max().clamp_min(
+                        1e-30)).item())
+                run["compressed_mean_err"] = err
+                run["compressed_leaves"] = len(tree_leaves(own))
+                del own, ef, mean, q, sc
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                             grads, params)
+        del params
+        rel = {}
+        for (name, g) in _named_leaves(grads):
+            full = g.full_tensor()  # a collective: every rank gathers every leaf
+            if rank == 0:
+                want = ref[name].to(DEVICE).float()
+                rel[name] = ((full.float() - want).norm() / want.norm()).item()
+            del full
+        run["grad_rel"] = rel
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["runs"][preset] = run
+    return out
+
+
+def _dist_train_phase(torch, F, K, gen, train_losses):
+    """Phase 28: full-width llama3.2-1b trained on a ("data", "model") mesh
+    of DIST_RANKS processes sharing the card (module docstring).  Returns
+    the kernels' rows at a rank's local shapes and rank 0's launches."""
+    from repro_torch.dist.collectives import COLLECTIVES
+    from repro_torch.dist.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    tag = "[dist]"
+    smi = _smi()
+    # a rank's local shapes: batch TRAIN_BATCH / data, heads / model
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.models import model as M
+
+    cfg = _train_cfg("llama3.2-1b")
+    local_batch = TRAIN_BATCH // DIST_MESH[0]
+    heads = (cfg.n_heads // DIST_MESH[1], cfg.n_kv_heads // DIST_MESH[1])
+    rows = _training_kernels_rows(torch, F, K, gen, local_batch, heads, "[dist kernels]",
+                                  "at a rank's local shards")
+    _free(torch)
+    # the unsharded step's gradient (phase 8's kernel path, weights and batch)
+    per_step = _per_step_launches(cfg)
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+                                       seed=SEED), arch=cfg).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    loss_ref, gn_ref, grads = _loss_and_grads(torch, cfg, params, batch)
+    names = [name for name, _ in _named_leaves(params)]
+    with tempfile.TemporaryDirectory(dir=_ckpt_root()) as tmp:
+        ref_path = os.path.join(tmp, "unsharded_grads.pt")
+        torch.save({name: g.cpu() for name, g in zip(names, grads)}, ref_path)
+        del params, batch, grads
+        _free(torch)
+        # DTensor's own all-gather on the card over gloo, nothing routed
+        try:
+            native = "ok" if run_ranks(_native_all_gather_rank, 2, device=DEVICE)[0] else "wrong"
+        except RuntimeError as exc:  # the probe's finding, printed, not the path's
+            native = "failed: " + str(exc.__cause__ or exc).strip().splitlines()[-1][:120]
+        _print(f"{tag} step 0, DTensor's own all-gather (Shard(0) -> Replicate) on a bf16 "
+               f"tensor on the card, 2 ranks over gloo, nothing routed: {native}")
+        t1 = time.perf_counter()
+        kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF  # read by each rank's allocator
+        try:
+            results = run_ranks(_dist_rank, DIST_RANKS, ref_path, tmp, device=DEVICE)
+        finally:
+            if kept is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+        ranks_s = time.perf_counter() - t1
+    lead = results[0]
+    for case, (result, routed) in lead["probe"].items():
+        _print(f"{tag} step 0, {case:26s} through DTensor over 'data' on the card: {result}, "
+               f"{routed} functional call(s) routed through the process group (gloo)")
+        assert result == "ok", (case, result)
+    launches = {}
+    for preset, run in lead["runs"].items():
+        label = f"{tag} ({'a' if preset == 'tp' else 'b'}) {preset}"
+        want = {k: v * DIST_STEPS for k, v in per_step.items() if k in run["launches"]}
+        for rank, r in enumerate(results):
+            got = r["runs"][preset]
+            assert got["launches"] == want, (rank, preset, got["launches"], want)
+            coll = got["mesh"]["collective_seconds"]
+            calls, moved = got["mesh"]["collective_calls"], got["mesh"]["collective_bytes"]
+            _print(f"{label} rank {rank}: launches {got['launches']} (phase 8's per step x "
+                   f"{DIST_STEPS}); peak memory {got['peak_gb']:.3f} GB (cap "
+                   f"{DIST_MEMORY_FRACTION} of the card); collectives from the timers "
+                   f"{sum(coll.values()):.3f} s "
+                   f"{ {k: round(v, 4) for k, v in coll.items() if calls[k]} } over "
+                   f"{ {k: v for k, v in calls.items() if v} } calls of "
+                   f"{ {k: round(v / 1e9, 4) for k, v in moved.items() if v} } GB; {smi}; "
+                   f"{DIST_NOTE}")
+            assert set(calls) == set(COLLECTIVES), calls
+        launches[preset] = run["launches"]
+        losses, ref = run["losses"], train_losses[:DIST_STEPS]
+        for a, b in zip(losses, ref):
+            assert abs(a - b) <= TRAIN_RTOL * abs(b), (preset, losses, ref)
+        assert abs(run["loss"] - loss_ref) <= TRAIN_RTOL * abs(loss_ref), (run["loss"], loss_ref)
+        rel = run["grad_rel"]
+        worst = max(rel, key=rel.get)
+        assert sorted(rel) == sorted(names) and rel[worst] < LEAF_RTOL, rel
+        step_s = run["step_s"]
+        median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        _print(f"{label}: full-width llama3.2-1b ({cfg.n_layers} layers, nothing cut), bf16, "
+               f"remat dots, batch {TRAIN_BATCH} x {TRAIN_SEQ} over a {DIST_MESH} "
+               f"('data', 'model') mesh ({heads[0]}/{heads[1]} heads and batch {local_batch} "
+               f"a rank): losses {[round(x, 5) for x in losses]} vs phase 8's "
+               f"{[round(x, 5) for x in ref]} (TRAIN_RTOL {TRAIN_RTOL}); step_s "
+               f"{[round(x, 4) for x in step_s]} median_s(steps 2-{DIST_STEPS})={median_s:.4f}; "
+               f"one sharded loss-and-gradient step vs the unsharded kernel path: loss "
+               f"{run['loss']:.6f} vs {loss_ref:.6f}, worst of {len(rel)} gathered leaves "
+               f"{rel[worst]:.3e} ({worst}; LEAF_RTOL {LEAF_RTOL}), median "
+               f"{sorted(rel.values())[len(rel) // 2]:.3e}; wall_s {run['wall_s']:.2f}; {smi}; "
+               f"{DIST_NOTE}")
+    err = lead["runs"]["tp"]["compressed_mean_err"]
+    assert err <= 1e-6, err
+    _print(f"{tag} (a) cross_pod_mean_compressed over 'data' on each rank's own part of step "
+           f"1's gradient ({lead['runs']['tp']['compressed_leaves']} leaves, int8 payload and "
+           f"f32 scales all-gathered): largest difference from the mean of the ranks' "
+           f"dequantized payloads {err:.3e} of the leaf's largest value (limit 1e-6)")
+    _print(f"[dist] phase 28 took {time.perf_counter() - t0:.1f} s ({ranks_s:.1f} s in the "
+           f"{DIST_RANKS} ranks); {smi}; {DIST_NOTE}")
+    total = {k: launches["tp"][k] + launches["tp+fsdp"][k] for k in launches["tp"]}
+    return rows, total
+
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def _setup(torch):
     """Phase 1: print the card and its power limit, build and load the
     kernels; returns their wrapper modules.  One phase alone runs as
@@ -2459,10 +2790,7 @@ def _setup(torch):
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rwkv6 import ops as wk_ops
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    smi = _smi()
     _print(smi)
     _print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
            f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2555,6 +2883,10 @@ def main() -> int:
     # the serving soak at full width under its live /metrics scrape, the
     # training soak, the fault drills, and real multi-process fleets
     soak_launches = _soak_phase(torch, K)
+    _free(torch)
+    # full-width llama3.2-1b sharded over a (2, 2) DeviceMesh of 4 processes
+    # sharing the card, under "tp" and "tp+fsdp"
+    dist_rows, dist_launches = _dist_train_phase(torch, F, K, gen, train_losses)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -2580,7 +2912,10 @@ def main() -> int:
     # launches of (a)'s 4 steps and of (b)'s one equal-plan call; the
     # kernels at one microbatch's shapes, B=1 x 1024 and 1024 RMSNorm rows);
     # under "soak", phase 27's serving soak (its launches; the kernels at its
-    # longest prefill, S=T=15 and 15 RMSNorm rows)
+    # longest prefill, S=T=15 and 15 RMSNorm rows); under "dist_train", phase
+    # 28's sharded training (rank 0's launches over its two runs; the
+    # kernels at a rank's local shapes, B=2 x 1024 with 16/4 heads and 2048
+    # RMSNorm rows)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -2599,6 +2934,7 @@ def main() -> int:
     enc_tr = lambda name, row: dict(launches=encdec_train_launches[name], **pick(row))  # noqa: E731
     pipe = lambda name: {path: dict(launches=n[name], **pick(pipe_rows[name]))  # noqa: E731
                          for path, n in pipe_launches.items()}
+    dist = lambda name: dict(launches=dist_launches[name], **pick(dist_rows[name]))  # noqa: E731
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -2626,7 +2962,8 @@ def main() -> int:
              encdec=dict(launches=encdec_launches["flash_fwd"], **pick(_role(flash, "encdec"))),
              encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train")),
              **pipe("flash_fwd"),
-             soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak")))),
+             soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak"))),
+             dist_train=dist("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -2637,7 +2974,7 @@ def main() -> int:
              vlm_train=vlm_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dq",
                                  _role(flash_bwd["flash_bwd_dq"], "encdec_train")),
-             **pipe("flash_bwd_dq")),
+             **pipe("flash_bwd_dq"), dist_train=dist("flash_bwd_dq")),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
@@ -2648,7 +2985,7 @@ def main() -> int:
              vlm_train=vlm_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dkv",
                                  _role(flash_bwd["flash_bwd_dkv"], "encdec_train")),
-             **pipe("flash_bwd_dkv")),
+             **pipe("flash_bwd_dkv"), dist_train=dist("flash_bwd_dkv")),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -2663,7 +3000,8 @@ def main() -> int:
              encdec=dict(launches=encdec_launches["rmsnorm_fwd"], **pick(fwd_encdec)),
              encdec_train=enc_tr("rmsnorm_fwd", fwd_1024), **pipe("rmsnorm_fwd"),
              soak=dict(launches=soak_launches["rmsnorm_fwd"],
-                       **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16")))),
+                       **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16"))),
+             dist_train=dist("rmsnorm_fwd")),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
@@ -2671,7 +3009,8 @@ def main() -> int:
              ssm_train=ssm("rmsnorm_bwd", bwd_2048), hybrid_train=hyb("rmsnorm_bwd", bwd_4096),
              moe_train=moe_tr("rmsnorm_bwd", bwd_2048),
              vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144),
-             encdec_train=enc_tr("rmsnorm_bwd", bwd_1024), **pipe("rmsnorm_bwd")),
+             encdec_train=enc_tr("rmsnorm_bwd", bwd_1024), **pipe("rmsnorm_bwd"),
+             dist_train=dist("rmsnorm_bwd")),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -13,6 +13,13 @@ straggler-response controller when a host is pulled from the fleet.
 
 Only a :class:`Mesh` built explicitly may repeat a device (several ranks
 sharing one card); ``local_mesh`` never does so on ``"cuda"``.
+
+``device_mesh`` is the multi-process counterpart: a ``DeviceMesh`` over the
+initialized default process group, one rank a position, which the sharded
+training step runs on (``dist.sharding`` resolves each tensor's placements on
+it).  It keeps ``local_mesh``'s rule: one card a rank, unless the caller lets
+ranks share a card (``allow_shared_card``); ranks that share a card talk over
+gloo, and their collectives are routed (``dist.collectives``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "local_mesh", "default_axis_names", "pipeline_submeshes", "remove_host"]
+__all__ = ["Mesh", "local_mesh", "device_mesh", "init_process_group", "default_axis_names",
+           "pipeline_submeshes", "remove_host"]
 
 _AXIS_NAMES_BY_RANK = {
     1: ("data",),
@@ -104,6 +112,76 @@ def local_mesh(
     else:
         raise ValueError(f"local_mesh places ranks on 'cuda' or 'cpu', got {device!r}")
     return Mesh(np.asarray(devices, dtype=object).reshape(shape), names)
+
+
+def init_process_group(device: str = "cuda", **kwargs) -> str:
+    """Initialize the default process group from the environment (``env://``:
+    ``torchrun`` sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``; ``kwargs`` go to ``torch.distributed.init_process_group``,
+    e.g. ``init_method``, ``rank`` and ``world_size``).  The backend is NCCL
+    for ranks with a card each, gloo for ranks that share a card or run on
+    the host.  Returns the backend."""
+    import os
+
+    import torch.distributed as dist
+
+    world = int(kwargs.get("world_size", os.environ.get("WORLD_SIZE", "1")))
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 0
+    backend = "nccl" if 0 < world <= cards else "gloo"
+    dist.init_process_group(backend, **kwargs)
+    return backend
+
+
+def device_mesh(
+    mesh_shape: Sequence[int],
+    axis_names: Sequence[str] | None = None,
+    device: str = "cuda",
+    *,
+    allow_shared_card: bool = False,
+):
+    """A ``DeviceMesh`` of ``mesh_shape`` over the initialized default process
+    group, whose world size must be ``prod(mesh_shape)``; rank ``r`` takes
+    position ``r`` in row-major order.
+
+    On ``"cuda"`` rank ``r`` computes on card ``r % device_count`` (made its
+    current device here); more ranks than cards raise unless
+    ``allow_shared_card``.  A process group on gloo (ranks sharing a card,
+    or any CPU mesh) has its functional collectives routed, counted and
+    timed for ``device`` tensors (``dist.collectives.route_collectives``).
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .collectives import route_collectives
+
+    shape = tuple(int(s) for s in mesh_shape)
+    if not shape or any(s < 1 for s in shape):
+        raise ValueError(f"mesh_shape must be non-empty positive ints, got {mesh_shape!r}")
+    names = tuple(axis_names) if axis_names is not None else default_axis_names(len(shape))
+    if len(names) != len(shape):
+        raise ValueError(f"axis_names {names} does not match mesh_shape {shape}")
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialized default process group "
+                           "(torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"mesh_shape {shape} holds {math.prod(shape)} ranks but the process "
+                         f"group has {world}")
+    kind = torch.device(device).type
+    if kind == "cuda":
+        visible = torch.cuda.device_count()
+        if world > visible and not allow_shared_card:
+            raise ValueError(
+                f"mesh_shape {shape} needs {world} cards but only {visible} are visible; "
+                f"pass allow_shared_card=True to let ranks share a card (over gloo)")
+        if not visible:
+            raise ValueError("device_mesh on 'cuda' needs a CUDA device; none is visible")
+        torch.cuda.set_device(dist.get_rank() % visible)
+    elif kind != "cpu":
+        raise ValueError(f"device_mesh places ranks on 'cuda' or 'cpu', got {device!r}")
+    if dist.get_backend() == "gloo":
+        route_collectives(kind)
+    return init_device_mesh(kind, shape, mesh_dim_names=names)
 
 
 def remove_host(mesh: Mesh, index: int, axis: str | None = None) -> Mesh:

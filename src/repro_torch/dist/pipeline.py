@@ -60,6 +60,7 @@ import torch
 
 from ..models.layers import tree_leaves, tree_map
 from .meshutil import Mesh, pipeline_submeshes
+from .sharding import PartitionSpec
 
 __all__ = [
     "MicrobatchPlan",
@@ -460,6 +461,26 @@ class _Call:
     stash_peak: int = 0   # most stage inputs one rank held at once
 
 
+def _check_stage_spec(stage_spec: Any, axis: str) -> Any:
+    """``stage_spec`` (``P(axis)`` when None) after checking every leaf's
+    entries: the slot dimension on ``axis``, nothing else sharded."""
+    if stage_spec is None:
+        return PartitionSpec(axis)
+    for spec in tree_leaves(stage_spec):
+        entries = tuple(spec)
+        if not entries or entries[0] != axis:
+            raise ValueError(f"stage_spec leaf {spec!r}: the leading (slot) entry must be "
+                             f"the pipeline axis {axis!r}")
+        if any(e is not None for e in entries[1:]):
+            raise NotImplementedError(
+                f"stage_spec leaf {spec!r} shards a stage parameter over an inner mesh "
+                f"axis: the stage body computes on whole stage parameters, and the "
+                f"reference's stage body is not collective-aware either "
+                f"(src/repro/models/pipeline.py stage_param_specs); pipeline over a "
+                f"pod-only mesh, where every inner entry drops")
+    return stage_spec
+
+
 class PipelineStep:
     """Reusable 1F1B pipeline train step over one mesh axis.
 
@@ -504,8 +525,13 @@ class PipelineStep:
         each segment synchronizes the card before its context closes, so a
         scope times the phase's device work, not just its dispatch.
     stage_spec:
-        Per-stage tensor-parallel/FSDP sharding over the mesh's inner axes:
-        not yet ported (raises).
+        ``PartitionSpec`` tree (``models.pipeline.stage_param_specs``) of the
+        packed stage parameters: every leaf's leading entry must be the
+        pipeline ``axis``.  Defaults to ``P(axis)`` (stage-sharded, otherwise
+        replicated).  A spec whose trailing entries shard a parameter over
+        the mesh's inner axes raises ``NotImplementedError``: the stage body
+        computes on whole stage parameters, and the reference's is not
+        collective-aware either.
     """
 
     def __init__(
@@ -528,12 +554,7 @@ class PipelineStep:
             )
         if loss_fn is None and last_fn is None:
             raise ValueError("loss_fn may only be None when last_fn is given")
-        if stage_spec is not None:
-            raise NotImplementedError(
-                "stage_spec (per-stage tensor-parallel/FSDP sharding of the "
-                "stage parameters) is not yet ported (ROADMAP Queue 1 item 6, "
-                "dist/sharding.py)"
-            )
+        self.stage_spec = _check_stage_spec(stage_spec, axis)
         self.layer_fn = layer_fn
         self.loss_fn = loss_fn
         self.first_fn = first_fn

@@ -126,9 +126,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
+def on_cuda(*tensors: torch.Tensor, kernel: str = "kernel") -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; anything else (mixed, or another device) raises."""
+    lies on the CPU; anything else (mixed, or another device) raises.  A
+    ``DTensor`` raises ``TypeError`` naming ``kernel``: a kernel takes a
+    rank's plain local shard (``models.blocks`` hands it one), never the
+    distributed tensor, whose ``data_ptr`` would be no shard's."""
+    from ..dist.context import is_dtensor
+
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{kernel}: got a DTensor; pass each rank's local shard "
+                        f"(DTensor.to_local) to the kernel wrapper")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True

@@ -319,7 +319,7 @@ def flash_fwd(
     window: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B,S,H,hd), k/v (B,T,KV,hd) -> (out (B,S,H,hd), lse (B,H,S) f32)."""
-    if not build.on_cuda(q, k, v):
+    if not build.on_cuda(q, k, v, kernel="flash_fwd"):
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     b, s, h, hd = q.shape
@@ -374,7 +374,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, window: int | None = None):
     """dq (B,S,H,hd) from q, do (B,S,H,hd), k/v (B,T,KV,hd) and f32 lse and
     delta (B,H,S): the dq kernel on CUDA tensors, its plain version on CPU."""
-    if not build.on_cuda(q, k, v, do, lse, delta):
+    if not build.on_cuda(q, k, v, do, lse, delta, kernel="flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal, window=window)
     _check(q, k, v, window, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -391,7 +391,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, window: int |
     tensors, its plain version on CPU.  One counted call is one launch, or
     two where :func:`dkv_plan` splits the group (the split kernel into an f32
     workspace, then its sum in split order: the same bits on every run)."""
-    if not build.on_cuda(q, k, v, do, lse, delta):
+    if not build.on_cuda(q, k, v, do, lse, delta, kernel="flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal, window=window)
     _check(q, k, v, window, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -408,7 +408,7 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True, window: int | None 
     """(dq, dk, dv) from the forward's q, k, v, out, lse and the output
     gradient ``do``: delta in f32, then the dq and dkv kernels (their plain
     versions on CPU tensors)."""
-    if not build.on_cuda(q, k, v, out, lse, do):
+    if not build.on_cuda(q, k, v, out, lse, do, kernel="flash_bwd"):
         return flash_bwd_plain(q, k, v, out, lse, do, causal=causal, window=window)
     if do.stride(-1) != 1:
         do = do.contiguous()

@@ -147,7 +147,7 @@ def rglru_fwd(
     """a, b (B, S, D); h0 (B, D) f32 or None -> (y (B, S, D) in a's dtype,
     final state (B, D) f32): the kernel on CUDA tensors, its plain version on
     CPU tensors."""
-    if not build.on_cuda(a, b, *(() if h0 is None else (h0,))):
+    if not build.on_cuda(a, b, *(() if h0 is None else (h0,)), kernel="rglru_fwd"):
         return rglru_fwd_plain(a, b, h0)
     return _RGLRUKernel.apply(a, b, h0)
 

@@ -115,7 +115,7 @@ def _check_rows(x2d: torch.Tensor, w: torch.Tensor, *more: torch.Tensor) -> None
 def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis, any leading shape: the forward kernel on
     CUDA tensors, its plain version on CPU tensors."""
-    if not build.on_cuda(x, w):
+    if not build.on_cuda(x, w, kernel="rmsnorm_fwd"):
         return rms_norm_plain(x, w, eps)
     d = x.shape[-1]
     x2d = x.reshape(-1, d)
@@ -138,7 +138,7 @@ def rms_norm_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dw f32) for x, dy (N, D) and w (D,): the backward
     kernel on CUDA tensors, its plain version on CPU tensors."""
-    if not build.on_cuda(x, w, dy):
+    if not build.on_cuda(x, w, dy, kernel="rmsnorm_bwd"):
         return rms_norm_bwd_plain(x, w, dy, eps)
     _check_rows(x, w, dy)
     n, d = x.shape

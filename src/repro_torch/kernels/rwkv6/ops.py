@@ -193,7 +193,8 @@ def wkv6_fwd(r, k, v, w, u, state=None) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/w (B,S,H,K), v (B,S,H,V), u (H,K) f32, state (B,H,K,V) f32 or
     None -> (y (B,S,H,V) in r's dtype, final state f32): the kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if not build.on_cuda(r, k, v, w, u, *(() if state is None else (state,))):
+    if not build.on_cuda(r, k, v, w, u, *(() if state is None else (state,)),
+                         kernel="wkv6_fwd"):
         return wkv6_fwd_plain(r, k, v, w, u, state)
     return _WKV6Kernel.apply(r, k, v, w, u, state)
 

@@ -1,10 +1,17 @@
-"""Step builders of the port: the training step and the 1F1B pipeline
-training steps, without sharding.
+"""Step builders of the port: the training step, sharded over a DeviceMesh
+or not, and the 1F1B pipeline training steps.
 
 The reference builds jitted, sharded steps with abstract inputs for AOT
 compilation; PyTorch runs eagerly, so the port's :class:`BuiltStep` holds a
-plain callable and the tokens it consumes per call.  The prefill and serve
-step builders come with a later slice (ROADMAP Queue 1).
+plain callable and the tokens it consumes per call.  Sharding follows the
+reference's logical axes: :func:`rules_for` picks a config's rule table,
+:func:`batch_axes` and ``models.model.param_axes`` annotate the inputs, and
+:func:`shardings_for` resolves them on a mesh.  A training step built with a
+``DeviceMesh`` distributes nothing itself: the launcher hands it DTensor
+params, optimizer state and batch laid out as those specs say, and the step
+runs the loss under the sharding context (``dist.context.use_sharding``), so
+the model's ``constrain`` calls and its kernel boundaries apply.  The
+prefill and serve step builders come with a later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -15,8 +22,10 @@ from typing import Any
 
 import torch
 
+from ..dist.context import is_dtensor, use_sharding
 from ..dist.meshutil import Mesh
 from ..dist.pipeline import PipelineStep, StagePlan
+from ..dist.sharding import DEFAULT_RULES, FSDP_RULES, ShardingRules, tree_shardings
 from ..models import model as M, pipeline as MP
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.layers import tree_leaves, tree_map
@@ -24,12 +33,45 @@ from ..optim import AdamWConfig, adamw_update, warmup_cosine
 from ..timing import timed
 
 __all__ = [
+    "rules_for",
+    "batch_axes",
+    "shardings_for",
     "BuiltStep",
     "PipelineBuiltStep",
     "make_train_step",
     "make_pipeline_train_step",
     "make_transformer_pipeline_train_step",
 ]
+
+
+def rules_for(cfg: ArchConfig, overrides: dict[str, Any] | None = None) -> ShardingRules:
+    """The config's rule table: ``FSDP_RULES`` under ``cfg.sharding ==
+    "tp+fsdp"``, else ``DEFAULT_RULES``; ``overrides`` replace entries."""
+    rules = FSDP_RULES if cfg.sharding == "tp+fsdp" else DEFAULT_RULES
+    if overrides:
+        rules = rules.with_overrides(**overrides)
+    return rules
+
+
+def batch_axes(cfg: ArchConfig, kind: str) -> dict[str, tuple]:
+    """Logical axes of each batch input."""
+    axes: dict[str, tuple] = {}
+    if kind in ("train",):
+        axes["tokens"] = ("batch", "seq")
+        axes["targets"] = ("batch", "seq")
+    elif kind == "prefill":
+        axes["tokens"] = ("batch", "seq")
+    if cfg.family == "vlm" and kind in ("train", "prefill"):
+        axes["patch_embeds"] = ("batch", None, None)
+    if cfg.family == "encdec" and kind in ("train", "prefill"):
+        axes["src_frames"] = ("batch", "seq", None)
+    return axes
+
+
+def shardings_for(axes_tree_, shape_tree, mesh, rules: ShardingRules):
+    """``PartitionSpec`` of every leaf of an axes tree against a matching tree
+    of shapes (``dist.sharding.tree_shardings``)."""
+    return tree_shardings(axes_tree_, shape_tree, mesh, rules)
 
 
 @dataclass
@@ -64,40 +106,66 @@ def make_train_step(
     warmup_steps: int = 100,
     total_steps: int = 10000,
     accum_steps: int = 1,
+    mesh: Any = None,
+    rules: ShardingRules | None = None,
 ) -> BuiltStep:
     """``accum_steps > 1``: microbatched gradient accumulation — the global
     batch is split into microbatches run one after another and their f32
     gradients averaged; activation memory scales down by the factor while
     FLOPs per token are unchanged.  The learning rate is ``warmup_cosine`` of
-    the optimizer state's ``step``."""
+    the optimizer state's ``step``.
+
+    ``mesh``: a ``DeviceMesh`` of more than one rank makes this a sharded
+    step over DTensor params, state and batch (the module docstring), run
+    under ``use_sharding(mesh, rules)`` (``rules`` defaults to
+    :func:`rules_for`); each gradient is reduced to its parameter's
+    placements before the update, and the metrics come back as plain
+    tensors, the same on every rank.  Without one the step is the
+    unsharded step, unchanged."""
     opt_cfg = opt_cfg if opt_cfg is not None else AdamWConfig()
     if accum_steps < 1 or shape.global_batch % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} must divide the global batch "
                          f"{shape.global_batch}")
+    sharded = mesh is not None and getattr(mesh, "mesh_dim_names", None) is not None \
+        and mesh.size() > 1
+    rules = rules if rules is not None else rules_for(cfg)
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
+        g, m = _grads(cfg, params, batch)
+        if sharded:  # a Partial sum over the batch shards is reduced here
+            g = tree_map(lambda gg, p: gg.redistribute(p.device_mesh, p.placements), g, params)
+        return g, m
+
+    def step(params, opt_state, batch):
         lr = warmup_cosine(
             opt_state["step"], peak_lr=peak_lr, warmup_steps=warmup_steps,
             total_steps=total_steps,
         )
         if accum_steps > 1:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             per_micro = []
             for micro in range(accum_steps):
                 mb = {k: v.chunk(accum_steps, dim=0)[micro] for k, v in batch.items()}
-                g, m = _grads(cfg, params, mb)
+                g, m = grads_of(params, mb)
                 for acc, gg in zip(tree_leaves(grads), tree_leaves(g)):
                     acc.add_(gg.float() / accum_steps)
                 per_micro.append(m)
             metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
         else:
-            grads, metrics = _grads(cfg, params, batch)
+            grads, metrics = grads_of(params, batch)
         params, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state, lr)
         metrics = dict(metrics)
         metrics.update(stats)
         metrics["lr"] = lr
         return params, opt_state, metrics
+
+    def train_step(params, opt_state, batch):
+        if not sharded:
+            return step(params, opt_state, batch)
+        with use_sharding(mesh, rules):
+            params, opt_state, metrics = step(params, opt_state, batch)
+        plain = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
+        return params, opt_state, plain
 
     return BuiltStep(fn=train_step, tokens_per_call=shape.global_batch * shape.seq_len)
 
@@ -229,6 +297,7 @@ def make_transformer_pipeline_train_step(
     seed: int = 0,
     phase_cb: Any = None,
     device: str | torch.device = "cuda",
+    rules: ShardingRules | None = None,
 ) -> PipelineBuiltStep:
     """Build a 1F1B train step over the *real* transformer stack of ``cfg``.
 
@@ -240,6 +309,9 @@ def make_transformer_pipeline_train_step(
     ``first_fn``/``last_fn`` hooks, and the kernels selected by
     ``cfg.attn_impl``/``cfg.norm_impl`` dispatch inside the staged
     computation.  Params, optimizer state and batches live on ``device``.
+    Stage-parameter specs compose the pipeline axis with ``rules``
+    (``rules_for(cfg)`` by default; ``models.pipeline.stage_param_specs``):
+    on a pod-only mesh every inner entry drops.
     """
     opt_cfg = opt_cfg if opt_cfg is not None else AdamWConfig()
     n_units = MP.check_pipelineable(cfg)
@@ -250,9 +322,11 @@ def make_transformer_pipeline_train_step(
             f"{len(cfg.block_pattern)}-block pattern)"
         )
     layer_fn, first_fn, last_fn = MP.make_stage_fns(cfg)
+    stage_spec = MP.stage_param_specs(cfg, mesh, rules if rules is not None else rules_for(cfg),
+                                      axis)
     pipeline = PipelineStep(
         layer_fn, None, mesh=mesh, axis=axis, n_micro=n_micro,
-        first_fn=first_fn, last_fn=last_fn, phase_cb=phase_cb,
+        first_fn=first_fn, last_fn=last_fn, phase_cb=phase_cb, stage_spec=stage_spec,
     )
 
     def init_params(generator=None):

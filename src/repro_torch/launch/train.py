@@ -43,6 +43,19 @@ timed as ``train/pipeline/{warmup,steady,cooldown}``, and a straggler that
 owns a stage is answered by moving the stage boundary (``restage``), which
 the next step runs.
 
+``--mesh D,M`` trains on a ``("data", "model")`` DeviceMesh of ``D * M``
+processes (``torchrun --nproc-per-node D*M``), the parameters, optimizer
+state and batch sharded by the config's logical axes under its preset
+(``cfg.sharding``: ``tp`` puts heads, KV heads, FFN, experts and vocabulary
+over ``model`` and the batch over ``data``; ``tp+fsdp`` the parameters'
+embedding width over ``data`` too).  Every rank draws the same parameters
+and batches from the seed and keeps its own shards; the flash and RMSNorm
+kernels run on each rank's local shards.  Rank 0 alone writes the log, the status file, the
+``/metrics`` export and the checkpoints; a save gathers the full tensors
+(every rank takes part) and writes what an unsharded run writes, and a
+restore shards what it loads, so a run resumes on any mesh.  Ranks have a
+card each (NCCL) unless ``--allow-shared-card`` lets them share one (gloo).
+
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-1b \\
         --attn-impl pallas --norm-impl fused --steps 6 --batch 4 --seq 1024 --report
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch rwkv6-1.6b \\
@@ -54,6 +67,8 @@ the next step runs.
     PYTHONPATH=src python -m repro_torch.launch.train --full --pipeline-stages 1 \\
         --pipeline-model --pipeline-micro 4 --attn-impl pallas --norm-impl fused \\
         --steps 4 --batch 4 --seq 1024
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --mesh 2,2 --steps 4 --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import signal
 import time
 from typing import Any
@@ -69,7 +85,7 @@ import numpy as np
 import torch
 
 from ..adapt import CheckpointControl, ControlLoop, StragglerResponse
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, load_checkpoint, plan_resume
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core import (
     AdaptiveCheckpointController,
@@ -87,7 +103,9 @@ from ..core import (
 )
 from ..core.clocks import CounterClock, register_clock
 from ..data import DataLoader, SyntheticConfig, SyntheticLM
-from ..dist.meshutil import local_mesh
+from ..dist import collectives
+from ..dist.meshutil import device_mesh, init_process_group, local_mesh
+from ..dist.sharding import Axes, distribute_tree, gather_tree
 from ..dist.pipeline import MicrobatchPlan, StagePlan, phase_ticks
 from ..dist.stragglers import StragglerDetector
 from ..fleet.topology import stage_for_host
@@ -98,9 +116,11 @@ from ..monitor import MetricsExporter, MonitorServer, StatusWriter
 from ..optim import AdamWConfig, init_opt_state
 from ..timing import TimingSession
 from .steps import (
+    batch_axes,
     make_pipeline_train_step,
     make_train_step,
     make_transformer_pipeline_train_step,
+    rules_for,
 )
 
 __all__ = ["TrainSettings", "run_training", "main"]
@@ -157,6 +177,11 @@ class TrainSettings:
     #: config overrides (None keeps the config's value)
     attn_impl: str | None = None
     norm_impl: str | None = None
+    #: ("data", "model") mesh of processes; more than one rank needs a process
+    #: group of that size (torchrun, or one the caller initialized)
+    mesh_shape: tuple[int, ...] = (1, 1)
+    #: let more ranks than cards share them (gloo instead of NCCL)
+    allow_shared_card: bool = False
 
 
 def _flops_per_step(cfg: ArchConfig, tokens: int) -> float:
@@ -185,6 +210,15 @@ def run_training(
     overrides = {"attn_impl": settings.attn_impl, "norm_impl": settings.norm_impl}
     cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
     pipelined = settings.pipeline_stages > 0
+    sharded = math.prod(settings.mesh_shape) > 1
+    if sharded and pipelined:
+        raise ValueError("mesh_shape and pipeline_stages do not combine: the pipeline's "
+                         "stages compute on whole stage parameters")
+    # the sharded path: a DeviceMesh over the process group; rank 0 leads
+    dmesh = _device_mesh(settings) if sharded else None
+    rules = rules_for(cfg)
+    calls0, bytes0 = dict(collectives.COUNTS), dict(collectives.BYTES)
+    lead = not sharded or torch.distributed.get_rank() == 0
     # the 1F1B path pipelines homogeneous stages over a dedicated pod axis
     mesh = local_mesh((settings.pipeline_stages,), ("pod",), settings.device) if pipelined else None
     sess = (
@@ -204,6 +238,8 @@ def run_training(
     st["updates"] = 0
 
     device = torch.device(settings.device)
+    if device.type == "cuda" and sharded:  # the card device_mesh gave this rank
+        device = torch.device("cuda", torch.cuda.current_device())
     shape = ShapeConfig("train_local", "train", settings.seq_len, settings.global_batch)
 
     registry.declare("ckpt.max_fraction", settings.ckpt_max_fraction, steerable=True,
@@ -214,8 +250,8 @@ def run_training(
     # --- thorn state shared across routines -------------------------------------
     manager = None
     monitor = None
-    logger = TimerLogger(settings.log_path, db) if settings.log_path else None
-    status = StatusWriter(settings.status_path, db) if settings.status_path else None
+    logger = TimerLogger(settings.log_path, db) if settings.log_path and lead else None
+    status = StatusWriter(settings.status_path, db) if settings.status_path and lead else None
     if pipelined and not settings.pipeline_model:
         # the MLP pipeline path trains the residual-MLP stage stack, not the
         # transformer cfg: same 6 * active-params * tokens convention, with
@@ -241,7 +277,7 @@ def run_training(
         controller, ckpt_timer=ckpt_timer_name, registry=registry
     )
     ckpt_active = bool(settings.ckpt_dir) and settings.ckpt_mode != "off"
-    if ckpt_active:
+    if ckpt_active and lead:  # the other ranks follow rank 0's admissions
         loop.register(ckpt_control)
 
     def topology_meta() -> dict[str, Any]:
@@ -260,9 +296,11 @@ def run_training(
         }
 
     def current_state() -> dict[str, Any]:
+        """The state a checkpoint holds; under a mesh, full tensors gathered
+        from every rank (a collective: every rank calls it together)."""
         return {
-            "params": st["params"],
-            "opt_state": st["opt_state"],
+            "params": gather_tree(st["params"]) if sharded else st["params"],
+            "opt_state": gather_tree(st["opt_state"]) if sharded else st["opt_state"],
             "data": st["loader"].state(),
         }
 
@@ -283,7 +321,9 @@ def run_training(
             manager.wait()
         return time.monotonic() - t0
 
-    if ckpt_active:
+    if ckpt_active and not sharded:
+        # a save under a mesh is a collective, which an eviction barrier
+        # on one rank cannot start
         ckpt_control.bind_durable_save(durable_save)
     # single-process topology: this host feeds its own EVOL step timer into
     # the reduction; multi-host launchers hand the detector a transport.  On
@@ -314,7 +354,7 @@ def run_training(
             stage_for_host=(
                 stage_for_host([0], settings.pipeline_stages) if pipelined else None
             ),
-            evict_barrier=ckpt_control.evict_barrier if ckpt_active else None,
+            evict_barrier=ckpt_control.evict_barrier if ckpt_active and not sharded else None,
         )
     )
     sch.attach_control_loop(loop, bin="ANALYSIS")
@@ -359,7 +399,8 @@ def run_training(
                 built = make_pipeline_train_step(mesh, stage_plan, width=settings.pipeline_width,
                                                  vocab_size=cfg.vocab_size, **common)
         else:
-            built = make_train_step(cfg, shape, opt_cfg=opt_cfg, **schedule)
+            built = make_train_step(cfg, shape, opt_cfg=opt_cfg, mesh=dmesh, rules=rules,
+                                    **schedule)
         s["built"] = built
         # the pipeline's fn re-packs the live StagePlan every step
         s["exec"] = built.fn
@@ -376,7 +417,15 @@ def run_training(
         )
         start_step = 0
         restored = None
-        if settings.ckpt_dir:
+        if settings.ckpt_dir and sharded:
+            restored = _restore_sharded(settings, lead, sess)
+            if lead:
+                manager = CheckpointManager(
+                    settings.ckpt_dir, keep_n=settings.ckpt_keep_n,
+                    keep_every_k=settings.ckpt_keep_every_k,
+                    synchronous=settings.ckpt_synchronous, delay_s=settings.ckpt_delay_s,
+                )
+        elif settings.ckpt_dir:
             manager = CheckpointManager(
                 settings.ckpt_dir,
                 keep_n=settings.ckpt_keep_n,
@@ -392,6 +441,9 @@ def run_training(
             start_step, tree, meta = restored
             s["params"] = tree["params"]
             s["opt_state"] = tree["opt_state"]
+            if sharded:  # loaded whole on the host: each rank keeps its shards
+                s["params"], s["opt_state"] = _shard_state(cfg, opt_cfg, dmesh, rules, device,
+                                                           s["params"], s["opt_state"])
             s.iteration = start_step
             s["updates"] = start_step
             topo = (meta or {}).get("topology")
@@ -409,7 +461,8 @@ def run_training(
                 adopted = saved.retarget(range(settings.pipeline_stages))
                 stage_plan.weights.clear()
                 stage_plan.weights.update(adopted.weights)
-            print(f"[train] restored checkpoint at step {start_step}")
+            if lead:
+                print(f"[train] restored checkpoint at step {start_step}")
         else:
             with sess.scope_handle("STARTUP/init_params"):
                 generator = torch.Generator(device=device).manual_seed(settings.seed)
@@ -417,10 +470,14 @@ def run_training(
                     s["params"] = built.init_params(generator)
                 else:
                     s["params"] = M.init_params(cfg, generator, device)
+                if sharded:  # every rank drew the same weights: keep its shards
+                    s["params"] = distribute_tree(s["params"], M.param_axes(cfg), dmesh, rules)
                 s["opt_state"] = init_opt_state(opt_cfg, s["params"])
         s["loader"] = DataLoader(source, start_step=start_step)
 
-        if manager is not None:
+        if manager is not None and not sharded:
+            # (a save under a mesh is a collective, which a signal on one
+            # rank cannot start: sharded runs install no SIGTERM save)
             # installed only once live state exists — a preemption mid-restore
             # has nothing durable to add anyway.  The label is the number of
             # optimizer updates applied so far, which is exact no matter where
@@ -436,7 +493,7 @@ def run_training(
                 s["sigterm_before"] = None
 
         ckpt_control.start_run(time.monotonic())
-        if settings.monitor_port is not None:
+        if settings.monitor_port is not None and lead:
             monitor = MonitorServer(settings.monitor_port, db, registry,
                                     status_fn=lambda: {"iteration": st.iteration},
                                     checkpoint_fn=(
@@ -451,10 +508,14 @@ def run_training(
     sch.schedule(startup, bin="STARTUP", thorn="driver")
 
     # --- PRESTEP: data ------------------------------------------------------------
+    in_axes = {k: Axes(v) for k, v in batch_axes(cfg, "train").items()}
+
     def fetch_data(s: RunState) -> None:
         batch = s["loader"].next()
         s["batch"] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                       for k, v in batch.items()}
+        if sharded:  # every rank loaded the same global batch: keep its rows
+            s["batch"] = distribute_tree(s["batch"], in_axes, dmesh, rules)
 
     sch.schedule(fetch_data, bin="PRESTEP", thorn="data")
 
@@ -480,18 +541,24 @@ def run_training(
 
     # --- CHECKPOINT: consume the AdaptCheck admission ------------------------------
     def adaptive_checkpoint(s: RunState) -> None:
-        if manager is None or not ckpt_active:
+        if not ckpt_active:
             return
         # decision was made (with live-steered policy) at this iteration's
         # ANALYSIS poll; this routine only performs the admitted write
-        decision = ckpt_control.take_decision()
+        decision = ckpt_control.take_decision() if lead else None
         s["last_ckpt_decision"] = decision
-        if decision is None or not decision.checkpoint:
+        admitted = decision is not None and decision.checkpoint
+        if sharded:  # rank 0's admission, on every rank: the save gathers
+            admitted = _agree(admitted)
+        if not admitted:
+            return
+        state = current_state()
+        if not lead:
             return
         with ckpt_write_scope:
             stats = manager.save(
                 s["updates"],
-                current_state(),
+                state,
                 metadata={"reason": decision.reason, **topology_meta()},
             )
         ckpt_control.observe_checkpoint(stats["blocking_seconds"], stats["nbytes"])
@@ -504,7 +571,7 @@ def run_training(
             logger.log(s.iteration, extra=s.get("metrics"))
         if status is not None:
             status.write({"iteration": s.iteration, **(s.get("metrics") or {})})
-        if settings.report_every and s.iteration % settings.report_every == 0:
+        if settings.report_every and s.iteration % settings.report_every == 0 and lead:
             if settings.metrics_textfile:
                 exporter.write_textfile(settings.metrics_textfile)
             m = s.get("metrics") or {}
@@ -517,11 +584,13 @@ def run_training(
 
     # --- SHUTDOWN --------------------------------------------------------------------
     def shutdown(s: RunState) -> None:
+        final = bool(settings.ckpt_dir) and settings.ckpt_mode != "off"
+        state = current_state() if final and sharded else None  # every rank gathers
         if manager is not None and settings.ckpt_mode != "off":
             with ckpt_write_scope:
                 manager.save(
                     s["updates"],
-                    current_state(),
+                    state if state is not None else current_state(),
                     metadata={"reason": "final", **topology_meta()},
                 )
             manager.wait()
@@ -531,7 +600,7 @@ def run_training(
                 # the run's state is gone: a later SIGTERM must not save it
                 signal.signal(signal.SIGTERM, s["sigterm_before"])
         s["loader"].close()
-        if settings.metrics_textfile:
+        if settings.metrics_textfile and lead:
             exporter.write_textfile(settings.metrics_textfile)
         if monitor is not None:
             monitor.stop()
@@ -568,6 +637,18 @@ def run_training(
         # from the scope stack (simulation/total → bins → routines → scopes)
         "timer_tree": tree_rows(db),
     }
+    if sharded:
+        summary["mesh"] = {
+            "shape": tuple(settings.mesh_shape),
+            "axes": tuple(dmesh.mesh_dim_names),
+            "sharding": cfg.sharding,
+            "rank": torch.distributed.get_rank(),
+            "backend": torch.distributed.get_backend(),
+            # this run's routed collectives of a gloo mesh (none under NCCL)
+            "collective_calls": {k: v - calls0[k] for k, v in collectives.COUNTS.items()},
+            "collective_bytes": {k: v - bytes0[k] for k, v in collectives.BYTES.items()},
+            "collective_seconds": collectives.collective_seconds(db),
+        }
     if pipelined:
         summary["pipeline"] = {
             "n_stages": settings.pipeline_stages,
@@ -585,6 +666,50 @@ def run_training(
             },
         }
     return summary
+
+
+def _device_mesh(settings: TrainSettings):
+    """The ("data", "model") DeviceMesh of a sharded run, starting the
+    process group from the environment when the caller has not."""
+    if not torch.distributed.is_initialized():
+        init_process_group(settings.device)
+    names = ("data", "model") if len(settings.mesh_shape) == 2 else None
+    return device_mesh(settings.mesh_shape, names, settings.device,
+                       allow_shared_card=settings.allow_shared_card)
+
+
+def _agree(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank."""
+    box = [bool(flag)]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _restore_sharded(settings: TrainSettings, lead: bool, sess: TimingSession):
+    """(step, tree on the host, metadata) of the newest valid checkpoint, or
+    None, on every rank: rank 0 validates (and quarantines) as an unsharded
+    run does and names the directory, and every rank loads it."""
+    with sess.scope_handle("STARTUP/restore"):
+        path = None
+        if lead and settings.restore:
+            plan = plan_resume(settings.ckpt_dir, quarantine=True)
+            path = plan.valid[0].path if plan.valid else None
+        box = [path]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return load_checkpoint(box[0], verify=False) if box[0] is not None else None
+
+
+def _shard_state(cfg, opt_cfg, mesh, rules, device, params, opt_state):
+    """A whole (params, opt_state) loaded on the host, as this rank's
+    shards on ``device``: the moments and master weights take their
+    parameters' placements; the step counter stays a plain tensor."""
+    p_axes = M.param_axes(cfg)
+    params = distribute_tree(params, p_axes, mesh, rules, device=device)
+    state = {"step": opt_state["step"].to(device)}
+    for key in ("m", "v", "master"):
+        if key in opt_state:
+            state[key] = distribute_tree(opt_state[key], p_axes, mesh, rules, device=device)
+    return params, state
 
 
 def main(argv=None) -> int:
@@ -626,6 +751,11 @@ def main(argv=None) -> int:
                     help="attention implementation; 'pallas' = the CUDA flash kernels")
     ap.add_argument("--norm-impl", choices=["ref", "fused"], default=None,
                     help="rmsnorm implementation; 'fused' = the CUDA RMSNorm kernels")
+    ap.add_argument("--mesh", default="1,1",
+                    help="D,M: train on a (data, model) mesh of D*M processes "
+                         "(torchrun --nproc-per-node D*M)")
+    ap.add_argument("--allow-shared-card", action="store_true",
+                    help="let more ranks than cards share them (gloo instead of NCCL)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -645,9 +775,16 @@ def main(argv=None) -> int:
         pipeline_width=args.pipeline_width,
         pipeline_model=args.pipeline_model,
         device=args.device, attn_impl=args.attn_impl, norm_impl=args.norm_impl,
+        mesh_shape=tuple(int(n) for n in args.mesh.split(",")),
+        allow_shared_card=args.allow_shared_card,
     )
     sess = TimingSession(timer_db())
     summary = run_training(settings, session=sess)
+    if torch.distributed.is_initialized():
+        rank = torch.distributed.get_rank()
+        torch.distributed.destroy_process_group()
+        if rank:  # rank 0 prints the run; every rank kept its own timers
+            return 0
     print(json.dumps(summary, indent=1, default=str))
     if args.report:
         # fleet-health DIST/host rows and aggregate ADAPT/ counts are already

@@ -37,6 +37,14 @@ mixture of experts of ``models/moe.py``; ``block_apply`` returns its
 auxiliary (load-balancing) loss beside the hidden state, a zero f32 scalar
 for every other block in training, as the reference's does.
 
+Under a sharding context (``dist.context.use_sharding``) with DTensor
+params and activations, the hand-written kernels still take plain tensors:
+``norm`` and the attention call hand each kernel its rank's local shard
+(``_local_norm``, ``_local_attention``: rows whole along the normalized
+width; batch and heads kept sharded, the GQA group whole on every rank),
+and wrap the result back into a DTensor.  The attention output is pinned to
+``("batch", "seq", "heads", None)``, as the reference pins it.
+
 The ``xattn`` block is self-attention (causal), cross-attention and the
 feed-forward.  Its cross-attention takes q from the block's hidden state and
 k/v from the encoder output, with no rotary embedding and no qk-norm, and is
@@ -46,11 +54,13 @@ not causal; the encoder's own blocks are ``attn`` blocks run with
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.context import constrain, is_dtensor, local_apply, placements_of
 from ..kernels.rglru import ops as rglru_ops
 from ..kernels.rmsnorm.ops import rms_norm_fused
 from ..kernels.rwkv6 import ops as rwkv_ops
@@ -80,10 +90,70 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 def norm(cfg: ArchConfig, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Config-dispatched rmsnorm: the unfused reference or the hand-written
     fused kernel (``cfg.norm_impl == "fused"``; its plain version on CPU
-    tensors).  Both compute in f32 and return ``x.dtype``."""
+    tensors).  Both compute in f32 and return ``x.dtype``.  A DTensor ``x``
+    is normalized shard by shard (``_local_norm``)."""
+    if is_dtensor(x):
+        return _local_norm(cfg, x, weight)
     if cfg.norm_impl == "fused":
         return rms_norm_fused(x, weight, cfg.norm_eps)
     return rms_norm(x, weight, cfg.norm_eps)
+
+
+def _local_norm(cfg: ArchConfig, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``norm`` of a DTensor on each rank's local rows: ``x`` keeps its
+    shards except along the normalized width (gathered, a ``Partial``
+    reduced), the weight is replicated (an FSDP-sharded one gathered), and
+    the weight's gradient is each rank's part of the sum over the rows
+    wherever ``x`` is sharded."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_pl = placements_of(x, replicate_dims=(-1,))
+    w_pl = (Replicate(),) * len(x_pl)
+    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
+    return local_apply(lambda xl, wl: norm(cfg, xl, wl), [(x, x_pl, None), (weight, w_pl, w_grad)],
+                       [x_pl], mesh=x.device_mesh)
+
+
+def _attend(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
+    """``attention`` as ``cfg.attn_impl`` says; DTensors go through
+    ``_local_attention``."""
+    if is_dtensor(q):
+        return _local_attention(cfg, q, k, v, causal=causal, window=window)
+    return attention(q, k, v, impl=cfg.attn_impl, causal=causal, window=window,
+                     chunk=cfg.attn_chunk)
+
+
+def _local_attention(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
+    """Attention of DTensors q (B,S,H,hd), k/v (B,T,KV,hd) on each rank's
+    local shards: the batch stays sharded where q's is (k and v follow it),
+    the heads where q's and k's are sharded on the same mesh axis (the port
+    groups q heads contiguously per KV head, so a rank's q heads attend to
+    its own KV heads); every other dimension, and a heads shard the two do
+    not share, is gathered.  The output has q's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    q_pl = list(placements_of(q, replicate_dims=(1, 3)))
+    k_pl = list(placements_of(k, replicate_dims=(1, 3)))
+    for i, (qp, kp) in enumerate(zip(q_pl, k_pl)):
+        if qp == Shard(0):
+            k_pl[i] = qp
+        elif not (qp == Shard(2) and kp == Shard(2)):
+            q_pl[i] = k_pl[i] = Replicate()
+    mesh = q.device_mesh
+    sizes = dict(zip(range(mesh.ndim), mesh.shape))
+    heads = q.shape[2] // math.prod(sizes[i] for i, p in enumerate(q_pl) if p == Shard(2))
+    kv_heads = k.shape[2] // math.prod(sizes[i] for i, p in enumerate(k_pl) if p == Shard(2))
+    if heads % kv_heads:
+        raise ValueError(f"local heads {heads} are not a multiple of the local KV heads "
+                         f"{kv_heads} (q {tuple(q.shape)} {q_pl}, k {tuple(k.shape)} {k_pl})")
+
+    def run(ql, kl, vl):
+        return attention(ql, kl, vl, impl=cfg.attn_impl, causal=causal, window=window,
+                         chunk=cfg.attn_chunk)
+
+    q_pl, k_pl = tuple(q_pl), tuple(k_pl)
+    return local_apply(run, [(q, q_pl, None), (k, k_pl, None), (v, k_pl, None)], [q_pl],
+                       mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +362,8 @@ def _attn_core_train(cfg, p, h, rope, *, window, mode, cache, causal=True):
         cos, sin = rope
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
-    att = attention(q, k, v, impl=cfg.attn_impl, causal=causal, window=window,
-                    chunk=cfg.attn_chunk)
+    att = _attend(cfg, q, k, v, causal=causal, window=window)
+    att = constrain(att, "batch", "seq", "heads", None)
     out = att.reshape(att.shape[0], att.shape[1], -1) @ p["wo"]
     h = h + out
     new_cache = None
@@ -361,7 +431,7 @@ def _cross_attn(cfg, p, h, *, enc_out, mode, cache):
         t = enc_out.shape[1]
         xk = (enc_out @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
         xv = (enc_out @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
-        att = attention(q, xk, xv, impl=cfg.attn_impl, causal=False, chunk=cfg.attn_chunk)
+        att = _attend(cfg, q, xk, xv, causal=False, window=None)
         if mode == "prefill" and cache is None:
             fresh = {"xk": xk, "xv": xv,
                      "xlen": torch.full((b,), t, dtype=torch.int32, device=h.device)}

@@ -5,9 +5,10 @@ Parameter handling convention
 Model code describes parameters with :class:`PSpec` trees (shape + logical axes
 + initializer).  ``materialize`` turns a spec tree into real tensors on an
 explicit device from an explicit ``torch.Generator``; ``axes_tree`` extracts
-the logical axes (the serving splicer finds each cache leaf's batch axis with
-it).  Trees are plain nested dicts/tuples/lists with ``None`` holes, walked by
-:func:`tree_map`.
+the logical axes as ``dist.sharding.Axes`` leaves (the serving splicer finds
+each cache leaf's batch axis with it; ``dist.sharding.tree_shardings``
+resolves them against a mesh).  Trees are plain nested dicts/tuples/lists
+with ``None`` holes, walked by :func:`tree_map`.
 """
 
 from __future__ import annotations
@@ -51,12 +52,14 @@ class PSpec:
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """Map ``fn`` over the leaves of nested dicts/tuples/lists (``None`` stays
-    ``None``); ``rest`` trees are walked in lockstep with ``tree``."""
+    ``None``); ``rest`` trees are walked in lockstep with ``tree``.  A tuple
+    whose class sets ``tree_leaf`` (``dist.sharding.Axes``,
+    ``PartitionSpec``) is a leaf."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
+    if isinstance(tree, (tuple, list)) and not getattr(tree, "tree_leaf", False):
         out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
         return type(tree)(out)
     return fn(tree, *rest)
@@ -128,8 +131,10 @@ def materialize(
 
 
 def axes_tree(specs):
-    """PSpec tree -> logical-axes tree (same structure, tuple leaves)."""
-    return tree_map(lambda s: s.axes, specs)
+    """PSpec tree -> logical-axes tree (same structure, ``Axes`` leaves)."""
+    from ..dist.sharding import Axes
+
+    return tree_map(lambda s: Axes(s.axes), specs)
 
 
 # ---------------------------------------------------------------------------

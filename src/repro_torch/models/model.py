@@ -7,6 +7,8 @@ periods (applied by a Python loop over that axis), then the unstacked
 
 Public surface:
     model_specs(cfg)                          -> PSpec tree (params, never allocated)
+    abstract_params(cfg)                      -> the same PSpec tree (shapes, dtypes)
+    param_axes(cfg)                           -> logical-axes tree of the params
     init_params(cfg, generator, device)       -> concrete params
     cache_specs(cfg, batch, max_seq)          -> PSpec tree (decode cache)
     cache_axes(cfg, batch, max_seq)           -> logical-axes tree of the cache
@@ -38,6 +40,14 @@ prefill as blocks without a cache, which add no aux loss.  A prefill fills
 each layer's cross K/V and source length into the cache, so ``decode_step``
 needs no encoder.
 
+Under ``dist.context.use_sharding`` with DTensor params and batch, the
+``constrain`` calls the reference makes (the embedding, the logits, the
+attention output, the MoE dispatch) pin those activations to the placements
+their logical axes resolve to; outside a context they do nothing.  Under
+FSDP rules ``loss_fn`` gathers the parameters' width for compute
+(``dist.context.gather_fsdp``), so the gradient comes back reduce-scattered
+to the stored shards.
+
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
 decode update the tensors of the cache they are given in place (K/V, ring
 slots, recurrent states) and return that cache with a new ``pos``.
@@ -58,6 +68,7 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as ckpt
 
+from ..dist.context import constrain, gather_fsdp, is_dtensor, local_apply, placements_of
 from .blocks import block_apply, block_cache_specs, block_specs
 from .config import ArchConfig
 from .layers import (
@@ -72,6 +83,8 @@ from .layers import (
 
 __all__ = [
     "model_specs",
+    "abstract_params",
+    "param_axes",
     "init_params",
     "param_counts",
     "cache_specs",
@@ -125,6 +138,17 @@ def model_specs(cfg: ArchConfig) -> dict[str, Any]:
         specs["enc_scan"] = (block_specs(cfg, "attn", (n_enc,)),) if n_enc else None
         specs["enc_final_norm"] = PSpec((d,), (None,), init="ones", dtype=dt)
     return specs
+
+
+def abstract_params(cfg: ArchConfig):
+    """The parameters' shapes and dtypes without allocating them: the
+    ``PSpec`` tree (each leaf has ``.shape`` and ``.dtype``)."""
+    return model_specs(cfg)
+
+
+def param_axes(cfg: ArchConfig):
+    """Logical-axes tree of the parameters (``Axes`` leaves)."""
+    return axes_tree(model_specs(cfg))
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device: str | torch.device = "cuda"):
@@ -302,8 +326,45 @@ def _apply_stack(cfg, params, h, *, rope, mode, caches=None, pos=None, encoder=F
     }, aux
 
 
-def _embed_tokens(params, tokens):
-    return params["embed"]["tokens"][tokens]
+def _embed_tokens(cfg: ArchConfig, params, tokens):
+    table = params["embed"]["tokens"]
+    if cfg.embed_gather_constraint:
+        # pre-reshard: keep vocab sharded, gather the (FSDP-sharded) embed
+        # dim first, as the reference does
+        table = constrain(table, "vocab", None)
+    x = _local_lookup(table, tokens) if is_dtensor(table) else table[tokens]
+    return constrain(x, "batch", "seq", None)
+
+
+def _local_lookup(table, tokens):
+    """``table[tokens]`` of a DTensor table on each rank's shards, as a
+    vocabulary-parallel embedding: the table keeps its vocabulary shards
+    (its width is gathered), the tokens their batch shards; each rank looks
+    up the tokens in its own rows and zeroes the others, so the rows add up
+    (``Partial``) over the vocabulary shards.  The table's gradient is each
+    rank's part of the sum over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    k_pl = placements_of(tokens, replicate_dims=(1,))
+    # a mesh axis that shards the batch holds the whole vocabulary
+    t_pl = tuple(Replicate() if kp == Shard(0) else tp
+                 for tp, kp in zip(placements_of(table, replicate_dims=(1,)), k_pl))
+    out = tuple(Shard(0) if kp == Shard(0) else Partial() if tp == Shard(0) else Replicate()
+                for tp, kp in zip(t_pl, k_pl))
+    grad = tuple(Partial() if kp == Shard(0) else tp for tp, kp in zip(t_pl, k_pl))
+    shard = 0
+    for i, p in enumerate(t_pl):  # this rank's vocabulary shard, major axis first
+        if p == Shard(0):
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+
+    def lookup(tab, tok):
+        first = shard * tab.shape[0]
+        inside = (tok >= first) & (tok < first + tab.shape[0])
+        rows = tab[(tok - first).clamp(0, tab.shape[0] - 1)]
+        return rows.masked_fill(~inside[..., None], 0)
+
+    return local_apply(lookup, [(table, t_pl, grad), (tokens, k_pl, None)], [out], mesh=mesh)
 
 
 def prefix_positions(cfg: ArchConfig) -> int:
@@ -315,7 +376,7 @@ def prefix_positions(cfg: ArchConfig) -> int:
 def _build_inputs(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, int]:
     """The embedded input of train and prefill, (h, n_prefix): for vlm the
     patch embeddings, cast to the model's dtype, in front of the text's."""
-    text = _embed_tokens(params, batch["tokens"])
+    text = _embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "vlm":
         patches = batch["patch_embeds"].to(text.dtype)
         return torch.cat([patches, text], dim=1), patches.shape[1]
@@ -324,8 +385,16 @@ def _build_inputs(cfg: ArchConfig, params, batch) -> tuple[torch.Tensor, int]:
 
 def _logits(cfg, params, h):
     if cfg.tied_embeddings:
-        return h @ params["embed"]["tokens"].T
-    return h @ params["lm_head"]
+        table = params["embed"]["tokens"]
+        if cfg.embed_gather_constraint:
+            table = constrain(table, "vocab", None)
+        logits = h @ table.T
+    else:
+        head = params["lm_head"]
+        if cfg.embed_gather_constraint:
+            head = constrain(head, None, "vocab")
+        logits = h @ head
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +441,10 @@ def forward(cfg: ArchConfig, params, batch) -> torch.Tensor:
 
 
 def _ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
-    """(Σ ce, Σ z, Σ valid) over one logits block; f32, padded vocab masked."""
+    """(Σ ce, Σ z, Σ valid) over one logits block; f32, padded vocab masked.
+    DTensor logits go through ``_local_ce_terms``."""
+    if is_dtensor(logits):
+        return _local_ce_terms(cfg, logits, targets, z_coef)
     lf = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         vmask = torch.arange(cfg.padded_vocab, device=lf.device) < cfg.vocab_size
@@ -387,6 +459,20 @@ def _ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
     )
 
 
+def _local_ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
+    """``_ce_terms`` of DTensor logits on each rank's rows: the batch stays
+    sharded where the logits' is (the targets follow it), the vocabulary is
+    gathered, so each row's log-sum-exp is the unsharded one; the three sums
+    are each rank's part (``Partial``) over the batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = placements_of(logits, replicate_dims=tuple(range(1, logits.ndim)))
+    parts = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+    return local_apply(lambda lg, tg: _ce_terms(cfg, lg, tg, z_coef),
+                       [(logits, rows, None), (targets, rows, None)], [parts] * 3,
+                       mesh=logits.device_mesh)
+
+
 def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: float = 1e-4):
     """Mean next-token cross-entropy over the valid targets (``targets >= 0``)
     plus the z-loss; returns (loss, metrics).  With ``cfg.loss_chunk`` dividing
@@ -396,6 +482,7 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
     loss; 0 for a stack without experts), added as ``aux_coef * aux``."""
     targets = batch["targets"]
     chunk = cfg.loss_chunk
+    params = gather_fsdp(params)  # FSDP-sharded weights, whole for compute
     h, aux = _hidden(cfg, params, batch)
     s = targets.shape[1]
     if chunk and s % chunk == 0 and s > chunk:
@@ -442,7 +529,7 @@ def prefill(cfg: ArchConfig, params, batch, cache):
 def decode_step(cfg: ArchConfig, params, cache, tokens):
     """One decode step. tokens: (B, 1). Returns (cache, logits (B, padded_vocab))."""
     pos = cache["pos"]
-    h = _embed_tokens(params, tokens)
+    h = _embed_tokens(cfg, params, tokens)
     h, new_caches, _ = _apply_stack(cfg, params, h, rope=None, mode="decode", caches=cache,
                                     pos=pos)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -18,10 +18,16 @@ library GEMMs: the reference computes them outside any Pallas kernel.  The
 backward is autograd's, through the routing's gathers, the dispatch and
 combine gathers and the batched GEMMs; on the card it repeats its bits
 (the gathers' backward accumulates duplicate rows in a sorted, fixed
-order).  The reference's ``constrain`` calls are sharding hints that do
-nothing on one device; ``cfg.moe_dispatch_mode``, which picks between them,
-is kept as a config field and ignored here until the port distributes
-(ROADMAP Queue 1, item 6).
+order).
+
+Sharded (a DTensor x inside ``dist.context.use_sharding``), each rank routes
+and dispatches its own routing groups, the (E, G*C, D) slot buffer and the
+experts' outputs are pinned as ``cfg.moe_dispatch_mode`` says (the
+reference's ``constrain`` calls, mapped onto the port's expert-major
+buffer: "tokens" shards the groups and the experts, "embed" the width too
+where a mesh axis is left for it), the expert products run on the expert
+weights' shards, and each rank combines its own tokens.  Outside a context
+the ``constrain`` calls do nothing.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.context import constrain, is_dtensor, local_apply, placements_of
 from .config import ArchConfig
 from .layers import PSpec
 
@@ -99,34 +106,100 @@ def route(cfg: ArchConfig, router: torch.Tensor, x: torch.Tensor,
     return Routing(gates, top_i, weights, mask, keep, pos, token_idx[..., :cap])
 
 
-def _moe_grouped(cfg: ArchConfig, p: dict[str, torch.Tensor], x: torch.Tensor):
+def _dispatch(cfg: ArchConfig, router: torch.Tensor, x: torch.Tensor):
+    """(routing, xe (E, G*C, D)): route the groups of x (G, S, D) and gather
+    each slot's token, an empty slot the zero sentinel row."""
     g, s, d = x.shape
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
-    r = route(cfg, p["router"], x)
+    e = cfg.moe.n_experts
+    r = route(cfg, router, x)
     cap = r.token_idx.shape[-1]
     groups = torch.arange(g, device=x.device)[:, None, None]
-    # dispatch: each slot gathers its token, an empty one the zero sentinel row
     rows = (r.token_idx + (s + 1) * groups).transpose(0, 1).reshape(-1)  # (E, G, C)
     xe = F.pad(x, (0, 0, 0, 1)).reshape(g * (s + 1), d)[rows].reshape(e, g * cap, d)
+    return r, xe
+
+
+def _experts(p: dict[str, torch.Tensor], xe: torch.Tensor) -> torch.Tensor:
+    """The experts' gated MLP on their slots: (E, N, D) -> (E, N, D)."""
     up = torch.bmm(xe, p["wi"])
     gate = torch.bmm(xe, p["wg"])
     hidden = F.silu(gate.float()).to(xe.dtype) * up
-    ye = F.pad(torch.bmm(hidden, p["wo"]).reshape(e * g * cap, d), (0, 0, 0, 1))
-    # combine: each token adds its kept choices' weighted outputs in the
-    # activation dtype, in expert order, the order of the reference's
-    # scatter-add; a gather, so the sum is the same on every run (atomic adds
-    # on the card are not); a dropped choice reads the zero row past the end
-    chosen = torch.sort(r.top_i, dim=-1).values  # (G, S, k)
-    slot_row = (chosen * g + groups) * cap + r.pos.gather(-1, chosen)
-    slot_row = torch.where(r.keep.gather(-1, chosen), slot_row, e * g * cap)
-    contrib = (ye[slot_row].float() * r.weights.gather(-1, chosen)[..., None]).to(x.dtype)
+    return torch.bmm(hidden, p["wo"])
+
+
+def _combine(cfg: ArchConfig, top_i, weights, keep, pos, ye, dtype) -> torch.Tensor:
+    """y (G, S, D): each token adds its kept choices' weighted outputs in the
+    activation dtype, in expert order, the order of the reference's
+    scatter-add; a gather, so the sum is the same on every run (atomic adds
+    on the card are not); a dropped choice reads the zero row past the end."""
+    g, s, k = top_i.shape
+    e, n, d = ye.shape
+    cap = n // g
+    groups = torch.arange(g, device=ye.device)[:, None, None]
+    ye = F.pad(ye.reshape(e * n, d), (0, 0, 0, 1))
+    chosen = torch.sort(top_i, dim=-1).values  # (G, S, k)
+    slot_row = (chosen * g + groups) * cap + pos.gather(-1, chosen)
+    slot_row = torch.where(keep.gather(-1, chosen), slot_row, e * n)
+    contrib = (ye[slot_row].float() * weights.gather(-1, chosen)[..., None]).to(dtype)
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
-    # Switch load-balancing loss: E * sum_e f_e * mean gate_e
-    frac = r.mask.float().mean(dim=(0, 1))
-    prob = r.gates.mean(dim=(0, 1))
-    return y, e * torch.sum(frac * prob)
+    return y
+
+
+def _aux(cfg: ArchConfig, mask: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Switch load-balancing loss: E * sum_e f_e * mean gate_e."""
+    frac = mask.float().mean(dim=(0, 1))
+    prob = gates.mean(dim=(0, 1))
+    return cfg.moe.n_experts * torch.sum(frac * prob)
+
+
+def _slots(cfg: ArchConfig, xe: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Pin the slot buffer (E, G*C, D) as the reference pins its (G, E, C, D)
+    one: ``("batch", "expert", None, None)`` under ``moe_dispatch_mode``
+    "tokens", ``(..., "embed")`` under "embed", here on the (E, G, C, D) view."""
+    e, n, d = xe.shape
+    last = None if cfg.moe_dispatch_mode == "tokens" else "embed"
+    view = xe.reshape(e, n_groups, n // n_groups, d)
+    return constrain(view, "expert", "batch", None, last).reshape(e, n, d)
+
+
+def _moe_grouped(cfg: ArchConfig, p: dict[str, torch.Tensor], x: torch.Tensor):
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x)
+    r, xe = _dispatch(cfg, p["router"], x)
+    ye = _experts(p, xe)
+    y = _combine(cfg, r.top_i, r.weights, r.keep, r.pos, ye, x.dtype)
+    return y, _aux(cfg, r.mask, r.gates)
+
+
+def _moe_sharded(cfg: ArchConfig, p: dict[str, torch.Tensor], x: torch.Tensor):
+    """The MoE of a DTensor x (G, S, D): each rank routes and dispatches its
+    own groups (the router replicated, its gradient each rank's part), the
+    slot buffer is pinned by ``moe_dispatch_mode`` (``_slots``) for the
+    expert products, which run on the expert weights' shards, and each rank
+    combines its groups' tokens from every expert's slots."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    g = x.shape[0]
+    rows = placements_of(x, replicate_dims=(1, 2))
+    slots = tuple(Shard(1) if q == Shard(0) else Replicate() for q in rows)
+    router_grad = tuple(Partial() if q == Shard(0) else Replicate() for q in rows)
+
+    def dispatch(xl, router):
+        r, xe = _dispatch(cfg, router, xl)
+        return r.gates, r.top_i, r.weights, r.mask, r.keep, r.pos, xe
+
+    *routing, xe = local_apply(
+        dispatch, [(x, rows, None), (p["router"], (Replicate(),) * mesh.ndim, router_grad)],
+        [rows] * 6 + [slots], mesh=mesh)
+    gates, top_i, weights, mask, keep, pos = routing
+    ye = _slots(cfg, _experts(p, _slots(cfg, xe, g)), g)
+    y = local_apply(lambda *a: _combine(cfg, *a, x.dtype),
+                    [(top_i, rows, None), (weights, rows, None), (keep, rows, None),
+                     (pos, rows, None), (ye, slots, None)], [rows], mesh=mesh)
+    return constrain(y, "batch", "seq", None), _aux(cfg, mask, gates)
 
 
 def moe_apply(

@@ -26,9 +26,11 @@ Constraints checked by :func:`check_pipelineable`:
     slot runs the same unit function),
   * ``cfg.loss_chunk`` unused here (the head sees one microbatch at a time).
 
-The specs of stage parameters sharded over inner mesh axes
-(``stage_param_specs``) come with ``dist/sharding.py`` (ROADMAP Queue 1
-item 6).
+``stage_param_specs`` composes the pipeline axis with the config's TP/FSDP
+rules for the packed stack, as the reference's does; on a pod-only mesh
+every inner entry drops, and ``dist.pipeline.PipelineStep`` refuses a spec
+whose inner entries would shard (the reference's stage body is not
+collective-aware).
 """
 
 from __future__ import annotations
@@ -37,16 +39,26 @@ from typing import Any
 
 import torch
 
+from ..dist.sharding import PartitionSpec, ShardingRules, spec_for
 from .blocks import norm
 from .config import ArchConfig
 from .layers import rotary_embedding, tree_map
-from .model import _ce_terms, _embed_tokens, _logits, _unit_apply, decoder_pattern
+from .model import (
+    _ce_terms,
+    _embed_tokens,
+    _logits,
+    _unit_apply,
+    abstract_params,
+    decoder_pattern,
+    param_axes,
+)
 
 __all__ = [
     "check_pipelineable",
     "make_stage_fns",
     "split_params",
     "merge_grads",
+    "stage_param_specs",
 ]
 
 
@@ -98,7 +110,7 @@ def make_stage_fns(cfg: ArchConfig, *, z_coef: float = 1e-4):
         return h
 
     def first_fn(fp, tokens):
-        return _embed_tokens(fp, tokens)
+        return _embed_tokens(cfg, fp, tokens)
 
     def last_fn(lp, h, targets):
         h = norm(cfg, h, lp["final_norm"])
@@ -143,3 +155,23 @@ def merge_grads(cfg: ArchConfig, stack_grads, first_grads, last_grads):
     if not cfg.tied_embeddings:
         out["lm_head"] = last_grads["lm_head"]
     return out
+
+
+def stage_param_specs(cfg: ArchConfig, mesh: Any, rules: ShardingRules, axis: str = "pod"):
+    """``PartitionSpec`` tree for the StagePlan-packed stack params.
+
+    Every leaf's leading (slot) dimension maps to the pipeline ``axis``; the
+    trailing parameter dimensions compose the model's logical axes through
+    ``spec_for``'s TP/FSDP rules with the usual drop semantics — on a
+    pod-only pipeline mesh every inner entry drops and the result is plain
+    ``P(axis)`` (replicated within a stage, which is what the stage-local
+    compute assumes).
+    """
+    axes = param_axes(cfg)["scan"]
+    shapes = abstract_params(cfg)["scan"]
+
+    def one(ax, spec):
+        inner = spec_for(tuple(ax)[1:], tuple(spec.shape)[1:], mesh, rules)
+        return PartitionSpec(axis, *inner)
+
+    return tree_map(one, axes, shapes)

@@ -9,6 +9,14 @@ updates the optimizer state's ``m``, ``v`` and ``master`` tensors in place
 double the optimizer's memory for the length of the update) and returns that
 state with a new ``step``; the returned parameters are fresh tensors cast
 from the master weights.
+
+Trees of DTensors (a sharded step, ``launch.steps.make_train_step`` with a
+mesh) update shard by shard: every leaf's state has its parameter's
+placements, and :func:`global_norm` reduces each leaf's sum of squares to a
+replicated scalar before adding them up, so the clipped norm is the
+unsharded one on every rank.  The update runs inside the step's sharding
+context, where the plain scalars (``lr``, the bias corrections) count as
+replicated.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Any
 
 import torch
 
+from ..dist.context import is_dtensor
 from ..models.layers import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "global_norm", "opt_state_axes"]
@@ -37,7 +46,8 @@ class AdamWConfig:
 def init_opt_state(cfg: AdamWConfig, params) -> dict[str, Any]:
     """``step`` (int32 scalar), f32 zero moments ``m``/``v``, and with
     ``master_weights`` an f32 ``master`` copy of the params, on their device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    # zeros_like keeps a DTensor parameter's placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     device = tree_leaves(params)[0].device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
@@ -57,9 +67,17 @@ def opt_state_axes(cfg: AdamWConfig, axes):
     return state
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of one leaf; of a DTensor, the whole tensor's,
+    as a plain tensor on every rank (each shard's sum, then all of them
+    added up)."""
+    total = x.float().square().sum()
+    return total.full_tensor() if is_dtensor(total) else total
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(torch.stack([x.float().square().sum() for x in tree_leaves(tree)]).sum())
+    return torch.sqrt(torch.stack([_square_sum(x) for x in tree_leaves(tree)]).sum())
 
 
 @torch.no_grad()

@@ -674,3 +674,70 @@ def test_pipeline_ranks_share_the_card(gen, dtype):
         assert abs(loss.item() - ref_loss.item()) <= 3e-2 * abs(ref_loss.item())
         for g, r in zip(grads, ref):
             assert ((g.float() - r.float()).norm() / r.float().norm()).item() < 0.1
+
+
+def _sharded_step_worker(rank, world, dtype):
+    """One rank of a (1, 2) ("data", "model") mesh sharing the card: the
+    llama smoke config's gradient and three AdamW steps, sharded (heads,
+    FFN and vocabulary over "model": 2/1 heads a rank) and unsharded."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.context import use_sharding
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.dist.sharding import Axes, distribute_tree, gather_tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as PM
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = device_mesh((1, 2), ("data", "model"), device="cuda", allow_shared_card=True)
+    cfg = get_smoke_config("llama3.2-1b").replace(attn_impl="pallas", norm_impl="fused",
+                                                  remat="dots", dtype=dtype)
+    rules = ST.rules_for(cfg)
+    shape = ShapeConfig("t", "train", 128, 2)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 2, mode="copy", seed=0), arch=cfg)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+               for i in range(3)]
+    axes = {k: Axes(v) for k, v in ST.batch_axes(cfg, "train").items()}
+    params = PM.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ref_grads, _ = ST._grads(cfg, params, batches[0])
+    sp = distribute_tree(params, PM.param_axes(cfg), mesh, rules)
+    launches = fa_ops.launches
+    with use_sharding(mesh, rules):
+        g, _ = ST._grads(cfg, sp, distribute_tree(batches[0], axes, mesh, rules))
+        g = tree_map(lambda gg, p: gg.redistribute(p.device_mesh, p.placements), g, sp)
+    launches = fa_ops.launches - launches
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(tree_leaves(gather_tree(g)), tree_leaves(ref_grads))]
+    losses = []
+    for mesh_arg, tree in ((None, params), (mesh, sp)):
+        step = ST.make_train_step(cfg, shape, warmup_steps=1, total_steps=10, mesh=mesh_arg,
+                                  rules=rules)
+        p, st, run = tree, init_opt_state(AdamWConfig(), tree), []
+        for b in batches:
+            b = b if mesh_arg is None else distribute_tree(b, axes, mesh, rules)
+            p, st, m = step.fn(p, st, b)
+            run.append(float(m["loss"]))
+        losses.append(run)
+    return {"rel": rel, "losses": losses, "launches": launches}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_step_on_two_ranks_sharing_the_card(gen, dtype):
+    """A 2-rank (1, 2) mesh on one card (gloo) against the unsharded step:
+    the kernels run on each rank's 2 of the 4 heads (one flash forward a
+    layer and again in the remat recompute)."""
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.kernels import build
+
+    build.build_all()
+    results = run_ranks(_sharded_step_worker, 2, dtype, device="cuda")
+    leaf_tol, loss_tol = (1e-4, 1e-5) if dtype == "float32" else (0.1, 3e-2)
+    for r in results:
+        assert r["launches"] == 2 * 2  # two layers, forward and recompute
+        assert max(r["rel"]) < leaf_tol, r["rel"]
+        plain, sharded = r["losses"]
+        for a, b in zip(sharded, plain):
+            assert abs(a - b) <= loss_tol * abs(b), (sharded, plain)

@@ -302,3 +302,55 @@ def test_fleet_launcher_spawns_the_ports_worker(tmp_path, monkeypatch):
         assert cmd[1:3] == ["-m", "repro_torch.fleet.worker"]
         assert str(ROOT / "src") in env["PYTHONPATH"].split(os.pathsep)
     assert spawned[-1][0][-1] == "--join" and spawned[-1][0][cmd.index("--host") + 1] == "5"
+
+
+def _dtensor_guard_worker(rank, world):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.meshutil import device_mesh
+
+    mesh = device_mesh((1, 1), device="cpu")
+
+    def dt(*shape):
+        return DTensor.from_local(torch.randn(shape), mesh, [Replicate(), Replicate()])
+
+    q, k, lse = dt(1, 8, 2, 16), dt(1, 8, 1, 16), dt(1, 2, 8)
+    x, w = dt(8, 32), dt(32)
+    calls = {
+        "flash_fwd": lambda: fa_ops.flash_fwd(q, k, k),
+        "flash_bwd_dq": lambda: fa_ops.flash_bwd_dq(q, k, k, q, lse, lse),
+        "flash_bwd_dkv": lambda: fa_ops.flash_bwd_dkv(q, k, k, q, lse, lse),
+        "rmsnorm_fwd": lambda: rn_ops.rms_norm_fwd(x, w),
+        "rmsnorm_bwd": lambda: rn_ops.rms_norm_bwd(x, w, x),
+        "rglru_fwd": lambda: rg_ops.rglru_fwd(x[None], x[None]),
+    }
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except TypeError as exc:
+            refused[name] = str(exc)
+    shared = {}
+    for allow in (False, True):
+        try:
+            device_mesh((1, 1), device="cuda", allow_shared_card=allow)
+            shared[allow] = None
+        except ValueError as exc:
+            shared[allow] = str(exc)
+    return refused, shared
+
+
+def test_kernel_wrappers_refuse_dtensors_and_device_mesh_refuses_a_shared_card():
+    """A DTensor that reaches a kernel wrapper raises TypeError naming the
+    kernel (the model hands kernels local shards), and ``device_mesh`` on
+    "cuda" refuses more ranks than cards unless ``allow_shared_card`` (one
+    rank, no card here)."""
+    from repro_torch.dist.spawn import run_ranks
+
+    refused, shared = run_ranks(_dtensor_guard_worker, 1)[0]
+    for name, message in refused.items():
+        assert message is not None and message.startswith(f"{name}: got a DTensor"), (name,
+                                                                                       message)
+    assert "pass allow_shared_card=True" in shared[False]
+    assert "needs a CUDA device" in shared[True]

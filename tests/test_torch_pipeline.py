@@ -23,6 +23,7 @@ from repro.dist.pipeline import gpipe_forward as jax_gpipe_forward
 from repro.dist.pipeline import phase_ticks as jax_phase_ticks
 from repro_torch.dist import meshutil
 from repro_torch.dist.meshutil import Mesh, local_mesh, pipeline_submeshes, remove_host
+from repro_torch.dist.sharding import PartitionSpec
 from repro_torch.dist.pipeline import (
     PipelineStep,
     StagePlan,
@@ -344,9 +345,15 @@ def test_pipeline_step_validation():
         PipelineStep(_layer_fn, None, mesh=mesh, axis="pod", n_micro=2)
     with pytest.raises(ValueError, match="n_micro must be >= 1"):
         PipelineStep(_layer_fn, _loss_fn, mesh=mesh, axis="pod", n_micro=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    # a stage spec may shard the slot dimension over the pipeline axis only
+    with pytest.raises(NotImplementedError, match="not collective-aware"):
         PipelineStep(_layer_fn, _loss_fn, mesh=mesh, axis="pod", n_micro=2,
-                     stage_spec=object())
+                     stage_spec={"w": PartitionSpec("pod", None, "model")})
+    with pytest.raises(ValueError, match="must be the pipeline axis 'pod'"):
+        PipelineStep(_layer_fn, _loss_fn, mesh=mesh, axis="pod", n_micro=2,
+                     stage_spec=PartitionSpec("data"))
+    assert PipelineStep(_layer_fn, _loss_fn, mesh=mesh, axis="pod", n_micro=2,
+                        stage_spec=PartitionSpec("pod")).stage_spec == ("pod",)
     hooked = PipelineStep(_layer_fn, None, mesh=mesh, axis="pod", n_micro=2,
                           first_fn=lambda p, t: t, last_fn=lambda p, y, t: _loss_fn(y, t))
     with pytest.raises(ValueError, match="first_params/last_params are required"):
