@@ -307,6 +307,29 @@ caught):
     It prints each rank's peak memory and time in collectives (the
     ``dist/collective/*`` timers), the median step, the card's name and
     power limit, and that 4 ranks share one card over gloo.
+29. the pipeline with one process a stage (``_procs_phase``): 4 processes
+    on the card (``dist.spawn.run_ranks``, gloo, each capped at
+    PROCS_MEMORY_FRACTION of it) on a ``("pod",)`` ``DeviceMesh``, phase
+    26 (b)'s full-width llama3.2-1b, 16 units over 4 stages and 8
+    microbatches of 1 x 1024, each process holding only its units, its
+    pinned pieces (the embedding on rank 0; the final norm and the tied
+    table on rank 3) and their AdamW state, the rings point-to-point
+    messages staged through pinned host memory: (a) the loss and every
+    gradient leaf, gathered to rank 0, bit-equal to phase 26 (b)'s single
+    controller (SHA-1 of each leaf), each process's launches exactly its
+    stage's share and their sum (b)'s; (b) stage 1 derated to 0.5 (depths
+    5/3/4/4, the units moved between the processes): bit-equal again; (c)
+    one AdamW step: every parameter bit-equal to phase 26 (c)'s first
+    step, the tied table's two copies bit-identical; a warm step profiled
+    on rank 0 (busy share of its own kernels, device operations) beside
+    phase 26 (c)'s; (d) ``run_training`` on the 4 processes for 4 steps,
+    each rank's launches exact, its median step, phase seconds, P2P calls,
+    bytes and seconds and peak memory printed; (e) cut to 4 layers, 4
+    steps uninterrupted, and 2 steps saved (gathered to rank 0) then
+    resumed on 2 processes (started beside the 4, they wait for the save):
+    the resumed losses equal the uninterrupted run's.  It prints each
+    process's wall-clock parts.  The kernels' record adds each kernel's launches by rank in
+    (d) under ``pipeline_procs``.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -2242,6 +2265,8 @@ def _pipeline_ranks_phase(torch, K):
     launches = _read_counters(K)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert launches == want, (launches, want)
+    # what phase 29's processes are held to, bit for bit
+    ref = {"loss": loss_e, "grads": {name: _digest(torch, g) for name, g in zip(names, g_e)}}
     depths_equal = plan.depths()
     plan.set_weight(1, 0.5)
     _zero_counters(K)
@@ -2282,6 +2307,7 @@ def _pipeline_ranks_phase(torch, K):
     params, opt_state, metrics = built.fn(params, opt_state, batch)
     float(metrics["loss"])
     torch.cuda.synchronize()
+    ref["params1"] = {name: _digest(torch, leaf) for name, leaf in _named_leaves(params)}
     phase_s.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2293,6 +2319,7 @@ def _pipeline_ranks_phase(torch, K):
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     ticks = PIPE_RANK_MICRO + 2 * PIPE_RANKS - 1
+    ref["warm"] = dict(wall_s=wall, busy=device_s / wall, ops=sum(e.count for e in kernels))
     _print(f"[profile-train pipeline {PIPE_RANKS} ranks] one warm step (AdamW included): "
            f"wall_s={wall:.4f} device_kernel_s={device_s:.4f} device_busy_share="
            f"{device_s / wall:.4f} device_operations={sum(e.count for e in kernels)} "
@@ -2323,21 +2350,30 @@ def _pipeline_ranks_phase(torch, K):
            f"({worst}; limit {F32_ATOL})")
     del built, params, batch, g_p, g_n
     _free(torch)
-    return launches
+    return launches, ref
+
+
+def _digest(torch, t) -> str:
+    """SHA-1 of a tensor's bytes: phase 29 holds its leaves bit for bit."""
+    import hashlib
+
+    host = t.detach().contiguous().cpu().reshape(-1)
+    return hashlib.sha1(host.view(torch.uint8).numpy()).hexdigest()
 
 
 def _pipeline_phase(torch, F, K, gen):
     """Phase 26: llama3.2-1b through the 1F1B pipeline schedule (module
-    docstring).  Returns the kernels' rows at one microbatch's shapes and
-    the launches of (a) and (b)."""
+    docstring).  Returns the kernels' rows at one microbatch's shapes, the
+    launches of (a) and (b), and (b)'s and (c)'s results that phase 29 is
+    held to."""
     t0 = time.perf_counter()
     rows = _pipeline_kernels_phase(torch, F, K, gen)
     _free(torch)
     launches = {"pipeline": _pipeline_launcher_phase(torch, K)}
     _free(torch)
-    launches["pipeline_4"] = _pipeline_ranks_phase(torch, K)
+    launches["pipeline_4"], ref = _pipeline_ranks_phase(torch, K)
     _print(f"[pipeline] phase 26 took {time.perf_counter() - t0:.1f} s")
-    return rows, launches
+    return rows, launches, ref
 
 
 # phase 27: the serving soak's wall-clock budget and scrape cadence, the
@@ -2768,6 +2804,406 @@ def _dist_train_phase(torch, F, K, gen, train_losses):
 
 
 
+# phase 29: llama3.2-1b through the 1F1B schedule with one process a stage:
+# PIPE_RANKS processes sharing the card (gloo, the ring messages staged
+# through pinned host memory), phase 26 (b)'s 16 units over 4 stages and
+# PIPE_RANK_MICRO microbatches of batch PIPE_RANK_BATCH x TRAIN_SEQ, each
+# process capped at PROCS_MEMORY_FRACTION of the card on expandable
+# segments; then run_training on them for PROCS_STEPS steps; and, cut to
+# PROCS_CKPT_LAYERS layers (one unit a stage: at full depth the 17.3 GB
+# save and its restore took ~110 s of a development call's 186 s),
+# PROCS_STEPS steps uninterrupted and PROCS_SAVE_AT steps saved, resumed
+# on PROCS_RESUME processes (capped at PROCS_RESUME_FRACTION: each holds
+# twice the units), which start with the 4 and wait for their save.  The
+# uninterrupted run and the saved one stay two runs: run_training always
+# saves at shutdown, so a save at label PROCS_SAVE_AT inside the 4-step
+# run would add a second save, which costs more than the 2-step run.
+PROCS_MEMORY_FRACTION, PROCS_RESUME_FRACTION = 0.22, 0.3
+PROCS_STEPS, PROCS_SAVE_AT, PROCS_RESUME, PROCS_CKPT_LAYERS = 4, 2, 2, 4
+PROCS_NOTE = f"{PIPE_RANKS} processes sharing one card, gloo; not a multi-card number"
+
+
+def _pipeline_rank_launches(cfg, n_micro, depth, last) -> dict[str, int]:
+    """Kernel launches of one pipelined step on a rank that holds ``depth``
+    units (``_pipeline_launches`` of those units); the final norm's only on
+    the last rank.  The ranks' shares add up to ``_pipeline_launches``."""
+    from repro_torch.models.model import decoder_pattern
+
+    out = _pipeline_launches(cfg.replace(n_layers=depth * len(decoder_pattern(cfg))), n_micro)
+    if not last:
+        out["rmsnorm_fwd"] -= n_micro
+        out["rmsnorm_bwd"] -= n_micro
+    return out
+
+
+class _StepClock:
+    """A controller that stamps every poll of the control loop (one an
+    iteration, after the step): the differences are a rank's step times."""
+
+    name = "step_clock"
+    channels = ()
+
+    def __init__(self):
+        self.stamps = []
+
+    def control(self, step, measurements):
+        self.stamps.append(time.perf_counter())
+        return []
+
+
+def _procs_train(torch, K, root, name, world, steps, ckpt=None, n_layers=None):
+    """``run_training`` of full-width llama3.2-1b (cut to ``n_layers``) on
+    this process's pipeline rank: {summary's pipeline block, launches, step
+    times, peak memory, wall; rank 0: the losses}."""
+    from repro_torch.core import TimerLogger
+    from repro_torch.core.clocks import reset_default_clocks
+    from repro_torch.core.params import reset_param_registry
+    from repro_torch.core.timers import reset_timer_db
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.timing import TimingSession
+
+    reset_timer_db()
+    reset_param_registry()
+    reset_default_clocks()
+    log_path = os.path.join(root, f"{name}.jsonl")
+    settings = TrainSettings(
+        arch="llama3.2-1b", smoke=False, steps=steps, global_batch=PIPE_RANK_BATCH,
+        seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED, report_every=0, log_path=log_path,
+        device=DEVICE, lr_total_steps=PROCS_STEPS, pipeline_stages=world, pipeline_model=True,
+        pipeline_micro=PIPE_RANK_MICRO, allow_shared_card=True, ckpt_dir=ckpt,
+        ckpt_mode="fixed" if ckpt and steps < PROCS_STEPS else "off", ckpt_every=1000)
+    sess = TimingSession()
+    clock = _StepClock()
+    sess.control_loop.register(clock)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(K)
+    t0 = time.perf_counter()
+    cfg = _train_cfg("llama3.2-1b")
+    summary = run_training(settings, cfg=cfg if n_layers is None else cfg.replace(
+        n_layers=n_layers), session=sess)
+    torch.cuda.synchronize()
+    out = dict(pipeline=summary["pipeline"], launches=_read_counters(K),
+               wall_s=time.perf_counter() - t0,
+               step_s=[b - a for a, b in zip(clock.stamps, clock.stamps[1:])],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               restore_s=sess.db.get("STARTUP/restore").seconds()
+               if sess.db.exists("STARTUP/restore") else 0.0)
+    if torch.distributed.get_rank() == 0:
+        out["losses"] = [r["extra"]["loss"] for r in TimerLogger(log_path, sess.db).read_all()]
+    del sess, summary
+    _free(torch)
+    return out
+
+
+def _procs_kernels(fraction):
+    """This process's kernels, built (cached) and loaded, counters at 0."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru import ops as rg
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rwkv6 import ops as wk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    build.build_all()
+    return types.SimpleNamespace(fa=fa, rn=rn, rg=rg, wk=wk)
+
+
+def _procs_rank(rank, world, ref, root):
+    """One process of phase 29: the pipelined call held to phase 26 (b),
+    the restaged plan, one AdamW step held to phase 26 (c), a profiled warm
+    step (rank 0), then ``run_training`` uninterrupted and saved."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.dist.pipeline import StagePlan
+    from repro_torch.launch.steps import make_transformer_pipeline_train_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    marks = [("entered", time.time())]  # the wall clock: the parent's spawn included
+    K = _procs_kernels(PROCS_MEMORY_FRACTION)
+    marks.append(("kernels loaded", time.time()))
+    mesh = device_mesh((world,), ("pod",), DEVICE, allow_shared_card=True)
+    cfg = _train_cfg("llama3.2-1b")
+    plan = StagePlan.equal(range(world), cfg.n_layers)
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def timed_phase(name):
+        t0 = time.perf_counter()
+        yield  # the step synchronizes the card before the scope closes
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+
+    built = make_transformer_pipeline_train_step(
+        cfg, mesh, plan, seq_len=TRAIN_SEQ, global_batch=PIPE_RANK_BATCH,
+        n_micro=PIPE_RANK_MICRO, seed=SEED, device=DEVICE, phase_cb=timed_phase,
+        peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    params = built.init_params()
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, PIPE_RANK_BATCH, mode="copy",
+                                       seed=SEED), arch=cfg).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    out = {"held": [name for name in params]}
+    marks.append(("step built", time.time()))
+
+    def call(tag):
+        """One loss-and-gradient call: this rank's launches and units; on
+        rank 0 the loss and the gathered gradient's digests."""
+        _zero_counters(K)
+        dist.barrier()
+        marks.append((f"({tag} barrier)", time.time()))
+        loss, grads = built.pipeline_call(params, batch)
+        torch.cuda.synchronize()
+        marks.append((f"({tag} call)", time.time()))
+        out[f"{tag}_launches"] = _read_counters(K)
+        out[f"{tag}_units"] = built.share.units
+        whole, _ = built.share.gather(grads, {})
+        marks.append((f"({tag} gathered)", time.time()))
+        if rank == 0:
+            out[f"{tag}_loss"] = loss.item()
+            out[f"{tag}_grads"] = {n: _digest(torch, g) for n, g in _named_leaves(whole)}
+        marks.append((f"({tag} digests)", time.time()))
+
+    call("equal")
+    plan.set_weight(1, 0.5)  # phase 26 (b)'s restage: depths 5/3/4/4
+    params, _ = built.share.restage(params, {})
+    call("restaged")
+    # one AdamW step from the seed's weights, as phase 26 (c)'s first
+    opt_state = init_opt_state(AdamWConfig(), params)
+    params, opt_state, metrics = built.fn(params, opt_state, batch)
+    float(metrics["loss"])
+    whole, _ = built.share.gather(params, {})
+    if rank == 0:
+        out["params1"] = {n: _digest(torch, leaf) for n, leaf in _named_leaves(whole)}
+    del whole
+    out["embed"] = _digest(torch, params["embed"]["tokens"]) if "embed" in params else None
+    marks.append(("(c)", time.time()))
+    # a warm step, profiled on rank 0
+    phase_s.clear()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else contextlib.nullcontext()
+    with prof:
+        dist.barrier()  # every rank starts its clock with the profiler running
+        t0 = time.perf_counter()
+        params, opt_state, metrics = built.fn(params, opt_state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["warm"] = dict(wall_s=wall, phase_s=dict(phase_s))
+    if rank == 0:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        out["warm"].update(device_s=device_s, busy=device_s / wall,
+                           ops=sum(e.count for e in kernels),
+                           top=[(e.self_device_time_total / 1e3, e.count, e.key[:90])
+                                for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+                                [:6]])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del built, params, opt_state, metrics, prof
+    _free(torch)
+    marks.append(("warm step", time.time()))
+    out["run"] = _procs_train(torch, K, root, "uninterrupted", world, PROCS_STEPS)
+    marks.append(("(d) run_training", time.time()))
+    out["cut"] = _procs_train(torch, K, root, "cut", world, PROCS_STEPS,
+                              n_layers=PROCS_CKPT_LAYERS)
+    marks.append(("(e) uninterrupted", time.time()))
+    out["saved"] = _procs_train(torch, K, root, "saved", world, PROCS_SAVE_AT,
+                                ckpt=os.path.join(root, "ckpt"), n_layers=PROCS_CKPT_LAYERS)
+    marks.append(("(e) saved", time.time()))
+    out["marks"] = marks
+    return out
+
+
+def _procs_resume_rank(rank, world, root, go):
+    """One process of phase 29's resume: started beside the 4 processes,
+    it waits for the file ``go`` (written once they have returned: "go",
+    or "stop" if they failed), then ``run_training`` restores their save
+    and trains to PROCS_STEPS."""
+    import torch
+
+    marks = [("entered", time.time())]
+    K = _procs_kernels(PROCS_RESUME_FRACTION)
+    marks.append(("kernels loaded", time.time()))
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    marks.append(("waited for the save", time.time()))
+    with open(go) as fh:
+        if fh.read() != "go":
+            return None
+    out = _procs_train(torch, K, root, "resumed", world, PROCS_STEPS,
+                       ckpt=os.path.join(root, "ckpt"), n_layers=PROCS_CKPT_LAYERS)
+    out["marks"] = marks + [("(e) resumed", time.time())]
+    return out
+
+
+def _procs_phase(torch, ref):
+    """Phase 29: full-width llama3.2-1b through the 1F1B schedule with one
+    process a stage (module docstring), held to phase 26's single
+    controller (``ref``).  Returns the uninterrupted run's launches by
+    rank."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.dist.pipeline import StagePlan
+    from repro_torch.dist.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    tag = f"[pipeline procs {PIPE_RANKS}]"
+    smi = _smi()
+    cfg = _train_cfg("llama3.2-1b")
+    kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF  # read by each rank's allocator
+    try:
+        with tempfile.TemporaryDirectory(dir=_ckpt_root()) as root:
+            digests = {k: ref[k] for k in ("loss", "grads", "params1")}
+            go = os.path.join(root, "resume_go")
+            t1, w1 = time.perf_counter(), time.time()
+            with ThreadPoolExecutor(1) as pool:
+                # the resume's processes start beside the 4 (their start-up
+                # overlaps the 4's work) and wait for the save
+                later = pool.submit(run_ranks, _procs_resume_rank, PROCS_RESUME, root, go,
+                                    device=DEVICE)
+                word = "stop"
+                try:
+                    ranks = run_ranks(_procs_rank, PIPE_RANKS, digests, root, device=DEVICE)
+                    word = "go"
+                finally:
+                    t2, w2 = time.perf_counter(), time.time()
+                    with open(go + ".tmp", "w") as fh:
+                        fh.write(word)
+                    os.replace(go + ".tmp", go)
+                labels = sorted(os.listdir(os.path.join(root, "ckpt")))
+                resumed = later.result()
+            t3, w3 = time.perf_counter(), time.time()
+    finally:
+        if kept is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+    lead = ranks[0]
+    n_leaves = len(ref["grads"])
+
+    def differ(got, want):
+        assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+        return [name for name in want if got[name] != want[name]]
+
+    # (a) the equal plan against phase 26 (b)'s single controller
+    moved = differ(lead["equal_grads"], ref["grads"])
+    assert lead["equal_loss"] == ref["loss"], (lead["equal_loss"], ref["loss"])
+    assert not moved, f"gradient leaves that differ from the single controller's: {moved}"
+    plans = {"equal": StagePlan.equal(range(PIPE_RANKS), cfg.n_layers)}
+    plans["restaged"] = StagePlan(n_layers=cfg.n_layers, weights={
+        **plans["equal"].weights, 1: 0.5})
+    want_sum = _pipeline_launches(cfg, PIPE_RANK_MICRO)
+    for name, plan in plans.items():
+        depths = plan.depths()
+        for rank, r in enumerate(ranks):
+            assert r[f"{name}_units"] == plan.boundaries()[rank], (name, rank, r[f"{name}_units"])
+            want = _pipeline_rank_launches(cfg, PIPE_RANK_MICRO, depths[rank],
+                                           rank == PIPE_RANKS - 1)
+            assert r[f"{name}_launches"] == want, (name, rank, r[f"{name}_launches"], want)
+        total = {k: sum(r[f"{name}_launches"][k] for r in ranks) for k in want_sum}
+        assert total == want_sum, (name, total, want_sum)
+        _print(f"{tag} ({'a' if name == 'equal' else 'b'}) {name} plan, depths {depths}: "
+               f"launches by rank {[r[f'{name}_launches'] for r in ranks]} (each rank its "
+               f"stage's share), summed {total} = phase 26 (b)'s {want_sum}")
+    assert lead["restaged_loss"] == lead["equal_loss"]
+    moved = differ(lead["restaged_grads"], lead["equal_grads"])
+    assert not moved, f"leaves whose gradient changed with the restage: {moved}"
+    _print(f"{tag} (a) {cfg.name} full width, bf16, {PIPE_RANK_MICRO} microbatches of batch "
+           f"{PIPE_RANK_BATCH // PIPE_RANK_MICRO} x seq {TRAIN_SEQ}, {PIPE_RANKS} processes "
+           f"holding {[r['held'] for r in ranks]}: loss {lead['equal_loss']:.6f} and every one "
+           f"of {n_leaves} gradient leaves (gathered to rank 0) bit-equal to phase 26 (b)'s "
+           f"single controller; (b) the restaged plan (stage 1 at weight 0.5, its units moved "
+           f"between the processes) bit-equal to the equal plan")
+    # (c) one AdamW step against phase 26 (c)'s first, and the tied copies
+    moved = differ(lead["params1"], ref["params1"])
+    assert not moved, f"parameters after one AdamW step that differ: {moved}"
+    ends = [r["embed"] for r in ranks]
+    assert ends[0] is not None and ends[0] == ends[-1] and not any(ends[1:-1]), ends
+    _print(f"{tag} (c) one AdamW step (the clip norm from the ranks' per-unit square sums): "
+           f"all {len(ref['params1'])} parameter leaves (gathered to rank 0) bit-equal to phase "
+           f"26 (c)'s single controller; the tied table's two copies (ranks 0 and "
+           f"{PIPE_RANKS - 1}) bit-identical after the step")
+    warm = lead["warm"]
+    ticks = PIPE_RANK_MICRO + 2 * PIPE_RANKS - 1
+    _print(f"[profile-train pipeline procs {PIPE_RANKS}] one warm step (AdamW included), rank "
+           f"0's process: wall_s={warm['wall_s']:.4f} device_kernel_s={warm['device_s']:.4f} "
+           f"device_busy_share={warm['busy']:.4f} (rank 0's own kernels; the card runs "
+           f"{PIPE_RANKS} processes) device_operations={warm['ops']} "
+           f"ms_per_tick={1e3 * warm['wall_s'] / ticks:.3f}; each rank's wall_s and phase_s "
+           f"{[(round(r['warm']['wall_s'], 4), {k: round(v, 4) for k, v in r['warm']['phase_s'].items()}) for r in ranks]}; "
+           f"phase 26 (c)'s single controller in this run: wall_s={ref['warm']['wall_s']:.4f} "
+           f"device_busy_share={ref['warm']['busy']:.4f} device_operations={ref['warm']['ops']}; "
+           f"{smi}; {PROCS_NOTE}")
+    for ms, count, key in warm["top"]:
+        _print(f"[profile-train pipeline procs {PIPE_RANKS}]   {ms:10.3f} ms  x{count:<6d} {key}")
+    # (d) run_training: uninterrupted; at PROCS_CKPT_LAYERS, saved and resumed
+    losses, cut = lead["run"]["losses"], lead["cut"]["losses"]
+    for run in (losses, cut):
+        assert len(run) == PROCS_STEPS and all(math.isfinite(x) for x in run), run
+    assert lead["saved"]["losses"] == cut[:PROCS_SAVE_AT], (lead["saved"]["losses"], cut)
+    assert resumed[0]["losses"] == cut[PROCS_SAVE_AT:], (resumed[0]["losses"], cut)
+    assert labels == [f"step_{PROCS_SAVE_AT:08d}"], labels
+    launches = {}
+    for rank, r in enumerate(ranks):
+        run = r["run"]
+        want = _pipeline_rank_launches(cfg, PIPE_RANK_MICRO, plans["equal"].depths()[rank],
+                                       rank == PIPE_RANKS - 1)
+        assert run["launches"] == {k: v * PROCS_STEPS for k, v in want.items()}, (
+            rank, run["launches"], want)
+        launches[f"rank{rank}"] = run["launches"]
+        pipe = run["pipeline"]
+        assert pipe["mode"] == "processes" and pipe["rank"] == rank and pipe["backend"] == "gloo"
+        median = sorted(run["step_s"])[len(run["step_s"]) // 2]
+        _print(f"{tag} (d) run_training rank {rank}: steps {PROCS_STEPS}, step_s "
+               f"{[round(x, 4) for x in run['step_s']]} (steps 2-{PROCS_STEPS}) median_s="
+               f"{median:.4f}; phase_s_per_step "
+               f"{ {k: round(v / PROCS_STEPS, 5) for k, v in pipe['phase_seconds'].items()} }; "
+               f"P2P calls {pipe['p2p_calls']} bytes "
+               f"{ {k: v for k, v in pipe['p2p_bytes'].items()} } seconds "
+               f"{ {k: round(v, 4) for k, v in pipe['p2p_seconds'].items()} }; launches "
+               f"{run['launches']}; peak memory {run['peak_gb']:.3f} GB (cap "
+               f"{PROCS_MEMORY_FRACTION} of the card; the checks before it "
+               f"{r['peak_gb']:.3f} GB); wall_s {run['wall_s']:.2f}")
+    launches["sum"] = {k: sum(launches[f"rank{r}"][k] for r in range(PIPE_RANKS))
+                       for k in want_sum}
+    assert launches["sum"] == {k: v * PROCS_STEPS for k, v in want_sum.items()}, launches
+    _print(f"{tag} (d) run_training on {PIPE_RANKS} processes, {PROCS_STEPS} steps: losses "
+           f"{[round(x, 6) for x in losses]}; launches summed over the ranks "
+           f"{launches['sum']} = phase 26 (b)'s per step x {PROCS_STEPS}")
+    _print(f"{tag} (e) cut to {PROCS_CKPT_LAYERS} layers (one unit a stage), {PROCS_STEPS} steps "
+           f"uninterrupted: losses {cut} (median step "
+           f"{sorted(lead['cut']['step_s'])[len(lead['cut']['step_s']) // 2]:.4f} s); saved at "
+           f"label {labels} after {PROCS_SAVE_AT} steps (losses {lead['saved']['losses']}, "
+           f"the save gathered to rank 0: {lead['saved']['wall_s']:.1f} s for the run), resumed "
+           f"on {PROCS_RESUME} processes (cap {PROCS_RESUME_FRACTION}; peak memory "
+           f"{[round(r['peak_gb'], 3) for r in resumed]} GB; launches "
+           f"{[r['launches'] for r in resumed]}; wall_s "
+           f"{[round(r['wall_s'], 2) for r in resumed]}, of which restoring "
+           f"{[round(r['restore_s'], 2) for r in resumed]}): losses {resumed[0]['losses']} equal "
+           f"to the uninterrupted run's steps {PROCS_SAVE_AT + 1}-{PROCS_STEPS}")
+    def parts(marks, end):
+        """Seconds of each part of a process's run, from the parent's
+        spawn call to its return."""
+        stamps = [("spawn", w1), *marks, ("returned", end)]
+        return ", ".join(f"{name} {b - a:.1f}" for (_, a), (name, b) in zip(stamps, stamps[1:]))
+
+    for rank, r in enumerate(ranks[1:], 1):
+        _print(f"{tag} rank {rank}'s parts (s): {parts(r['marks'], w2)}")
+    _print(f"[pipeline procs] phase 29 took {time.perf_counter() - t0:.1f} s ({t2 - t1:.1f} s in "
+           f"the {PIPE_RANKS} processes, rank 0's parts: {parts(lead['marks'], w2)}; {t3 - t2:.1f} "
+           f"s more for the {PROCS_RESUME}, started with them, rank 0's parts: "
+           f"{parts(resumed[0]['marks'], w3)}); {smi}; {PROCS_NOTE}")
+    return launches
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2878,7 +3314,7 @@ def main() -> int:
     encdec_train_launches = _encdec_train_phase(torch, K)
     # llama3.2-1b through the 1F1B pipeline schedule: one stage through the
     # launcher, then 4 ranks sharing the card
-    pipe_rows, pipe_launches = _pipeline_phase(torch, F, K, gen)
+    pipe_rows, pipe_launches, pipe_ref = _pipeline_phase(torch, F, K, gen)
     _free(torch)
     # the serving soak at full width under its live /metrics scrape, the
     # training soak, the fault drills, and real multi-process fleets
@@ -2887,6 +3323,10 @@ def main() -> int:
     # full-width llama3.2-1b sharded over a (2, 2) DeviceMesh of 4 processes
     # sharing the card, under "tp" and "tp+fsdp"
     dist_rows, dist_launches = _dist_train_phase(torch, F, K, gen, train_losses)
+    _free(torch)
+    # full-width llama3.2-1b through the 1F1B schedule with one process a
+    # stage (4 sharing the card), held to phase 26's single controller
+    procs_launches = _procs_phase(torch, pipe_ref)
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -2915,7 +3355,10 @@ def main() -> int:
     # longest prefill, S=T=15 and 15 RMSNorm rows); under "dist_train", phase
     # 28's sharded training (rank 0's launches over its two runs; the
     # kernels at a rank's local shapes, B=2 x 1024 with 16/4 heads and 2048
-    # RMSNorm rows)
+    # RMSNorm rows); under "pipeline_procs", phase 29's run_training on 4
+    # processes (each rank's launches over its 4 steps, and their sum; the
+    # kernels at phase 26's one-microbatch shapes, which each process gives
+    # them)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -2935,6 +3378,8 @@ def main() -> int:
     pipe = lambda name: {path: dict(launches=n[name], **pick(pipe_rows[name]))  # noqa: E731
                          for path, n in pipe_launches.items()}
     dist = lambda name: dict(launches=dist_launches[name], **pick(dist_rows[name]))  # noqa: E731
+    procs = lambda name: dict(  # noqa: E731
+        launches={rank: n[name] for rank, n in procs_launches.items()}, **pick(pipe_rows[name]))
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -2963,7 +3408,8 @@ def main() -> int:
              encdec_train=enc_tr("flash_fwd", _role(flash, "encdec_train")),
              **pipe("flash_fwd"),
              soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak"))),
-             dist_train=dist("flash_fwd")),
+             dist_train=dist("flash_fwd"),
+             pipeline_procs=procs("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -2974,7 +3420,8 @@ def main() -> int:
              vlm_train=vlm_tr("flash_bwd_dq", _role(flash_bwd["flash_bwd_dq"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dq",
                                  _role(flash_bwd["flash_bwd_dq"], "encdec_train")),
-             **pipe("flash_bwd_dq"), dist_train=dist("flash_bwd_dq")),
+             **pipe("flash_bwd_dq"), dist_train=dist("flash_bwd_dq"),
+             pipeline_procs=procs("flash_bwd_dq")),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
@@ -2985,7 +3432,8 @@ def main() -> int:
              vlm_train=vlm_tr("flash_bwd_dkv", _role(flash_bwd["flash_bwd_dkv"], "vlm_train")),
              encdec_train=enc_tr("flash_bwd_dkv",
                                  _role(flash_bwd["flash_bwd_dkv"], "encdec_train")),
-             **pipe("flash_bwd_dkv"), dist_train=dist("flash_bwd_dkv")),
+             **pipe("flash_bwd_dkv"), dist_train=dist("flash_bwd_dkv"),
+             pipeline_procs=procs("flash_bwd_dkv")),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -3001,7 +3449,8 @@ def main() -> int:
              encdec_train=enc_tr("rmsnorm_fwd", fwd_1024), **pipe("rmsnorm_fwd"),
              soak=dict(launches=soak_launches["rmsnorm_fwd"],
                        **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16"))),
-             dist_train=dist("rmsnorm_fwd")),
+             dist_train=dist("rmsnorm_fwd"),
+             pipeline_procs=procs("rmsnorm_fwd")),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
@@ -3010,7 +3459,8 @@ def main() -> int:
              moe_train=moe_tr("rmsnorm_bwd", bwd_2048),
              vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144),
              encdec_train=enc_tr("rmsnorm_bwd", bwd_1024), **pipe("rmsnorm_bwd"),
-             dist_train=dist("rmsnorm_bwd")),
+             dist_train=dist("rmsnorm_bwd"),
+             pipeline_procs=procs("rmsnorm_bwd")),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),

@@ -307,7 +307,8 @@ def _to_tensor(arr: np.ndarray, logical_dtype: str) -> torch.Tensor:
 
 
 def load_checkpoint(
-    path: str, device: str | torch.device | None = None, verify: bool = True
+    path: str, device: str | torch.device | None = None, verify: bool = True,
+    mmap: bool = False,
 ) -> tuple[int, Any, dict[str, Any]]:
     """Load one checkpoint directory. Returns (step, tree, metadata).
 
@@ -315,7 +316,10 @@ def load_checkpoint(
     With ``verify=True`` (default) the directory passes the full
     :func:`validate_checkpoint` gate *before* any ``np.load`` — corrupt data
     is never deserialized.  ``verify=False`` skips re-hashing for callers that
-    just validated (e.g. the manager's resume path).
+    just validated (e.g. the manager's resume path).  ``mmap`` maps each
+    leaf's file copy-on-write instead of reading it: a caller that keeps a
+    part of each leaf, as a process of a sharded or pipelined run does,
+    reads only that part, and writes to a leaf never reach the file.
     """
     if verify:
         manifest = validate_checkpoint(path)
@@ -326,7 +330,7 @@ def load_checkpoint(
             manifest = json.load(f)
     leaves = []
     for entry in manifest["leaves"]:
-        arr = np.load(os.path.join(path, entry["file"]))
+        arr = np.load(os.path.join(path, entry["file"]), mmap_mode="c" if mmap else None)
         t = _to_tensor(arr, entry["dtype"])
         leaves.append(t if device is None else t.to(device))
     tree = _rebuild(manifest["skeleton"], leaves)

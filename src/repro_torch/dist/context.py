@@ -22,7 +22,7 @@ wrapped back into a ``DTensor``; autograd runs through both conversions.
 from __future__ import annotations
 
 import contextlib
-import functools
+import sys
 import threading
 from collections.abc import Callable, Iterator, Sequence
 from typing import Any
@@ -37,13 +37,11 @@ __all__ = ["use_sharding", "current_sharding", "constrain", "gather_fsdp", "is_d
 _STATE = threading.local()
 
 
-@functools.cache
 def _dtensor_type():
-    try:
-        from torch.distributed.tensor import DTensor
-    except ImportError:  # a torch built without distributed support
-        return None
-    return DTensor
+    """DTensor's class once its module is loaded; None before that, when no
+    tensor can be a DTensor (so a process that never shards does not pay
+    the seconds that importing DTensor costs)."""
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor", None)
 
 
 def is_dtensor(x: Any) -> bool:

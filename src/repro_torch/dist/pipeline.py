@@ -2,12 +2,26 @@
 and the fleet-level assignment plans above them.
 
 The reference runs both schedules as one SPMD program (``shard_map`` over
-the pipeline axis with ``ppermute`` rings).  The port keeps its single
-controller and its tick formulas: pipeline rank ``d`` computes on
-``mesh.devices[d]`` (the first device of its submesh), and a ring send is a
-``.to()`` onto the next rank's device, delivered at tick ``t + 1``.  Several
-ranks may share one device when the :class:`~repro_torch.dist.meshutil.Mesh`
-is built that way; they then run one after another.
+the pipeline axis with ``ppermute`` rings).  The port runs them in one of
+two modes, with the reference's tick formulas in both:
+
+* **single controller** (a :class:`~repro_torch.dist.meshutil.Mesh`): one
+  process drives every rank; pipeline rank ``d`` computes on
+  ``mesh.devices[d]`` (the first device of its submesh), and a ring send is
+  a ``.to()`` onto the next rank's device, delivered at tick ``t + 1``.
+  Several ranks may share one device when the ``Mesh`` is built that way;
+  they then run one after another.
+* **processes** (a 1-d ``("pod",)`` ``DeviceMesh`` over a process group,
+  ``meshutil.device_mesh``): one process a rank, its pipeline rank its rank
+  in the mesh.  Each process holds only its own stage's parameters and runs
+  only its own rank's half of every tick; a ring send is a point-to-point
+  message (``dist.p2p``: host-staged on gloo, device tensors on NCCL),
+  posted with the tick's receives in one batch at the end of the tick and
+  delivered at tick ``t + 1``.  A receiver knows from the tick formulas
+  alone whether a message comes, and its shape and dtype from the
+  activation's; nothing is sent on the rings' wrap-around edges.  Ranks
+  that share a card are separate processes whose kernels the card
+  time-slices.
 
 ``gpipe_forward`` places consecutive layer stages on consecutive ranks and
 streams microbatches through them: at tick ``t`` rank 0 ingests microbatch
@@ -27,7 +41,10 @@ per-slot parameter gradients, driven by one global tick clock ``t``:
 Ticks ``[0, S)`` are **warmup**, ``[S, M + S - 1)`` **steady state** and
 ``[M + S - 1, M + 2S - 1)`` **cooldown**; :func:`phase_ticks` exposes these
 ranges and :class:`PipelineStep` runs them as three timed segments when
-given ``phase_cb``.  Each rank keeps only its in-flight stage inputs in a
+given ``phase_cb`` (in the process mode every rank times its own ticks of
+each phase, and the ranks meet at a barrier before each phase, as the
+reference's three separately dispatched segments all devices enter
+together).  Each rank keeps only its in-flight stage inputs in a
 ring stash of ``min(2S, M)`` slots; the backward recomputes the rank's
 stage from the stashed input under autograd (the stage recompute is the
 remat) and takes the VJP with ``torch.autograd.grad``.
@@ -62,11 +79,15 @@ from ..models.layers import tree_leaves, tree_map
 from .meshutil import Mesh, pipeline_submeshes
 from .sharding import PartitionSpec
 
+#: message tags of the two rings
+_FWD, _BWD = 0, 1
+
 __all__ = [
     "MicrobatchPlan",
     "PipelineStep",
     "StagePlan",
     "gpipe_forward",
+    "is_process_mesh",
     "phase_ticks",
     "pipeline_step",
 ]
@@ -336,6 +357,50 @@ def _rank_devices(mesh: Mesh, axis: str) -> list[torch.device]:
     return [sub.devices.flat[0] for sub in pipeline_submeshes(mesh, axis)]
 
 
+@dataclass
+class _Procs:
+    """This process's place on a ``DeviceMesh`` pipeline axis."""
+
+    rank: int             # pipeline rank: this process's rank in the mesh axis
+    size: int             # pipeline depth S
+    peers: list           # global rank of each pipeline rank
+    group: Any            # the axis's process group
+    device: torch.device  # where this process computes
+    transport: Any        # dist.p2p.Transport over the group
+
+
+def is_process_mesh(mesh: Any) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (one process a rank) rather
+    than the single controller's :class:`Mesh`."""
+    return not isinstance(mesh, Mesh) and hasattr(mesh, "mesh_dim_names")
+
+
+def _procs(mesh: Any, axis: str) -> _Procs:
+    """The process mode's view of ``axis`` on a 1-d ``DeviceMesh``."""
+    import torch.distributed as dist
+
+    from .p2p import Transport
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != (axis,):
+        raise ValueError(f"the process mode pipelines over a 1-d ({axis!r},) DeviceMesh, "
+                         f"got axes {names}")
+    group = mesh.get_group(axis)
+    size = mesh.size()
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(mesh.device_type)
+    transport = Transport(device, group)
+    if transport.backend == "nccl":
+        # NCCL needs every rank of the group in its first collective, and a
+        # tick's batch_isend_irecv leaves out the ranks that post nothing
+        dist.barrier(group=group, device_ids=[device.index])
+    return _Procs(rank=mesh.get_local_rank(axis), size=size,
+                  peers=[dist.get_global_rank(group, r) for r in range(size)], group=group,
+                  device=device, transport=transport)
+
+
 def _check_preserved(out: torch.Tensor, shape, dtype, what: str = "layer_fn") -> None:
     if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
         raise ValueError(
@@ -365,7 +430,13 @@ def gpipe_forward(
     be a multiple of the mesh axis size (each rank runs a contiguous group of
     stages) and ``x.shape[0]`` a multiple of ``n_micro``.  Returns the output
     on ``x``'s device.
+
+    On a ``DeviceMesh`` (the process mode) ``stage_params`` holds this
+    rank's own contiguous group of stages, every rank passes the same
+    ``x``, and every rank gets the output (the last rank broadcasts it).
     """
+    if is_process_mesh(mesh):
+        return _gpipe_procs(layer_fn, stage_params, x, _procs(mesh, axis), n_micro)
     n_stages = int(stage_params.shape[0])
     axis_size = int(mesh.shape[axis])
     if n_stages % axis_size != 0:
@@ -408,6 +479,40 @@ def gpipe_forward(
     return torch.cat(outputs, dim=0)
 
 
+def _gpipe_procs(layer_fn, stage_params, x, pr: _Procs, n_micro: int) -> torch.Tensor:
+    """:func:`gpipe_forward` on one process: this rank's ticks."""
+    batch = int(x.shape[0])
+    if batch % n_micro != 0:
+        raise ValueError(f"batch {batch} not divisible by n_micro={n_micro}")
+    micro = x.reshape((n_micro, batch // n_micro) + tuple(x.shape[1:]))
+    d, s, dev = pr.rank, pr.size, pr.device
+    block = [stage_params[i].to(dev) for i in range(int(stage_params.shape[0]))]
+    outputs: list[torch.Tensor] = []
+    inflight = None
+    with torch.no_grad():
+        for t in range(n_micro + s - 1):
+            sends = []
+            mf = t - d
+            if 0 <= mf < n_micro:
+                act = micro[mf].to(dev) if d == 0 else inflight
+                for w in block:
+                    out = layer_fn(w, act)
+                    _check_preserved(out, micro.shape[1:], x.dtype)
+                    act = out
+                if d == s - 1:
+                    outputs.append(act)
+                else:
+                    sends.append((pr.peers[d + 1], act, _FWD))
+            # what rank d - 1 produced at tick t reaches rank d at tick t + 1
+            recvs = ([(pr.peers[d - 1], tuple(micro.shape[1:]), x.dtype, _FWD)]
+                     if d > 0 and 0 <= t + 1 - d < n_micro else [])
+            got = pr.transport.exchange(sends, recvs, pooled=True)
+            inflight = got[0] if recvs else None
+    out = (torch.cat(outputs, dim=0) if d == s - 1
+           else torch.empty(x.shape, dtype=x.dtype, device=dev))
+    return pr.transport.broadcast(out, pr.peers[s - 1]).to(x.device)
+
+
 # ---------------------------------------------------------------------------
 # 1F1B training schedule
 # ---------------------------------------------------------------------------
@@ -444,9 +549,11 @@ def _accumulate(acc_leaves: list[torch.Tensor], grads, row: int | None = None) -
 @dataclass
 class _Call:
     """One call's inputs, accumulators and the schedule's state between
-    ticks (and between phase segments)."""
+    ticks (and between phase segments).  Per-rank entries are keyed by
+    pipeline rank: every rank in the single controller, this process's own
+    in the process mode."""
 
-    slots: list           # per rank: (slot row, its leaves on the rank's device)
+    slots: dict           # per rank: (slot row, its leaves on the rank's device)
     micro: torch.Tensor   # (M, micro batch, ...) inputs
     tmicro: torch.Tensor  # (M, micro batch, ...) targets
     gacc: list            # per-slot gradient accumulators, flat like stage_params
@@ -454,7 +561,7 @@ class _Call:
     last: Any             # last_params' leaves on the last rank's device (hooks)
     facc: list            # first_params' gradient accumulators
     lacc: list            # last_params' gradient accumulators
-    stash: list           # per rank: ring of (stage input, loss seed) by slot
+    stash: dict           # per rank: ring of (stage input, loss seed) by slot
     loss: torch.Tensor    # f32, on the last rank's device
     recv_f: list          # activation each rank receives at this tick
     recv_b: list          # activation gradient each rank receives
@@ -494,6 +601,14 @@ class PipelineStep:
     whose leaves share the leading slot dimension (e.g. a transformer block
     stack) — :meth:`StagePlan.pack` produces either.
 
+    On a ``DeviceMesh`` (the process mode, module docstring) each process
+    passes only its own rank's slots (any number; ``stage_mask`` covers
+    those), every rank passes the same ``x`` and ``targets``,
+    ``first_params`` is needed on rank 0 only and ``last_params`` on the
+    last rank only, and the result is this rank's: its slots' gradients,
+    ``first_grads`` on rank 0 and ``last_grads`` on the last rank (``None``
+    elsewhere), and the loss on every rank (the last rank broadcasts it).
+
     Parameters
     ----------
     layer_fn:
@@ -505,8 +620,10 @@ class PipelineStep:
         evaluated (and differentiated) on the last rank only.  ``None`` is
         allowed iff ``last_fn`` is given (the head then owns the loss).
     mesh / axis:
-        The pipeline mesh axis.  The slot count must be a multiple of the
-        axis size; each rank runs a contiguous slot block.
+        The pipeline mesh axis: a :class:`Mesh` (the single controller; the
+        slot count must be a multiple of the axis size and each rank runs a
+        contiguous slot block) or a 1-d ``DeviceMesh`` named ``(axis,)``
+        (the process mode).
     n_micro:
         Microbatch count ``M``; ``x.shape[0]`` must be divisible by it.
     first_fn / last_fn:
@@ -523,7 +640,8 @@ class PipelineStep:
         ``warmup``/``steady``/``cooldown``.  When set, the schedule runs as
         three segments with the callback's context open around each, and
         each segment synchronizes the card before its context closes, so a
-        scope times the phase's device work, not just its dispatch.
+        scope times the phase's device work, not just its dispatch.  In the
+        process mode the ranks meet at a barrier before each segment.
     stage_spec:
         ``PartitionSpec`` tree (``models.pipeline.stage_param_specs``) of the
         packed stage parameters: every leaf's leading entry must be the
@@ -532,6 +650,11 @@ class PipelineStep:
         the mesh's inner axes raises ``NotImplementedError``: the stage body
         computes on whole stage parameters, and the reference's is not
         collective-aware either.
+    activation_spec:
+        Process mode with ``first_fn``: ``activation_spec(raw_microbatch) ->
+        (shape, dtype)`` of the activation ``first_fn`` makes of it, which
+        ranks past the first receive (without hooks: the raw microbatch's
+        own).
     """
 
     def __init__(
@@ -539,13 +662,14 @@ class PipelineStep:
         layer_fn: Callable[[Any, torch.Tensor], torch.Tensor],
         loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None,
         *,
-        mesh: Mesh,
+        mesh: Any,
         axis: str,
         n_micro: int,
         first_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
         last_fn: Callable[[Any, torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
         phase_cb: Callable[[str], object] | None = None,
         stage_spec: Any | None = None,
+        activation_spec: Callable[[torch.Tensor], tuple] | None = None,
     ) -> None:
         if (first_fn is None) != (last_fn is None):
             raise ValueError(
@@ -563,10 +687,25 @@ class PipelineStep:
         self.axis = axis
         self.n_micro = int(n_micro)
         self.phase_cb = phase_cb
-        self.axis_size = int(mesh.shape[axis])
+        self.activation_spec = activation_spec
         if self.n_micro < 1:
             raise ValueError(f"n_micro must be >= 1, got {n_micro}")
-        self.devices = _rank_devices(mesh, axis)
+        #: the process mode's place on the axis (None: the single controller)
+        self.procs = _procs(mesh, axis) if is_process_mesh(mesh) else None
+        if self.procs is not None:
+            if first_fn is not None and activation_spec is None and self.procs.size > 1:
+                raise ValueError("the process mode with first_fn needs activation_spec: "
+                                 "ranks past the first receive first_fn's activations")
+            self.axis_size = self.procs.size
+            self.devices = None
+            # the first torch.autograd.grad of a process imports torch.fx's
+            # symbolic shapes (sympy: seconds); imported here, every rank
+            # pays it at once, not one rank after another along the first
+            # step's backward ticks
+            import torch.fx.experimental.symbolic_shapes  # noqa: F401
+        else:
+            self.axis_size = int(mesh.shape[axis])
+            self.devices = _rank_devices(mesh, axis)
         #: the most stage inputs one rank held at once in the last call
         self.last_stash_peak = 0
 
@@ -583,10 +722,14 @@ class PipelineStep:
     ):
         s, m = self.axis_size, self.n_micro
         hooks = self.last_fn is not None
-        if hooks and (first_params is None or last_params is None):
+        pr = self.procs
+        own = range(s) if pr is None else [pr.rank]
+        has_first = hooks and 0 in own
+        has_last = hooks and s - 1 in own
+        if (has_first and first_params is None) or (has_last and last_params is None):
             raise ValueError(
                 "first_params/last_params are required when first_fn/last_fn "
-                "are set"
+                "are set" + ("" if pr is None else " (on the first and last rank)")
             )
         if not hooks and (first_params is not None or last_params is not None):
             raise ValueError(
@@ -594,16 +737,16 @@ class PipelineStep:
                 "first_fn/last_fn"
             )
         leaves = tree_leaves(stage_params)
-        if not leaves:
+        if not leaves and pr is None:
             raise ValueError("stage_params has no array leaves")
-        n_slots = int(leaves[0].shape[0])
+        n_slots = int(leaves[0].shape[0]) if leaves else 0
         for leaf in leaves:
             if int(leaf.shape[0]) != n_slots:
                 raise ValueError(
                     f"stage_params leaves disagree on the slot dimension: "
                     f"{leaf.shape[0]} != {n_slots}"
                 )
-        if n_slots % s != 0:
+        if pr is None and n_slots % s != 0:
             raise ValueError(
                 f"n_slots={n_slots} must be a multiple of mesh axis "
                 f"{self.axis!r} size {s}"
@@ -624,50 +767,70 @@ class PipelineStep:
         else:
             active = [bool(a) for a in stage_mask.tolist()]
 
-        per_rank = n_slots // s
         r = min(2 * s, m)
         zeros = lambda tree: [torch.zeros_like(leaf) for leaf in tree_leaves(tree)]  # noqa: E731
+        if pr is None:
+            per_rank = n_slots // s
+            blocks = {d: (dev, range(d * per_rank, (d + 1) * per_rank))
+                      for d, dev in enumerate(self.devices)}
+        else:
+            blocks = {pr.rank: (pr.device, range(n_slots))}
         c = _Call(
             # each rank's active slots, as leaves on its device; padded
             # slots are never touched (no launch, zero gradient)
-            slots=[[(i, _on(tree_map(lambda leaf, i=i: leaf[i], stage_params), dev))
-                    for i in range(d * per_rank, (d + 1) * per_rank) if active[i]]
-                   for d, dev in enumerate(self.devices)],
+            slots={d: [(i, _on(tree_map(lambda leaf, i=i: leaf[i], stage_params), dev))
+                       for i in rows if active[i]]
+                   for d, (dev, rows) in blocks.items()},
             micro=x.reshape((m, batch // m) + tuple(x.shape[1:])),
             tmicro=targets.reshape((m, batch // m) + tuple(targets.shape[1:])),
             gacc=zeros(stage_params),
-            first=_on(first_params, self.devices[0]) if hooks else None,
-            last=_on(last_params, self.devices[-1]) if hooks else None,
-            facc=zeros(first_params) if hooks else [],
-            lacc=zeros(last_params) if hooks else [],
-            stash=[[None] * r for _ in range(s)],
-            loss=torch.zeros((), dtype=torch.float32, device=self.devices[-1]),
+            first=_on(first_params, self._device(0)) if has_first else None,
+            last=_on(last_params, self._device(s - 1)) if has_last else None,
+            facc=zeros(first_params) if has_first else [],
+            lacc=zeros(last_params) if has_last else [],
+            stash={d: [None] * r for d in blocks},
+            loss=torch.zeros((), dtype=torch.float32, device=self._device(s - 1)),
             recv_f=[None] * s, recv_b=[None] * s,
         )
+        run = self._run if pr is None else self._run_rank
         if self.phase_cb is None:
-            self._run(c, 0, m + 2 * s - 1)
+            run(c, 0, m + 2 * s - 1)
         else:
             for name, (t0, t1) in phase_ticks(m, s).items():
                 if t1 <= t0:
                     continue
+                if pr is not None:  # every rank enters the segment together
+                    self._barrier()
                 with self.phase_cb(name):
-                    self._run(c, t0, t1)
+                    run(c, t0, t1)
                     # inside the scope: the caliper window covers the
                     # phase's device work, not just its dispatch
                     self._sync()
         self.last_stash_peak = c.stash_peak
+        loss = c.loss if pr is None else pr.transport.broadcast(c.loss, pr.peers[s - 1])
         it = iter(c.gacc)
         grads = tree_map(lambda _: next(it), stage_params)
         if not hooks:
-            return c.loss, grads
+            return loss, grads
         it_f, it_l = iter(c.facc), iter(c.lacc)
-        return c.loss, (grads, tree_map(lambda _: next(it_f), first_params),
-                        tree_map(lambda _: next(it_l), last_params))
+        return loss, (grads,
+                      tree_map(lambda _: next(it_f), first_params) if has_first else None,
+                      tree_map(lambda _: next(it_l), last_params) if has_last else None)
 
     # -- the schedule ---------------------------------------------------------
+    def _device(self, d: int) -> torch.device:
+        """Rank ``d``'s device (this process's own in the process mode)."""
+        return self.devices[d] if self.procs is None else self.procs.device
+
     def _sync(self) -> None:
-        for dev in {d for d in self.devices if d.type == "cuda"}:
+        devices = [self.procs.device] if self.procs is not None else self.devices
+        for dev in {d for d in devices if d.type == "cuda"}:
             torch.cuda.synchronize(dev)
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.procs.group)
 
     def _local(self, c: _Call, d: int, act: torch.Tensor) -> torch.Tensor:
         """Rank ``d``'s active slots applied in order."""
@@ -695,71 +858,110 @@ class PipelineStep:
             grads = torch.autograd.grad(lm, wrt)
         return lm.detach(), grads[0], grads[1:]
 
-    def _run(self, c: _Call, t0: int, t1: int) -> None:
+    def _tick(self, c: _Call, d: int, t: int):
+        """Rank ``d``'s half of tick ``t``: its forward, then its backward.
+        Returns ``(forward output, activation gradient)``, each ``None``
+        where the rank ran none (the ring sends them on)."""
         s, m = self.axis_size, self.n_micro
         r = min(2 * s, m)
         hooks = self.last_fn is not None
         last = s - 1
+        dev = self._device(d)
+        y = dact = None
+        # ---- forward: microbatch t - d ----
+        mf = t - d
+        if 0 <= mf < m:
+            with torch.no_grad():
+                if d == 0:
+                    act = c.micro[mf].to(dev)
+                    if hooks:
+                        act = self.first_fn(c.first, act)
+                        if not isinstance(act, torch.Tensor):
+                            raise ValueError("first_fn must return a single array")
+                else:
+                    act = c.recv_f[d]
+                y = self._local(c, d, act)
+            seed = None
+            if d == last:
+                # fold the loss in and keep its gradient seed for the
+                # backward tick one step later
+                lm, gm, glast = self._head(c, y, c.tmicro[mf].to(dev))
+                c.loss = c.loss + (lm / m).float()
+                seed = gm / m
+                if hooks:
+                    _accumulate(c.lacc, [g / m for g in glast])
+            slot = mf % r
+            if c.stash[d][slot] is not None:
+                raise RuntimeError(
+                    f"1F1B stash collision: rank {d} tick {t} slot {slot}")
+            c.stash[d][slot] = (act, seed)
+            c.stash_peak = max(c.stash_peak, sum(e is not None for e in c.stash[d]))
+        # ---- backward: microbatch t - (2S - 1 - d) ----
+        mb = t - (2 * s - 1 - d)
+        if 0 <= mb < m:
+            slot = mb % r
+            act_b, seed = c.stash[d][slot]
+            c.stash[d][slot] = None
+            g_in = seed if d == last else c.recv_b[d]
+            dact = self._stage_vjp(c, d, act_b, g_in, need_dact=d > 0 or hooks)
+            if hooks and d == 0:
+                # rank 0's activation gradient flows into the pinned
+                # first_fn (the embedding): its VJP from the raw input
+                with torch.enable_grad():
+                    emb = self.first_fn(c.first, c.micro[mb].to(dev))
+                    _accumulate(c.facc, torch.autograd.grad(
+                        emb, tree_leaves(c.first), dact))
+        return y, dact
+
+    def _run(self, c: _Call, t0: int, t1: int) -> None:
+        s = self.axis_size
         for t in range(t0, t1):
-            send_f: list = [None] * s
-            send_b: list = [None] * s
-            for d, dev in enumerate(self.devices):
-                # ---- forward: microbatch t - d ----
-                mf = t - d
-                if 0 <= mf < m:
-                    with torch.no_grad():
-                        if d == 0:
-                            act = c.micro[mf].to(dev)
-                            if hooks:
-                                act = self.first_fn(c.first, act)
-                                if not isinstance(act, torch.Tensor):
-                                    raise ValueError("first_fn must return a single array")
-                        else:
-                            act = c.recv_f[d]
-                        y = self._local(c, d, act)
-                    seed = None
-                    if d == last:
-                        # fold the loss in and keep its gradient seed for the
-                        # backward tick one step later
-                        lm, gm, glast = self._head(c, y, c.tmicro[mf].to(dev))
-                        c.loss = c.loss + (lm / m).float()
-                        seed = gm / m
-                        if hooks:
-                            _accumulate(c.lacc, [g / m for g in glast])
-                    slot = mf % r
-                    if c.stash[d][slot] is not None:
-                        raise RuntimeError(
-                            f"1F1B stash collision: rank {d} tick {t} slot {slot}")
-                    c.stash[d][slot] = (act, seed)
-                    c.stash_peak = max(c.stash_peak, sum(e is not None for e in c.stash[d]))
-                    send_f[d] = y
-                # ---- backward: microbatch t - (2S - 1 - d) ----
-                mb = t - (2 * s - 1 - d)
-                if 0 <= mb < m:
-                    slot = mb % r
-                    act_b, seed = c.stash[d][slot]
-                    c.stash[d][slot] = None
-                    g_in = seed if d == last else c.recv_b[d]
-                    dact = self._stage_vjp(c, d, act_b, g_in, need_dact=d > 0 or hooks)
-                    if hooks and d == 0:
-                        # rank 0's activation gradient flows into the pinned
-                        # first_fn (the embedding): its VJP from the raw input
-                        with torch.enable_grad():
-                            emb = self.first_fn(c.first, c.micro[mb].to(dev))
-                            _accumulate(c.facc, torch.autograd.grad(
-                                emb, tree_leaves(c.first), dact))
-                    send_b[d] = dact
+            sent = [self._tick(c, d, t) for d in range(s)]
             # the rings: rank d's output reaches rank d + 1, its activation
             # gradient rank d - 1, at tick t + 1 (rank 0 feeds from the input
             # and the last rank from its seed, so the wrap-around is not sent)
             c.recv_f = [None] + [
-                None if send_f[d - 1] is None else send_f[d - 1].to(self.devices[d])
+                None if sent[d - 1][0] is None else sent[d - 1][0].to(self.devices[d])
                 for d in range(1, s)
             ]
             c.recv_b = [
-                None if send_b[d + 1] is None else send_b[d + 1].to(self.devices[d])
+                None if sent[d + 1][1] is None else sent[d + 1][1].to(self.devices[d])
                 for d in range(s - 1)
             ] + [None]
+
+    def _run_rank(self, c: _Call, t0: int, t1: int) -> None:
+        """The process mode: this rank's half of ticks ``[t0, t1)``, each
+        ending with one batch of the tick's ring messages."""
+        pr = self.procs
+        s, m, d = self.axis_size, self.n_micro, pr.rank
+        spec = None
+        for t in range(t0, t1):
+            y, dact = self._tick(c, d, t)
+            sends = []
+            if y is not None and d < s - 1:
+                sends.append((pr.peers[d + 1], y, _FWD))
+            if dact is not None and d > 0:
+                sends.append((pr.peers[d - 1], dact, _BWD))
+            # what comes at tick t + 1, from the tick formulas alone: rank
+            # d - 1's forward of microbatch t + 1 - d, rank d + 1's backward
+            # of microbatch t + 1 - (2S - 1 - d); activations and their
+            # gradients share one shape and dtype
+            recv_f = d > 0 and 0 <= t + 1 - d < m
+            recv_b = d < s - 1 and 0 <= t + 1 - (2 * s - 1 - d) < m
+            if (recv_f or recv_b) and spec is None:
+                spec = self._activation(c)
+            recvs = ([(pr.peers[d - 1], *spec, _FWD)] if recv_f else []) + \
+                    ([(pr.peers[d + 1], *spec, _BWD)] if recv_b else [])
+            got = iter(pr.transport.exchange(sends, recvs, pooled=True))
+            c.recv_f[d] = next(got) if recv_f else None
+            c.recv_b[d] = next(got) if recv_b else None
+
+    def _activation(self, c: _Call) -> tuple[tuple, torch.dtype]:
+        """(shape, dtype) of a stage activation (and of its gradient)."""
+        if self.first_fn is not None:
+            shape, dtype = self.activation_spec(c.micro[0])
+            return tuple(shape), dtype
+        return tuple(c.micro.shape[1:]), c.micro.dtype
 
     def _stage_vjp(self, c: _Call, d: int, act: torch.Tensor, g_in: torch.Tensor,
                    need_dact: bool) -> torch.Tensor | None:

@@ -12,6 +12,17 @@ params, optimizer state and batch laid out as those specs say, and the step
 runs the loss under the sharding context (``dist.context.use_sharding``), so
 the model's ``constrain`` calls and its kernel boundaries apply.  The
 prefill and serve step builders come with a later slice (ROADMAP Queue 1).
+
+The pipeline steps run on a single controller's ``Mesh`` or, one process a
+rank, on a 1-d ``("pod",)`` ``DeviceMesh`` (``dist.pipeline``).  There each
+rank's ``init_params`` draws the whole tree from the seed, as every rank of
+a sharded run does, and keeps its share (``dist.pipeline_state.RankShare``:
+its units, its pinned pieces); ``pipeline_call`` runs the rank's own units
+and returns its share of the gradient; the step clips by the whole model's
+norm (``RankShare.clip_norm``, which every rank takes bit for bit as the
+single controller does) and updates the rank's own leaves; and a restage
+moves units, with their optimizer state, between ranks before the step
+that runs the new plan.
 """
 
 from __future__ import annotations
@@ -23,8 +34,8 @@ from typing import Any
 import torch
 
 from ..dist.context import is_dtensor, use_sharding
-from ..dist.meshutil import Mesh
 from ..dist.pipeline import PipelineStep, StagePlan
+from ..dist.pipeline_state import RankShare, clip_norm
 from ..dist.sharding import DEFAULT_RULES, FSDP_RULES, ShardingRules, tree_shardings
 from ..models import model as M, pipeline as MP
 from ..models.config import ArchConfig, ShapeConfig
@@ -178,28 +189,70 @@ class PipelineBuiltStep(BuiltStep):
     step — that is what makes a run-time ``restage`` take effect on the very
     next step — and, when phase timing is on, runs warmup/steady/cooldown as
     separately synchronized segments.  ``init_params(generator=None)``
-    draws the model's parameters on the step's device;
-    ``pipeline_call(params, batch) -> (loss, grads)`` is the step without
-    the optimizer.
+    draws the model's parameters on the step's device (in the process mode
+    this rank's share of them); ``pipeline_call(params, batch) -> (loss,
+    grads)`` is the step without the optimizer.  ``share`` is the process
+    mode's :class:`~repro_torch.dist.pipeline_state.RankShare` (``None`` on
+    the single controller).
     """
 
     stage_plan: StagePlan | None = None
     pipeline: PipelineStep | None = None
     init_params: Callable[..., Any] | None = None
     pipeline_call: Callable[..., Any] | None = None
+    share: RankShare | None = None
 
 
-def _pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps):
-    """``fn(params, opt_state, batch)``: ``pipeline_call(params, batch) ->
-    (loss, grads)``, then AdamW at ``warmup_cosine`` of the state's step."""
+def _rank_share(pipeline: PipelineStep, spec, stacked: str, owners, plan: StagePlan):
+    """The process mode's :class:`RankShare` of ``pipeline``'s rank (None
+    on the single controller)."""
+    pr = pipeline.procs
+    if pr is None:
+        return None
+    return RankShare(spec, stacked, owners, plan, pr.rank, pr.size, pr.transport, pr.peers)
+
+
+def _check_layout(share: RankShare) -> None:
+    if share.plan.boundaries() != share.bounds:
+        raise RuntimeError(
+            f"the stage plan moved units ({share.bounds} -> {share.plan.boundaries()}): "
+            f"restage the rank's trees (RankShare.restage) before the next pipeline call")
+
+
+def _tied_swap(share: RankShare, half, tokens: torch.Tensor):
+    """Trade the tied table's gradient halves between the end ranks: the
+    last rank sends its half (the head's, dense) whole; rank 0 sends only
+    the rows of its half (the lookup's) that the batch's tokens touch, the
+    rest being exact zeros, which the last rank puts back.  Either way each
+    end rank gets the other's half bit for bit."""
+    rows = torch.unique(tokens.long()).to(share.device)
+    table = half["tokens"]
+    if share.rank == 0:
+        return share.swap({"tokens": table.index_select(0, rows)}, share.n_stages - 1,
+                          like=half)
+    got = share.swap(half, 0, like={"tokens": table.new_empty((rows.numel(),) +
+                                                                 tuple(table.shape[1:]))})
+    return {"tokens": torch.zeros_like(table).index_copy_(0, rows, got["tokens"])}
+
+
+def _pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps, share,
+                       stacked):
+    """``fn(params, opt_state, batch)``: in the process mode a restage's
+    moves first when the plan changed; ``pipeline_call(params, batch) ->
+    (loss, grads)``; then AdamW at ``warmup_cosine`` of the state's step,
+    clipped by the whole model's ``clip_norm``."""
 
     def train_fn(params, opt_state, batch):
+        if share is not None:
+            params, opt_state = share.restage(params, opt_state)
         loss, grads = pipeline_call(params, batch)
         lr = warmup_cosine(
             opt_state["step"], peak_lr=peak_lr, warmup_steps=warmup_steps,
             total_steps=total_steps,
         )
-        params, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state, lr)
+        gnorm = share.clip_norm(grads) if share is not None else clip_norm(grads, stacked)
+        params, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state, lr,
+                                                gnorm=gnorm)
         metrics = {"loss": loss, "lr": lr}
         metrics.update(stats)
         return params, opt_state, metrics
@@ -209,7 +262,7 @@ def _pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_step
 
 @timed("steps::make_pipeline_train_step")
 def make_pipeline_train_step(
-    mesh: Mesh,
+    mesh: Any,
     stage_plan: StagePlan,
     *,
     axis: str = "pod",
@@ -234,7 +287,9 @@ def make_pipeline_train_step(
     pipelines over the ``pod`` axis.  Layers are re-packed from the live
     ``stage_plan`` every step, so a straggler-triggered ``restage`` moves the
     stage boundaries for the next step without rebuilding anything.  Params,
-    optimizer state and batches live on ``device``.
+    optimizer state and batches live on ``device``.  ``mesh`` is a single
+    controller's ``Mesh`` or a ``DeviceMesh`` of one process a rank (module
+    docstring).
 
     ``phase_cb(name)`` (a context-manager factory) times the schedule's
     warmup / steady / cooldown phases; launchers pass ``repro_torch.timing``
@@ -257,33 +312,42 @@ def make_pipeline_train_step(
         layer_fn, loss_fn, mesh=mesh, axis=axis, n_micro=n_micro,
         phase_cb=phase_cb,
     )
+    spec = {"layers": torch.empty((n_layers, 2, width, width), device="meta")}
+    share = _rank_share(pipeline, spec, "layers", {}, stage_plan)
 
     def init_params(generator=None):
         g = generator if generator is not None else gen
         layers = torch.randn((n_layers, 2, width, width), generator=g, device=device)
-        return {"layers": layers * 0.3}
+        params = {"layers": layers * 0.3}
+        return params if share is None else share.cut(params)
 
     def pipeline_call(params, batch):
         x = emb[batch["tokens"].long()]
         tgt = emb[batch["targets"].long()]
+        if share is not None:  # this rank's own units are its slots
+            _check_layout(share)
+            loss, grads = pipeline(params["layers"], x, tgt)
+            return loss, {"layers": grads}
         packed, mask = stage_plan.pack(params["layers"])
         loss, packed_grads = pipeline(packed, x, tgt, stage_mask=mask)
         return loss, {"layers": stage_plan.unpack(packed_grads)}
 
     return PipelineBuiltStep(
-        fn=_pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps),
+        fn=_pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps,
+                              share, "layers"),
         tokens_per_call=global_batch * seq_len,
         stage_plan=stage_plan,
         pipeline=pipeline,
         init_params=init_params,
         pipeline_call=pipeline_call,
+        share=share,
     )
 
 
 @timed("steps::make_transformer_pipeline_train_step")
 def make_transformer_pipeline_train_step(
     cfg: ArchConfig,
-    mesh: Mesh,
+    mesh: Any,
     stage_plan: StagePlan,
     *,
     axis: str = "pod",
@@ -311,7 +375,10 @@ def make_transformer_pipeline_train_step(
     computation.  Params, optimizer state and batches live on ``device``.
     Stage-parameter specs compose the pipeline axis with ``rules``
     (``rules_for(cfg)`` by default; ``models.pipeline.stage_param_specs``):
-    on a pod-only mesh every inner entry drops.
+    on a pod-only mesh every inner entry drops.  ``mesh`` is a single
+    controller's ``Mesh`` or a ``DeviceMesh`` of one process a rank (module
+    docstring): there the tied table's two copies, on the end ranks, take
+    the same gradient and so the same update.
     """
     opt_cfg = opt_cfg if opt_cfg is not None else AdamWConfig()
     n_units = MP.check_pipelineable(cfg)
@@ -324,31 +391,48 @@ def make_transformer_pipeline_train_step(
     layer_fn, first_fn, last_fn = MP.make_stage_fns(cfg)
     stage_spec = MP.stage_param_specs(cfg, mesh, rules if rules is not None else rules_for(cfg),
                                       axis)
+    spec = M.abstract_params(cfg)
+    act_dtype = spec["embed"]["tokens"].dtype  # the lookup's rows
     pipeline = PipelineStep(
         layer_fn, None, mesh=mesh, axis=axis, n_micro=n_micro,
         first_fn=first_fn, last_fn=last_fn, phase_cb=phase_cb, stage_spec=stage_spec,
+        activation_spec=lambda tokens: ((*tokens.shape, cfg.d_model), act_dtype),
     )
+    n_stages = pipeline.axis_size
+    share = _rank_share(pipeline, spec, "scan", MP.piece_owners(cfg, n_stages), stage_plan)
 
     def init_params(generator=None):
         g = generator if generator is not None else torch.Generator(
             device=device).manual_seed(seed)
-        return M.init_params(cfg, g, device)
+        params = M.init_params(cfg, g, device)
+        return params if share is None else share.cut(params)
 
     def pipeline_call(params, batch):
-        stack, first, last = MP.split_params(cfg, params)
-        packed, mask = stage_plan.pack(stack)
-        loss, (packed_grads, first_grads, last_grads) = pipeline(
-            packed, batch["tokens"], batch["targets"], stage_mask=mask,
-            first_params=first, last_params=last,
-        )
-        return loss, MP.merge_grads(cfg, stage_plan.unpack(packed_grads), first_grads,
-                                    last_grads)
+        if share is None:
+            stack, first, last = MP.split_params(cfg, params)
+            packed, mask = stage_plan.pack(stack)
+            loss, (packed_grads, first_grads, last_grads) = pipeline(
+                packed, batch["tokens"], batch["targets"], stage_mask=mask,
+                first_params=first, last_params=last,
+            )
+            return loss, MP.merge_grads(cfg, stage_plan.unpack(packed_grads), first_grads,
+                                        last_grads)
+        _check_layout(share)
+        rank = share.rank
+        stack, first, last = MP.split_params(cfg, params, rank=rank, n_stages=n_stages)
+        loss, (stack_grads, first_grads, last_grads) = pipeline(
+            stack, batch["tokens"], batch["targets"], first_params=first, last_params=last)
+        return loss, MP.merge_grads(
+            cfg, stack_grads, first_grads, last_grads, rank=rank, n_stages=n_stages,
+            tied_peer=lambda half: _tied_swap(share, half, batch["tokens"]))
 
     return PipelineBuiltStep(
-        fn=_pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps),
+        fn=_pipeline_train_fn(pipeline_call, opt_cfg, peak_lr, warmup_steps, total_steps,
+                              share, "scan"),
         tokens_per_call=global_batch * seq_len,
         stage_plan=stage_plan,
         pipeline=pipeline,
         init_params=init_params,
         pipeline_call=pipeline_call,
+        share=share,
     )

@@ -33,15 +33,25 @@ The step runs on ``--device`` (default ``cuda``); ``--device cpu`` runs the
 kernels' plain versions.
 
 ``--pipeline-stages N`` trains through the 1F1B pipeline schedule over an
-N-rank ``pod`` mesh (one card a rank: N > 1 needs N cards; on ``--device
-cpu`` the ranks share the host): the synthetic residual-MLP stack by default
+N-rank ``pod`` mesh: the synthetic residual-MLP stack by default
 (``--pipeline-layers``/``--pipeline-width``), or with ``--pipeline-model``
 the architecture's own transformer stack, one block-pattern period per
 stage slot, embedding and head pinned to the end ranks, the kernels inside
 the stages.  ``--pipeline-micro`` sets the microbatch count; the phases are
 timed as ``train/pipeline/{warmup,steady,cooldown}``, and a straggler that
 owns a stage is answered by moving the stage boundary (``restage``), which
-the next step runs.
+the next step runs.  In one process (the single controller) the N ranks are
+N cards (on ``--device cpu`` they share the host).  Under a process group
+of N processes (``torchrun --nproc-per-node N``) each process is one rank:
+it holds only its stage's units, its pinned pieces and their optimizer
+state, and the rings are point-to-point messages.  Ranks have a card each
+(NCCL) unless ``--allow-shared-card`` lets them share one (gloo, the
+messages staged through host memory).  Rank 0 leads: it prints, saves,
+decides the straggler response and sends its stage weights to every rank
+before the step they apply to; a restage moves units, with their optimizer
+state, between processes; and a checkpoint gathers the whole state onto
+rank 0 in the single controller's flat layout, so a save restores into any
+stage count, in processes or in one.
 
 ``--mesh D,M`` trains on a ``("data", "model")`` DeviceMesh of ``D * M``
 processes (``torchrun --nproc-per-node D*M``), the parameters, optimizer
@@ -69,6 +79,9 @@ card each (NCCL) unless ``--allow-shared-card`` lets them share one (gloo).
         --steps 4 --batch 4 --seq 1024
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --mesh 2,2 --steps 4 --batch 4 --seq 32
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --pipeline-stages 2 --pipeline-model --pipeline-micro 4 \\
+        --steps 4 --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -77,6 +90,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import signal
 import time
 from typing import Any
@@ -103,7 +117,7 @@ from ..core import (
 )
 from ..core.clocks import CounterClock, register_clock
 from ..data import DataLoader, SyntheticConfig, SyntheticLM
-from ..dist import collectives
+from ..dist import collectives, p2p
 from ..dist.meshutil import device_mesh, init_process_group, local_mesh
 from ..dist.sharding import Axes, distribute_tree, gather_tree
 from ..dist.pipeline import MicrobatchPlan, StagePlan, phase_ticks
@@ -162,8 +176,10 @@ class TrainSettings:
     #: its resumption share the same schedule (restart determinism)
     lr_total_steps: int | None = None
     #: pipeline-parallel (1F1B) training path: 0 = off; N > 0 pipelines the
-    #: stages over an N-rank "pod" mesh (N cards on "cuda"; the ranks share
-    #: the host on "cpu"); 1 still runs the full tick schedule
+    #: stages over an N-rank "pod" mesh; 1 still runs the full tick schedule.
+    #: In one process the ranks are N cards on "cuda" (they share the host
+    #: on "cpu"); under a process group of N processes each is one rank (a
+    #: card each, or sharing with allow_shared_card)
     pipeline_stages: int = 0
     pipeline_layers: int = 8          # homogeneous stage-stack depth (MLP path)
     pipeline_micro: int = 4           # 1F1B microbatch count
@@ -180,7 +196,8 @@ class TrainSettings:
     #: ("data", "model") mesh of processes; more than one rank needs a process
     #: group of that size (torchrun, or one the caller initialized)
     mesh_shape: tuple[int, ...] = (1, 1)
-    #: let more ranks than cards share them (gloo instead of NCCL)
+    #: let more ranks (sharded or pipelined processes) than cards share
+    #: them (gloo instead of NCCL)
     allow_shared_card: bool = False
 
 
@@ -204,6 +221,12 @@ def run_training(
     the narrower injection point and is ignored when a session is passed.
     ``cfg`` replaces the registry's config for ``settings.arch``; the
     settings' ``attn_impl``/``norm_impl`` apply on top of either.
+
+    ``pipeline_stages`` runs the single controller in one process, or, with
+    an initialized process group (or ``WORLD_SIZE`` > 1 in the environment,
+    as ``torchrun`` sets it), one process a stage: the group's world must be
+    ``pipeline_stages``.  Under a process group rank 0 alone logs, prints,
+    saves and decides; the summary is each rank's own.
     """
     if cfg is None:
         cfg = get_smoke_config(settings.arch) if settings.smoke else get_config(settings.arch)
@@ -218,9 +241,20 @@ def run_training(
     dmesh = _device_mesh(settings) if sharded else None
     rules = rules_for(cfg)
     calls0, bytes0 = dict(collectives.COUNTS), dict(collectives.BYTES)
-    lead = not sharded or torch.distributed.get_rank() == 0
-    # the 1F1B path pipelines homogeneous stages over a dedicated pod axis
-    mesh = local_mesh((settings.pipeline_stages,), ("pod",), settings.device) if pipelined else None
+    sends0, sent0 = dict(p2p.COUNTS), dict(p2p.BYTES)
+    # the 1F1B path pipelines homogeneous stages over a dedicated pod axis:
+    # one process a stage under a process group, else the single controller
+    procs = pipelined and _pipeline_processes(settings)
+    if procs:
+        mesh = device_mesh((settings.pipeline_stages,), ("pod",), settings.device,
+                           allow_shared_card=settings.allow_shared_card)
+    elif pipelined:
+        mesh = local_mesh((settings.pipeline_stages,), ("pod",), settings.device)
+    else:
+        mesh = None
+    # under a process group rank 0 leads: logs, prints, saves and decides
+    group = sharded or procs
+    lead = not group or torch.distributed.get_rank() == 0
     sess = (
         session
         if session is not None
@@ -238,7 +272,7 @@ def run_training(
     st["updates"] = 0
 
     device = torch.device(settings.device)
-    if device.type == "cuda" and sharded:  # the card device_mesh gave this rank
+    if device.type == "cuda" and group:  # the card device_mesh gave this rank
         device = torch.device("cuda", torch.cuda.current_device())
     shape = ShapeConfig("train_local", "train", settings.seq_len, settings.global_batch)
 
@@ -297,12 +331,16 @@ def run_training(
 
     def current_state() -> dict[str, Any]:
         """The state a checkpoint holds; under a mesh, full tensors gathered
-        from every rank (a collective: every rank calls it together)."""
-        return {
-            "params": gather_tree(st["params"]) if sharded else st["params"],
-            "opt_state": gather_tree(st["opt_state"]) if sharded else st["opt_state"],
-            "data": st["loader"].state(),
-        }
+        from every rank (a collective: every rank calls it together); of
+        pipeline processes, the whole tree and state on rank 0's host
+        (``None`` elsewhere)."""
+        if procs:
+            params, opt_state = st["built"].share.gather(st["params"], st["opt_state"])
+        elif sharded:
+            params, opt_state = gather_tree(st["params"]), gather_tree(st["opt_state"])
+        else:
+            params, opt_state = st["params"], st["opt_state"]
+        return {"params": params, "opt_state": opt_state, "data": st["loader"].state()}
 
     def durable_save(step: int) -> float:
         """Checkpoint-before-evict: write AND wait until durable (the barrier
@@ -321,9 +359,9 @@ def run_training(
             manager.wait()
         return time.monotonic() - t0
 
-    if ckpt_active and not sharded:
-        # a save under a mesh is a collective, which an eviction barrier
-        # on one rank cannot start
+    if ckpt_active and not group:
+        # a save under a process group is a collective, which an eviction
+        # barrier on one rank cannot start
         ckpt_control.bind_durable_save(durable_save)
     # single-process topology: this host feeds its own EVOL step timer into
     # the reduction; multi-host launchers hand the detector a transport.  On
@@ -341,22 +379,25 @@ def run_training(
         else None
     )
     detector = StragglerDetector(n_hosts=1, db=db)
-    loop.register(
-        StragglerResponse(
-            detector,
-            MicrobatchPlan.equal([0], n_micro=1),
-            check_every=8,
-            local_feed=(0, "EVOL/trainer::train_step"),
-            stage_plan=stage_plan,
-            # stage ownership derived from membership coordinates, not
-            # hard-coded: one live host on an S-stage pipeline owns stage 0
-            # (the rest ride along in-process)
-            stage_for_host=(
-                stage_for_host([0], settings.pipeline_stages) if pipelined else None
-            ),
-            evict_barrier=ckpt_control.evict_barrier if ckpt_active and not sharded else None,
+    # pipeline processes follow rank 0's response: its stage weights reach
+    # every rank before the step they apply to (train_step)
+    if not procs or lead:
+        loop.register(
+            StragglerResponse(
+                detector,
+                MicrobatchPlan.equal([0], n_micro=1),
+                check_every=8,
+                local_feed=(0, "EVOL/trainer::train_step"),
+                stage_plan=stage_plan,
+                # stage ownership derived from membership coordinates, not
+                # hard-coded: one live host on an S-stage pipeline owns stage 0
+                # (the rest ride along in-process)
+                stage_for_host=(
+                    stage_for_host([0], settings.pipeline_stages) if pipelined else None
+                ),
+                evict_barrier=ckpt_control.evict_barrier if ckpt_active and not group else None,
+            )
         )
-    )
     sch.attach_control_loop(loop, bin="ANALYSIS")
     # one exporter for both surfaces: the monitor's /metrics endpoint and the
     # optional textfile written on the report cadence
@@ -417,7 +458,7 @@ def run_training(
         )
         start_step = 0
         restored = None
-        if settings.ckpt_dir and sharded:
+        if settings.ckpt_dir and group:
             restored = _restore_sharded(settings, lead, sess)
             if lead:
                 manager = CheckpointManager(
@@ -461,6 +502,9 @@ def run_training(
                 adopted = saved.retarget(range(settings.pipeline_stages))
                 stage_plan.weights.clear()
                 stage_plan.weights.update(adopted.weights)
+            if procs:  # loaded whole on the host: each rank keeps its share
+                s["params"], s["opt_state"] = built.share.adopt(s["params"], s["opt_state"])
+                del tree
             if lead:
                 print(f"[train] restored checkpoint at step {start_step}")
         else:
@@ -475,9 +519,9 @@ def run_training(
                 s["opt_state"] = init_opt_state(opt_cfg, s["params"])
         s["loader"] = DataLoader(source, start_step=start_step)
 
-        if manager is not None and not sharded:
-            # (a save under a mesh is a collective, which a signal on one
-            # rank cannot start: sharded runs install no SIGTERM save)
+        if manager is not None and not group:
+            # (a save under a process group is a collective, which a signal
+            # on one rank cannot start: such runs install no SIGTERM save)
             # installed only once live state exists — a preemption mid-restore
             # has nothing durable to add anyway.  The label is the number of
             # optimizer updates applied so far, which is exact no matter where
@@ -521,6 +565,8 @@ def run_training(
 
     # --- EVOL: the training step ------------------------------------------------------
     def train_step(s: RunState) -> None:
+        if procs:  # rank 0's stage weights, on every rank (a restage moves units)
+            _agree_weights(stage_plan)
         params, opt_state, metrics = s["exec"](s["params"], s["opt_state"], s["batch"])
         # reading the metrics back waits for the device: the EVOL timer holds
         # the step's device time
@@ -548,7 +594,7 @@ def run_training(
         decision = ckpt_control.take_decision() if lead else None
         s["last_ckpt_decision"] = decision
         admitted = decision is not None and decision.checkpoint
-        if sharded:  # rank 0's admission, on every rank: the save gathers
+        if group:  # rank 0's admission, on every rank: the save gathers
             admitted = _agree(admitted)
         if not admitted:
             return
@@ -585,7 +631,7 @@ def run_training(
     # --- SHUTDOWN --------------------------------------------------------------------
     def shutdown(s: RunState) -> None:
         final = bool(settings.ckpt_dir) and settings.ckpt_mode != "off"
-        state = current_state() if final and sharded else None  # every rank gathers
+        state = current_state() if final and group else None  # every rank gathers
         if manager is not None and settings.ckpt_mode != "off":
             with ckpt_write_scope:
                 manager.save(
@@ -664,7 +710,20 @@ def run_training(
                 )
                 for name in phase_ticks(settings.pipeline_micro, settings.pipeline_stages)
             },
+            "mode": "processes" if procs else "controller",
         }
+        if procs:
+            # every rank's own phase seconds, and this rank's messages
+            ranks = [None] * settings.pipeline_stages
+            torch.distributed.all_gather_object(ranks, summary["pipeline"]["phase_seconds"])
+            summary["pipeline"].update({
+                "rank": torch.distributed.get_rank(),
+                "backend": torch.distributed.get_backend(),
+                "rank_phase_seconds": ranks,
+                "p2p_calls": {k: v - sends0[k] for k, v in p2p.COUNTS.items()},
+                "p2p_bytes": {k: v - sent0[k] for k, v in p2p.BYTES.items()},
+                "p2p_seconds": p2p.p2p_seconds(db),
+            })
     return summary
 
 
@@ -678,6 +737,23 @@ def _device_mesh(settings: TrainSettings):
                        allow_shared_card=settings.allow_shared_card)
 
 
+def _pipeline_processes(settings: TrainSettings) -> bool:
+    """Whether the pipeline runs one process a stage: under an initialized
+    process group, or one the environment describes (``torchrun``), which
+    is started here; its world must be ``pipeline_stages``."""
+    dist = torch.distributed
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_process_group(settings.device)
+    if not dist.is_initialized():
+        return False
+    if dist.get_world_size() != settings.pipeline_stages:
+        raise ValueError(
+            f"pipeline_stages={settings.pipeline_stages} but the process group has "
+            f"{dist.get_world_size()} ranks: under a process group the pipeline runs one "
+            f"process a stage, so pipeline_stages must be the world size")
+    return True
+
+
 def _agree(flag: bool) -> bool:
     """Rank 0's ``flag`` on every rank."""
     box = [bool(flag)]
@@ -685,10 +761,19 @@ def _agree(flag: bool) -> bool:
     return box[0]
 
 
+def _agree_weights(plan: StagePlan) -> None:
+    """Rank 0's stage weights, adopted in place by ``plan`` on every rank."""
+    box = [dict(plan.weights)]
+    torch.distributed.broadcast_object_list(box, src=0)
+    plan.weights.clear()
+    plan.weights.update(box[0])
+
+
 def _restore_sharded(settings: TrainSettings, lead: bool, sess: TimingSession):
     """(step, tree on the host, metadata) of the newest valid checkpoint, or
     None, on every rank: rank 0 validates (and quarantines) as an unsharded
-    run does and names the directory, and every rank loads it."""
+    run does and names the directory, and every rank maps it, reading only
+    what it keeps."""
     with sess.scope_handle("STARTUP/restore"):
         path = None
         if lead and settings.restore:
@@ -696,7 +781,7 @@ def _restore_sharded(settings: TrainSettings, lead: bool, sess: TimingSession):
             path = plan.valid[0].path if plan.valid else None
         box = [path]
         torch.distributed.broadcast_object_list(box, src=0)
-        return load_checkpoint(box[0], verify=False) if box[0] is not None else None
+        return load_checkpoint(box[0], verify=False, mmap=True) if box[0] is not None else None
 
 
 def _shard_state(cfg, opt_cfg, mesh, rules, device, params, opt_state):
@@ -739,7 +824,9 @@ def main(argv=None) -> int:
                     help="write the Prometheus exposition here on the report "
                          "cadence (textfile-collector scrape path)")
     ap.add_argument("--pipeline-stages", type=int, default=0,
-                    help="1F1B pipeline-parallel path: pod-axis size (0 = off)")
+                    help="1F1B pipeline-parallel path: pod-axis size (0 = off); in one "
+                         "process N cards (the host's CPU ranks on --device cpu), under "
+                         "torchrun --nproc-per-node N one process a stage")
     ap.add_argument("--pipeline-layers", type=int, default=8)
     ap.add_argument("--pipeline-micro", type=int, default=4)
     ap.add_argument("--pipeline-width", type=int, default=32)
@@ -755,7 +842,8 @@ def main(argv=None) -> int:
                     help="D,M: train on a (data, model) mesh of D*M processes "
                          "(torchrun --nproc-per-node D*M)")
     ap.add_argument("--allow-shared-card", action="store_true",
-                    help="let more ranks than cards share them (gloo instead of NCCL)")
+                    help="let more ranks (--mesh or --pipeline-stages processes) than "
+                         "cards share them (gloo instead of NCCL)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

@@ -26,6 +26,14 @@ Constraints checked by :func:`check_pipelineable`:
     slot runs the same unit function),
   * ``cfg.loss_chunk`` unused here (the head sees one microbatch at a time).
 
+In the process mode (one process a pipeline rank) a rank holds only some
+pieces of the tree (:func:`piece_owners`): the units of its stage, the
+embedding on rank 0, the final norm and the head on the last rank, and the
+tied table on both ends.  :func:`split_params` and :func:`merge_grads`
+then take the rank's share and give the rank's gradient; the tied table's
+two gradient halves meet on both end ranks as ``first + last``, the single
+controller's order, so its two copies take the same update.
+
 ``stage_param_specs`` composes the pipeline axis with the config's TP/FSDP
 rules for the packed stack, as the reference's does; on a pod-only mesh
 every inner entry drops, and ``dist.pipeline.PipelineStep`` refuses a spec
@@ -56,6 +64,7 @@ from .model import (
 __all__ = [
     "check_pipelineable",
     "make_stage_fns",
+    "piece_owners",
     "split_params",
     "merge_grads",
     "stage_param_specs",
@@ -121,7 +130,21 @@ def make_stage_fns(cfg: ArchConfig, *, z_coef: float = 1e-4):
     return layer_fn, first_fn, last_fn
 
 
-def split_params(cfg: ArchConfig, params) -> tuple[Any, Any, Any]:
+def piece_owners(cfg: ArchConfig, n_stages: int) -> dict[str, tuple[int, ...]]:
+    """{top-level key of the params tree: the pipeline ranks that hold it}
+    for every key but the unit stack ``"scan"``: the embedding on rank 0
+    (and on the last rank when the head reads the tied table), the final
+    norm and the head on the last rank, the (empty) tail on every rank."""
+    last = n_stages - 1
+    owners = {"embed": (0, last) if cfg.tied_embeddings and last else (0,),
+              "final_norm": (last,), "tail": tuple(range(n_stages))}
+    if not cfg.tied_embeddings:
+        owners["lm_head"] = (last,)
+    return owners
+
+
+def split_params(cfg: ArchConfig, params, *, rank: int | None = None,
+                 n_stages: int | None = None) -> tuple[Any, Any, Any]:
     """Split full model params into (stack, first_params, last_params).
 
     ``stack`` is the stacked unit tuple (leading dim = unit count) that
@@ -129,30 +152,48 @@ def split_params(cfg: ArchConfig, params) -> tuple[Any, Any, Any]:
     pinned embedding; ``last_params`` feeds the pinned head (the embed table
     rides along when embeddings are tied — its two gradient contributions
     are summed back in :func:`merge_grads`).
+
+    With ``rank`` (the process mode) ``params`` is that rank's share
+    (:func:`piece_owners`), ``stack`` its own units, and ``first_params``
+    / ``last_params`` are ``None`` except on rank 0 / the last rank.
     """
-    first = {"embed": params["embed"]}
-    last: dict[str, Any] = {"final_norm": params["final_norm"]}
-    if cfg.tied_embeddings:
-        last["embed"] = params["embed"]
-    else:
-        last["lm_head"] = params["lm_head"]
+    last_rank = rank is None or rank == n_stages - 1
+    first = {"embed": params["embed"]} if rank is None or rank == 0 else None
+    last: dict[str, Any] | None = None
+    if last_rank:
+        last = {"final_norm": params["final_norm"]}
+        if cfg.tied_embeddings:
+            last["embed"] = params["embed"]
+        else:
+            last["lm_head"] = params["lm_head"]
     return params["scan"], first, last
 
 
-def merge_grads(cfg: ArchConfig, stack_grads, first_grads, last_grads):
+def merge_grads(cfg: ArchConfig, stack_grads, first_grads, last_grads, *,
+                rank: int | None = None, n_stages: int | None = None, tied_peer=None):
     """Reassemble a full params-shaped gradient tree from the pipeline's
-    (per-unit stack, first-stage, last-stage) gradient pieces."""
-    embed = first_grads["embed"]
-    if cfg.tied_embeddings:
+    (per-unit stack, first-stage, last-stage) gradient pieces.
+
+    With ``rank`` (the process mode) the result is that rank's share, in
+    the params tree's key order.  A tied table's gradient is ``first +
+    last`` on both end ranks: ``tied_peer(half)`` sends this rank's half of
+    it to the other end rank and returns that rank's half."""
+    if rank is None:
+        rank, n_stages = 0, 1
+    last = n_stages - 1
+    out: dict[str, Any] = {}
+    if rank == 0 and not cfg.tied_embeddings:
+        out["embed"] = first_grads["embed"]
+    elif cfg.tied_embeddings and rank in (0, last):
         # tied table: gather grad (embedding) + matmul grad (head)
-        embed = tree_map(torch.add, embed, last_grads["embed"])
-    out: dict[str, Any] = {
-        "embed": embed,
-        "final_norm": last_grads["final_norm"],
-        "scan": stack_grads,
-        "tail": (),
-    }
-    if not cfg.tied_embeddings:
+        first_half = first_grads["embed"] if rank == 0 else tied_peer(last_grads["embed"])
+        last_half = last_grads["embed"] if rank == last else tied_peer(first_half)
+        out["embed"] = tree_map(torch.add, first_half, last_half)
+    if rank == last:
+        out["final_norm"] = last_grads["final_norm"]
+    out["scan"] = stack_grads
+    out["tail"] = ()
+    if rank == last and not cfg.tied_embeddings:
         out["lm_head"] = last_grads["lm_head"]
     return out
 

@@ -82,12 +82,16 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(
-    cfg: AdamWConfig, params, grads, opt_state, lr: torch.Tensor
+    cfg: AdamWConfig, params, grads, opt_state, lr: torch.Tensor,
+    gnorm: torch.Tensor | None = None,
 ) -> tuple[Any, dict[str, Any], dict[str, torch.Tensor]]:
     """One AdamW step. Returns (params, opt_state, stats); see the module
-    docstring for what is updated in place."""
+    docstring for what is updated in place.  ``gnorm`` replaces
+    :func:`global_norm` of ``grads`` as the norm clipped by (the pipelined
+    steps pass the norm of the whole model's gradient, of which ``grads``
+    may be one rank's share)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

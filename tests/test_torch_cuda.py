@@ -741,3 +741,72 @@ def test_sharded_step_on_two_ranks_sharing_the_card(gen, dtype):
         plain, sharded = r["losses"]
         for a, b in zip(sharded, plain):
             assert abs(a - b) <= loss_tol * abs(b), (sharded, plain)
+
+
+def _pipeline_procs_worker(rank, world, dtype):
+    """One process of a 2-stage 1F1B pipeline on the card (gloo, the ring
+    messages staged through pinned host memory): the llama smoke config cut
+    to 4 layers, its loss, gradient share and one AdamW step, gathered to
+    rank 0, and this process's flash launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.dist.pipeline import StagePlan
+    from repro_torch.launch.steps import make_transformer_pipeline_train_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = device_mesh((world,), ("pod",), device="cuda", allow_shared_card=True)
+    cfg = get_smoke_config("llama3.2-1b").replace(attn_impl="pallas", norm_impl="fused",
+                                                  dtype=dtype, n_layers=4)
+    built = make_transformer_pipeline_train_step(
+        cfg, mesh, StagePlan.equal(range(world), 4), seq_len=128, global_batch=4, n_micro=4,
+        device="cuda", warmup_steps=1, total_steps=10)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 4, mode="copy", seed=0), arch=cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    params = built.init_params()
+    launches = fa_ops.launches
+    loss, grads = built.pipeline_call(params, batch)
+    launches = fa_ops.launches - launches
+    params, opt_state, _ = built.fn(params, init_opt_state(AdamWConfig(), params), batch)
+    return {"loss": loss.item(), "grads": built.share.gather(grads, {})[0],
+            "params": built.share.gather(params, {})[0], "launches": launches}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pipeline_processes_on_the_card_match_the_single_controller(gen, dtype):
+    """2 processes sharing the card against the single controller (2 ranks
+    of an explicit ``Mesh`` on the card) from the same seed and batch: the
+    loss, every gradient leaf and every parameter after one AdamW step bit
+    for bit; each process launches the flash forward for its 2 layers at 4
+    microbatches, at the forward tick and in the recompute."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.meshutil import Mesh
+    from repro_torch.dist.pipeline import StagePlan
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_transformer_pipeline_train_step
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    build.build_all()
+    results = run_ranks(_pipeline_procs_worker, 2, dtype, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("llama3.2-1b").replace(attn_impl="pallas", norm_impl="fused",
+                                                  dtype=dtype, n_layers=4)
+    built = make_transformer_pipeline_train_step(
+        cfg, Mesh([torch.device("cuda", 0)] * 2, ("pod",)), StagePlan.equal(range(2), 4),
+        seq_len=128, global_batch=4, n_micro=4, device="cuda", warmup_steps=1, total_steps=10)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 4, mode="copy", seed=0), arch=cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    params = built.init_params()
+    loss, grads = built.pipeline_call(params, batch)
+    params, _, _ = built.fn(params, init_opt_state(AdamWConfig(), params), batch)
+    lead = results[0]
+    assert lead["loss"] == loss.item()
+    for got, want in ((lead["grads"], grads), (lead["params"], params)):
+        flat, ref = tree_leaves(got), tree_leaves(want)
+        assert len(flat) == len(ref)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(flat, ref))
+    assert [r["launches"] for r in results] == [2 * 2 * 4] * 2

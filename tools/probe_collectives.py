@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Which collectives ``torch.distributed``'s gloo backend carries on CUDA
-tensors, through DTensor's ``redistribute``, for ranks that share one card:
+"""Which collectives and point-to-point calls ``torch.distributed``'s gloo
+backend carries on CUDA tensors, for ranks that share one card:
 
     python3 tools/probe_collectives.py [--world 2] [--device cuda] [--backend gloo]
+                                       [--cases PREFIX]
 
 Spawns ``--world`` processes (a ``file://`` rendezvous in a temporary
 directory), every rank on ``cuda:0`` (``rank % device_count``), a
@@ -19,7 +20,21 @@ and the raw process-group call under each (``dist.all_reduce``,
 ``all_to_all_single``).  Each result is checked against the value computed
 on one rank; a case reports ``ok``, ``wrong`` or the exception's type and
 first line, and with ``ok`` the median milliseconds of 5 calls on a
-16 Mi-element payload.  Each collective runs in processes of its own, so
+16 Mi-element payload.
+
+The point-to-point cases exchange one microbatch's activation of the 1F1B
+pipeline at llama3.2-1b's width (1 x 1024 x 2048) between ranks 0 and 1,
+each rank sending its tensor to the other and receiving the other's:
+
+* ``p2p_send_recv``     blocking ``send`` / ``recv`` (rank 0 sends first)
+* ``p2p_isend_irecv``   ``isend`` and ``irecv`` posted together, then waited
+* ``p2p_batch``         one ``batch_isend_irecv`` of both
+* ``p2p_batch_staged``  the same through pinned host buffers: copied to the
+                        host, sent, received on the host, copied back
+
+on the device's tensors as they are (the staged case: on host copies),
+always on two ranks; ``ok`` rows carry the median milliseconds of 5
+exchanges (``ms_exchange``).  Each collective runs in processes of its own, so
 one that kills a rank is reported as the signal it died of.  With
 ``--device cpu`` it runs the same on the host.
 Prints the card's name and power limit (``nvidia-smi``), then one JSON line.
@@ -37,12 +52,19 @@ import time
 import warnings
 
 ELEMS = 1 << 24
+P2P_SHAPE = (1, 1024, 2048)
+P2P_CASES = ("p2p_send_recv", "p2p_isend_irecv", "p2p_batch", "p2p_batch_staged")
 CASES = ("all_reduce", "all_gather", "reduce_scatter", "broadcast", "all_to_all",
-         "pg_all_reduce", "pg_all_gather", "pg_reduce_scatter", "pg_broadcast", "pg_all_to_all")
+         "pg_all_reduce", "pg_all_gather", "pg_reduce_scatter", "pg_broadcast",
+         "pg_all_to_all") + P2P_CASES
 
 
 def _first_line(exc: BaseException) -> str:
-    text = str(exc).strip().splitlines()
+    """The exception's type and first line; for a rank's exception that
+    the spawn re-raises, the rank's own (the traceback's last line)."""
+    text = [line for line in str(exc).strip().splitlines() if line.strip()]
+    if type(exc).__name__ == "ProcessRaisedException" and text:
+        return f"{type(exc).__name__}: {text[-1].strip()[:160]}"
     return f"{type(exc).__name__}: {text[0][:160] if text else ''}"
 
 
@@ -163,7 +185,42 @@ def _rank(rank: int, world: int, init: str, device: str, backend: str, out: str,
                               torch.cat([parts[r].chunk(world, 0)[rank] for r in range(world)]),
                               lambda: pg_all_to_all(big)),
         }
-        for case, (fn, want, big_fn) in {**dt_cases(), **pg_cases}.items():
+        peer = 1 - rank  # the point-to-point cases run on two ranks
+        mine_p2p = torch.randn(P2P_SHAPE, generator=torch.Generator().manual_seed(rank)).to(dtype)
+        theirs = torch.randn(P2P_SHAPE, generator=torch.Generator().manual_seed(peer)).to(dtype)
+        out_p2p = mine_p2p.to(dev)
+        # the staged case's buffers, pinned on "cuda", allocated once
+        host_out, host_in = (torch.empty(P2P_SHAPE, dtype=dtype, pin_memory=device == "cuda")
+                             for _ in range(2))
+
+        def p2p(kind):
+            got = torch.empty_like(out_p2p)
+            if kind == "p2p_send_recv":
+                if rank == 0:
+                    dist.send(out_p2p, peer)
+                    dist.recv(got, peer)
+                else:
+                    dist.recv(got, peer)
+                    dist.send(out_p2p, peer)
+            elif kind == "p2p_isend_irecv":
+                works = [dist.isend(out_p2p, peer), dist.irecv(got, peer)]
+                for w in works:
+                    w.wait()
+            elif kind == "p2p_batch":
+                for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, out_p2p, peer),
+                                                 dist.P2POp(dist.irecv, got, peer)]):
+                    w.wait()
+            else:  # staged through pinned host buffers
+                host_out.copy_(out_p2p)
+                for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, host_out, peer),
+                                                 dist.P2POp(dist.irecv, host_in, peer)]):
+                    w.wait()
+                got.copy_(host_in)
+            return got
+
+        p2p_cases = {case: ((lambda c=case: p2p(c)), theirs, (lambda c=case: p2p(c)))
+                     for case in P2P_CASES}
+        for case, (fn, want, big_fn) in {**dt_cases(), **pg_cases, **p2p_cases}.items():
             if case != only:
                 continue
             try:
@@ -173,7 +230,9 @@ def _rank(rank: int, world: int, init: str, device: str, backend: str, out: str,
                     raise RuntimeError(f"result on {got.device}")
                 ok = torch.allclose(got.float().cpu(), want.float(), rtol=1e-2, atol=1e-2)
                 row = {"result": "ok" if ok else "wrong"}
-                if ok:
+                if ok and case in P2P_CASES:
+                    row["ms_exchange"] = round(timed(big_fn), 4)
+                elif ok:
                     row["ms_16Mi"] = round(timed(big_fn), 4)
             except Exception as exc:  # noqa: BLE001 - the probe reports each failure
                 row = {"result": _first_line(exc)}
@@ -191,6 +250,8 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--backend", default="gloo")
+    ap.add_argument("--cases", default="",
+                    help="run only the cases whose name starts with this (e.g. p2p)")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -203,16 +264,17 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True, text=True)
         print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
     results = {}
-    for case in CASES:
+    for case in (c for c in CASES if c.startswith(args.cases)):
         # each case in processes of its own: a collective that kills a rank
         # (a signal) is reported and the next case still runs
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "probe.json")
             init = f"file://{os.path.join(tmp, 'rdzv')}"
             try:
+                world = 2 if case in P2P_CASES else args.world
                 mp.start_processes(
-                    _rank, args=(args.world, init, args.device, args.backend, out, case),
-                    nprocs=args.world, join=True, start_method="spawn")
+                    _rank, args=(world, init, args.device, args.backend, out, case),
+                    nprocs=world, join=True, start_method="spawn")
                 with open(out) as fh:
                     results.update(json.load(fh))
             except Exception as exc:  # noqa: BLE001 - the probe reports each failure
