@@ -123,25 +123,28 @@ caught):
     params from the seed go through ``CheckpointManager(keep_n=1)``
     (``save``, ``wait``, ``restore_latest(device="cuda")``) and every leaf
     must come back ``torch.equal``, bf16 kept (bytes, blocking, write,
-    validate and load seconds printed); run A trains phase 8's first 3
-    steps (``lr_total_steps=6``, ``ckpt_mode="fixed"``, ``ckpt_every``
-    above 3, a metrics textfile and a status file) and saves the 17.30 GB
-    training state at shutdown (label 3); run B (``steps=6``,
+    validate and load seconds printed); then, cut to 4 of its 16 layers,
+    phase 8's 6 steps run without a break, run A trains the first 3
+    (``lr_total_steps=6``, ``ckpt_mode="fixed"``, ``ckpt_every`` above 3, a
+    metrics textfile and a status file) and saves the 7.08 GB training
+    state at shutdown (label 3), and run B (``steps=6``,
     ``ckpt_mode="off"``, ``restore=True``) restores it and trains steps
-    4-6.  Each run's launch counts must equal phase 8's per-step counts x
-    its 3 steps; run B's resume summary must show one valid checkpoint and
-    none quarantined, and it writes nothing; both runs' losses are held
-    against phase 8's at the same steps at TRAIN_RTOL (the largest
-    difference and whether they are bitwise equal are printed); the
+    4-6.  Each run's launch counts must equal the per-step counts at 4
+    layers x its 3 steps; run B's resume summary must show one valid
+    checkpoint and none quarantined, and it writes nothing; both runs'
+    losses are held against the unbroken run's at the same steps at
+    TRAIN_RTOL (the largest difference and whether they are bitwise equal
+    are printed); the
     textfile must parse under ``repro_torch.monitor.promparse`` with its
     ``io_bytes`` sample equal to the checkpoint's array bytes, and the
     status file must hold run A's last iteration and loss;
-18. train full-width rwkv6-1.6b (24 layers, d_model 2048, 32 WKV heads of
-    64, vocab 65536; bf16, remat "dots", ``seq_impl="parallel"``) through
+18. train full-width rwkv6-1.6b cut to 8 of its 24 layers (d_model 2048,
+    32 WKV heads of 64, vocab 65536; bf16, remat "dots",
+    ``seq_impl="parallel"``) through
     ``run_training`` as phase 8 does: batch 4 x 1024, 6 AdamW steps, the
     launch counters set to 0 just before and read just after and held to
     ``_per_step_launches`` x 6 (per step 6L RMSNorm forwards, 3L backwards,
-    L = 24; no flash, RG-LRU or WKV-6 launch: the recurrence trains through
+    L = 8; no flash, RG-LRU or WKV-6 launch: the recurrence trains through
     its PyTorch form, as the reference's does), finite losses; one
     loss-and-gradient step against the plain path (``_train_family_phase``:
     loss and gradient norm at TRAIN_RTOL, each leaf in relative norm at
@@ -330,6 +333,37 @@ caught):
     the resumed losses equal the uninterrupted run's.  It prints each
     process's wall-clock parts.  The kernels' record adds each kernel's launches by rank in
     (d) under ``pipeline_procs``.
+30. sharded serving (``_sharded_serve_phase``): llama3.2-1b,
+    recurrentgemma-9b and rwkv6-1.6b at full width (SHARDED_CELLS: depth
+    and decode steps), bf16, the kernel path (``seq_impl="pallas"``).  This
+    process first runs each unsharded (``M.prefill`` on SHARDED_BATCH
+    seeded prompts of SHARDED_PROMPT tokens, then seeded decode tokens)
+    and keeps the logits and each call's launches; then 4 ranks on the
+    card (gloo, capped at SHARDED_MEMORY_FRACTION) on a (2, 2) ("data",
+    "model") ``DeviceMesh`` draw the same weights one leaf at a time,
+    keeping their shards, and run ``launch.steps.make_prefill_step`` and
+    ``make_serve_step``: each rank's launches of each call exactly the
+    unsharded call's (the flash, RMSNorm, RG-LRU and WKV-6 kernels on its
+    local shards), the gathered logits of the prefill and of every decode
+    step held to the unsharded path in relative L2 norm (llama at
+    MODEL_RTOL, the deep recurrent ones at RECURRENT_REL, and in f32 at 4
+    layers elementwise at F32_ATOL: SHARDED_F32).  Beside the
+    ranks, a process of its own runs the dry run (``launch.dryrun``) of
+    the same cells on a fake group of 4 (mesh label "chip22"): its
+    per-device params and cache bytes must equal each rank's measured
+    local shard bytes.  It prints each rank's prefill and median decode
+    step, the dry run's local FLOPs beside the prefill, peak memory, time
+    in collectives (``dist/collective/*``), and the card's name and power
+    limit.  Each rank records the shapes and dtypes its kernel wrappers are
+    called at (``_shape_tap``; every launch one such call, every rank the
+    same); then this process holds each kernel at each of those local
+    shapes against its plain version, times it and bounds it.  The
+    kernels' record adds, under ``serve_sharded``, each kernel's launches
+    by arch and rank and its rows at those shapes.
+
+Every phase ends with a ``[phase N] seconds`` line (wall seconds since the
+line before), and with a line on standard error giving the seconds since
+the script started.
 
 Phase 2 also holds the flash kernel at head_dim 256 (recurrentgemma-9b's MQA
 heads, window 2048) at S=T=2560, 512 and phase 19's 4096 bf16.  Phases 2
@@ -417,13 +451,13 @@ MODEL_ATOL, MODEL_RTOL = 0.1, 0.05
 # full width (the hybrid cut to one unit plus its tail) elementwise at the
 # repo's f32 model tolerance (tests/test_torch_model.py)
 RECURRENT_REL = 0.5
-# The same holds for rwkv6-1.6b's bf16 gradients at full depth (phase 18):
-# in development runs on the card kernel and plain path differed by
+# The same holds for rwkv6-1.6b's bf16 gradients (phase 18): at full depth,
+# in development runs on the card, kernel and plain path differed by
 # 0.24-0.27 in relative norm on every leaf, with loss and gradient norm
 # within TRAIN_RTOL, while each path lay ~0.86 (median leaf) from the plain
 # path in f32 on the same weights: bf16 rounding, not the kernels.  So its
 # leaves are held at RECURRENT_REL, that distance printed beside them, and
-# in f32 to 1e-3
+# in f32 to 1e-3 (phase 18 now trains SSM_TRAIN_LAYERS of the 24)
 F32_ATOL = 2e-4
 # internvl2-26b in bf16 at 48 layers of width 6144 (phase 22): phase 4's
 # elementwise tolerance held at 4 and 16 layers but not at 48, where the
@@ -460,10 +494,13 @@ TRAIN_RTOL, LEAF_RTOL = 3e-2, 0.1
 # the smoke configs' phase (head_dim 16): prompt and sequence length, steps
 SMOKE_SEQ, SMOKE_STEPS = 128, 3
 # training the hybrid and SSM families (phases 18 and 19): rwkv6-1.6b at full
-# width and depth at phase 8's batch x seq; recurrentgemma-9b at full width
+# width cut to SSM_TRAIN_LAYERS of its 24 layers (all 24 took 33 s of a
+# run's 858 s, NVIDIA H100 80GB HBM3, 700.00 W) at phase 8's batch x seq;
+# recurrentgemma-9b at full width
 # cut to 4 of its 38 layers (one (rglru, attn_local, attn_local) unit and the
 # first layer of the next: 9.8 B params x 16 B of training state are past one
 # card), batch 1 x seq 4096, twice the 2048 window
+SSM_TRAIN_LAYERS = 8
 HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 4, 1, 4096
 # training moonshot-v1-16b-a3b (phase 21): full width cut to 4 of its 48
 # layers (2.95 B params, ~41 GB of training state; all 48 would need ~393
@@ -533,9 +570,13 @@ TRAIN_SHAPES = {
     ("seamless-m4t-large-v2", False): ENCDEC_SHAPE[:6] + (False, None),
 }
 # the checkpoint phase: run A trains steps 1-3 of phase 8's 6-step schedule
-# and saves at shutdown (label 3); run B restores it and trains steps 4-6.
-# The checkpoints need a local directory with this much room
-CKPT_STEPS, CKPT_FREE_BYTES = 3, 25e9
+# and saves at shutdown (label 3); run B restores it and trains steps 4-6;
+# both at full width cut to CKPT_LAYERS layers (7.08 GB of training state;
+# at all 16 layers the 17.30 GB save and its restore took 69 s of the
+# phase's 90 s, NVIDIA H100 80GB HBM3, 700.00 W), held to an uninterrupted
+# run at that depth.  The checkpoints need a local directory with this much
+# room
+CKPT_STEPS, CKPT_LAYERS, CKPT_FREE_BYTES = 3, 4, 25e9
 
 
 def _print(*args) -> None:
@@ -544,17 +585,29 @@ def _print(*args) -> None:
 
 # bytes written between timed calls: five times the H100's 50 MB L2
 L2_FLUSH_BYTES = 256 << 20
+# a call is timed over REPS windows of INNER calls; one slower than
+# SLOW_CALL_MS over SLOW_REPS windows of SLOW_INNER: the plain versions at
+# the path shapes take 3-18 ms a call, and 7 windows of 20 of them took ~2 s
+# each, a quarter of phases 2 and 6
+REPS, INNER, SLOW_CALL_MS, SLOW_REPS, SLOW_INNER = 7, 20, 2.0, 3, 2
 
 
-def _device_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
-    """Median over ``reps`` windows of ``inner`` calls queued behind a device
-    sleep, per call.  Before each call a write of ``L2_FLUSH_BYTES`` evicts
-    the L2, and each call is timed by its own pair of CUDA events, so no
-    call finds its inputs in L2 from the call before and the flush is not
-    in the time."""
+def _device_ms(torch, fn) -> float:
+    """Median over REPS windows of INNER calls queued behind a device sleep,
+    per call (over SLOW_REPS windows of SLOW_INNER when a timed warm-up
+    call takes more than SLOW_CALL_MS).  Before each call a write of
+    ``L2_FLUSH_BYTES`` evicts the L2, and each call is timed by its own pair
+    of CUDA events, so no call finds its inputs in L2 from the call before
+    and the flush is not in the time."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
     torch.cuda.synchronize()
+    slow = start.elapsed_time(end) > SLOW_CALL_MS
+    reps, inner = (SLOW_REPS, SLOW_INNER) if slow else (REPS, INNER)
     times = []
     for _ in range(reps):
         events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -975,15 +1028,37 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def _device_ops(prof):
+    """The device operations (kernels, copies, fills) of a finished
+    ``torch.profiler`` window, one row a name with ``key``, ``count`` and
+    ``self_device_time_total`` (microseconds) as ``key_averages()`` gives
+    them, read from the profiler's raw events: turning every event into a
+    ``FunctionEvent`` first, as ``key_averages()`` does, took 14-82 s a
+    serving window (NVIDIA H100 80GB HBM3, 700.00 W), longer than the window."""
+    import types
+
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        row = rows.setdefault(e.name(), types.SimpleNamespace(
+            key=e.name(), count=0, self_device_time_total=0.0))
+        row.count += 1
+        row.self_device_time_total += e.duration_ns() / 1e3
+    return list(rows.values())
+
+
 def _profile_phase(torch, engine, sess, prompt_lens, tag="[profile]"):
     """Where a warm serving window's time goes: the same engine serves
-    N_SLOTS more requests under ``torch.profiler``; device busy share =
-    summed kernel time over the window's wall time (the profiler's own host
-    cost inflates the wall, so the idle share is an upper bound).  Then the
+    N_SLOTS more requests under ``torch.profiler``, which traces the
+    device only; device busy share = summed kernel time over the window's
+    wall time (the profiler's own host cost inflates the wall, so the idle
+    share is an upper bound).  Then the
     device operations (kernels, copies, fills) of one decode step of
     N_SLOTS fresh cache rows, the engine's step shape."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
@@ -997,15 +1072,14 @@ def _profile_phase(torch, engine, sess, prompt_lens, tag="[profile]"):
         for i in range(N_SLOTS)
     ]
     before = {name: _scope(sess, name) for name in ("serve/prefill", "serve/decode")}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for req in requests:
             engine.submit(req)
         engine.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernels = _device_ops(prof)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     phases = {}
     for name, (count0, seconds0) in before.items():
@@ -1020,8 +1094,7 @@ def _profile_phase(torch, engine, sess, prompt_lens, tag="[profile]"):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         M.decode_step(engine.cfg, engine.params, cache, step)
         torch.cuda.synchronize()
-    ops = sum(e.count for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    ops = sum(e.count for e in _device_ops(prof))
     _print(f"{tag} one decode step of {engine.n_slots} rows: {ops} device operations")
     del cache
 
@@ -1050,7 +1123,7 @@ def _rglru_phase(torch, rg_ops, gen):
         err = max((y.float() - ref_y.float()).abs().max().item(), (h - ref_h).abs().max().item())
         bit_equal = torch.equal(y, ref_y) and torch.equal(h, ref_h)  # printed, not asserted
         ms = _device_ms(torch, lambda: rg_ops.rglru_fwd(a, x, h0))
-        plain_ms = _device_ms(torch, lambda: rg_ops.rglru_fwd_plain(a, x, h0), reps=3, inner=2)
+        plain_ms = _device_ms(torch, lambda: rg_ops.rglru_fwd_plain(a, x, h0))
         n_bytes = sum(t.numel() * t.element_size() for t in (a, x, y, h)) + (
             0 if h0 is None else h0.numel() * 4)
         bound_ms, bound_by = _bound_ms(n_bytes, 2.0 * b * s * d, "f32")
@@ -1092,8 +1165,7 @@ def _wkv6_phase(torch, wk_ops, gen):
                   (s_out - ref_s).abs().max().item())
         state_equal = torch.equal(s_out, ref_s)  # printed, not asserted
         ms = _device_ms(torch, lambda: wk_ops.wkv6_fwd(r, kk, v, w, u, state))
-        plain_ms = _device_ms(torch, lambda: wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state),
-                              reps=3, inner=2)
+        plain_ms = _device_ms(torch, lambda: wk_ops.wkv6_fwd_plain(r, kk, v, w, u, state))
         n_bytes = sum(t.numel() * t.element_size() for t in (r, kk, v, w, u, state, y, s_out))
         # per state element and step: r_i S_ij (2 flops), w_i S_ij + k_i v_j (3)
         flops = 5.0 * b * s * h * k * k
@@ -1401,7 +1473,8 @@ def _train_cfg(arch, smoke=False, n_layers=None):
         cfg = cfg.replace(n_layers=n_layers)
     shape = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
              cfg.vocab_size, cfg.tied_embeddings, cfg.window)
-    assert shape == TRAIN_SHAPES[(arch, smoke)], cfg
+    want = TRAIN_SHAPES[(arch, smoke)]
+    assert shape == (want[0] if n_layers is None else n_layers,) + want[1:], cfg
     return cfg
 
 
@@ -1653,7 +1726,6 @@ def _train_profile_phase(torch, cfg, params, batch, tag="[profile-train]"):
     device is traced: rwkv6-1.6b's step runs its chunked WKV-6 as small
     host ops (over 100,000 kernel launches a step), whose host events the
     profiler would otherwise record and aggregate too."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.steps import make_train_step
@@ -1673,8 +1745,7 @@ def _train_profile_phase(torch, cfg, params, batch, tag="[profile-train]"):
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernels = _device_ops(prof)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     _print(f"{tag} one warm step: wall_s={wall:.4f} device_kernel_s={device_s:.4f} "
            f"device_busy_share={device_s / wall:.4f} kernel_launches="
@@ -1750,9 +1821,9 @@ def _payload_bytes(ckpt_path: str) -> int:
     return sum(math.prod(e["shape"]) * np.dtype(e["stored_dtype"]).itemsize for e in leaves)
 
 
-def _ckpt_phase(torch, K, train_losses):
+def _ckpt_phase(torch, K):
     """Phase 17: checkpoint and resume full-width llama3.2-1b (module
-    docstring).  ``train_losses`` are phase 8's six losses."""
+    docstring)."""
     from repro_torch.checkpoint import CheckpointManager, validate_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.clocks import counter_channel
@@ -1804,13 +1875,18 @@ def _ckpt_phase(torch, K, train_losses):
            f"restore_s(validate+load onto the card)={restore_s:.4f} "
            f"load_s(restore - validate)={restore_s - validate_s:.4f}")
 
-    # 2. run A saves at shutdown (label 3), run B restores it and trains on
+    # 2. run A saves at shutdown (label 3), run B restores it and trains on,
+    # both held to the same schedule run without a break
+    _, _, train_losses, *_ = _train_phase(torch, K, n_layers=CKPT_LAYERS,
+                                          tag="[ckpt uninterrupted]")
+    _free(torch)
     ckpt_dir = tempfile.mkdtemp(prefix="ckpt_train_", dir=root)
     textfile, status_path = ckpt_dir + ".prom", ckpt_dir + ".json"
     try:
         io_before = counter_channel("io_bytes")
         launches_a, _, losses_a, summary_a, db_a = _train_phase(
-            torch, K, steps=CKPT_STEPS, tag="[ckpt run A]", lr_total_steps=TRAIN_STEPS,
+            torch, K, steps=CKPT_STEPS, n_layers=CKPT_LAYERS, tag="[ckpt run A]",
+            lr_total_steps=TRAIN_STEPS,
             ckpt_dir=ckpt_dir, ckpt_mode="fixed", ckpt_every=1000,
             metrics_textfile=textfile, status_path=status_path)
         label = f"step_{CKPT_STEPS:08d}"
@@ -1833,7 +1909,8 @@ def _ckpt_phase(torch, K, train_losses):
         _free(torch)
 
         launches_b, _, losses_b, summary_b, db_b = _train_phase(
-            torch, K, steps=TRAIN_STEPS, start=CKPT_STEPS, tag="[ckpt run B]",
+            torch, K, steps=TRAIN_STEPS, start=CKPT_STEPS, n_layers=CKPT_LAYERS,
+            tag="[ckpt run B]",
             lr_total_steps=TRAIN_STEPS, ckpt_dir=ckpt_dir, ckpt_mode="off", restore=True)
         resume = summary_b["resume"]
         assert (resume["selected_step"], resume["n_valid"], resume["n_quarantined"]) == \
@@ -1846,7 +1923,7 @@ def _ckpt_phase(torch, K, train_losses):
             if os.path.exists(leftover):
                 os.remove(leftover)
     _free(torch)
-    # run A is phase 8's first three steps, run B its last three
+    # run A is the uninterrupted run's first three steps, run B its last three
     for got, want in ((losses_a, train_losses[:CKPT_STEPS]),
                       (losses_b, train_losses[CKPT_STEPS:])):
         for a, b in zip(got, want):
@@ -1862,10 +1939,11 @@ def _ckpt_phase(torch, K, train_losses):
     _print(f"[ckpt] run B restored label {resume['selected_step']} (valid {resume['n_valid']}, "
            f"quarantined {resume['n_quarantined']}): STARTUP/restore_s(validate+load onto the "
            f"card)={restore_timer:.4f} ({written / restore_timer / 1e9:.3f} GB/s), wrote nothing")
-    _print(f"[ckpt] losses steps 4-6 resumed {[round(x, 6) for x in losses_b]} vs phase 8 "
+    _print(f"[ckpt] losses steps 4-6 resumed {[round(x, 6) for x in losses_b]} vs the "
+           f"uninterrupted run's "
            f"{[round(x, 6) for x in train_losses[CKPT_STEPS:]]}: max |diff| {diff_b:.3e} "
            f"(limit {TRAIN_RTOL} relative), bitwise equal: {losses_b == train_losses[CKPT_STEPS:]}; "
-           f"steps 1-3 of run A bitwise equal to phase 8's: "
+           f"steps 1-3 of run A bitwise equal to the uninterrupted run's: "
            f"{losses_a == train_losses[:CKPT_STEPS]}")
     return {"run_a": launches_a, "run_b": launches_b}
 
@@ -2222,7 +2300,6 @@ def _pipeline_ranks_phase(torch, K):
     restaged plan bit-equal to it with equal launches, f32 at
     PIPE_F32_LAYERS layers at the f32 model tolerance, and one profiled
     warm step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticConfig, SyntheticLM
@@ -2315,8 +2392,7 @@ def _pipeline_ranks_phase(torch, K):
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    kernels = _device_ops(prof)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     ticks = PIPE_RANK_MICRO + 2 * PIPE_RANKS - 1
     ref["warm"] = dict(wall_s=wall, busy=device_s / wall, ops=sum(e.count for e in kernels))
@@ -2919,7 +2995,6 @@ def _procs_rank(rank, world, ref, root):
     step (rank 0), then ``run_training`` uninterrupted and saved."""
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import SyntheticConfig, SyntheticLM
@@ -2997,8 +3072,7 @@ def _procs_rank(rank, world, ref, root):
         wall = time.perf_counter() - t0
     out["warm"] = dict(wall_s=wall, phase_s=dict(phase_s))
     if rank == 0:
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        kernels = _device_ops(prof)
         device_s = sum(e.self_device_time_total for e in kernels) / 1e6
         out["warm"].update(device_s=device_s, busy=device_s / wall,
                            ops=sum(e.count for e in kernels),
@@ -3204,6 +3278,453 @@ def _procs_phase(torch, ref):
     return launches
 
 
+# phase 30: sharded serving on a ("data", "model") DeviceMesh of
+# SHARDED_MESH processes sharing the card (gloo, the collectives routed):
+# each family at full width, SHARDED_BATCH seeded prompts of SHARDED_PROMPT
+# tokens (phase 4's long prompt) prefilled through
+# ``launch.steps.make_prefill_step``, then seeded tokens decoded through
+# ``make_serve_step``; this process first runs the unsharded kernel path
+# on the same weights and tokens and keeps its logits on the host; each
+# rank draws the weights leaf by leaf and keeps its shard of each
+# (``_sharded_params``), capped at SHARDED_MEMORY_FRACTION of the card on
+# expandable segments.  By arch: (layers or None for all of them, decode
+# steps, tolerance of the gathered logits against the unsharded path)
+SHARDED_MESH, SHARDED_BATCH, SHARDED_PROMPT, SHARDED_MEMORY_FRACTION = (2, 2), 4, 512, 0.235
+SHARDED_CELLS = {
+    "llama3.2-1b": (None, 16, ("relnorm", MODEL_RTOL)),
+    "recurrentgemma-9b": (None, 1, ("relnorm", RECURRENT_REL)),
+    "rwkv6-1.6b": (None, 4, ("relnorm", RECURRENT_REL)),
+}
+# the deep recurrent cells' bf16 logits are held only against gross
+# failure (RECURRENT_REL); their witness is the same sharded path in f32 at
+# (layers, decode steps), every layer kind at full width, held elementwise
+# to the unsharded f32 path at the repo's f32 model tolerance: the two
+# differ only in the order the shards' partial sums add up
+SHARDED_F32 = {"recurrentgemma-9b": (4, 1), "rwkv6-1.6b": (4, 2)}
+SHARDED_RANKS = SHARDED_MESH[0] * SHARDED_MESH[1]
+SHARDED_NOTE = f"{SHARDED_RANKS} ranks sharing one card, gloo; not a multi-card number"
+# the forward kernels' wrappers whose calls phase 30 records by shape:
+# (counter name, module of K, wrapper), and the value range of each
+# positional input (None: N(0, 1); "gate": RG-LRU's a in (0, 1); "decay":
+# WKV-6's w = exp(-exp(N)); "weight": 1 + 0.1 N; "bonus": 0.5 N)
+SHARDED_WRAPPERS = (
+    ("flash_fwd", "fa", "flash_fwd", (None, None, None)),
+    ("rmsnorm_fwd", "rn", "rms_norm_fwd", (None, "weight")),
+    ("rglru_fwd", "rg", "rglru_fwd", ("gate", None, None)),
+    ("wkv6_fwd", "wk", "wkv6_fwd", (None, None, None, "decay", "bonus", None)),
+)
+# the dry run of phase 30's cells, in a process of its own beside the ranks
+SHARDED_DRYRUN = r"""
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import start_fake_group
+from repro_torch.models.config import ShapeConfig
+
+cells, out_dir = json.loads(sys.argv[1]), sys.argv[2]
+start_fake_group(len(cells["ranks"]))
+mesh = init_device_mesh("cpu", tuple(cells["mesh"]), mesh_dim_names=("data", "model"))
+out = {}
+for arch, (layers, steps) in cells["archs"].items():
+    over = {"n_layers": layers} if layers else None
+    for kind, seq in (("prefill", cells["prompt"]), ("decode", cells["prompt"] + steps)):
+        shape = ShapeConfig(f"chip22_{kind}", kind, seq, cells["batch"])
+        rec = D.run_cell(arch, shape.name, False, mesh=mesh, mesh_label="chip22",
+                         shape_override=shape, arch_overrides=over, out_dir=out_dir,
+                         verbose=False)
+        out[f"{arch}:{kind}"] = {k: rec[k] for k in (
+            "status", "state_bytes", "cost_analysis", "memory_analysis",
+            "collective_operand_bytes_per_device", "op_census", "wall_seconds")}
+print("DRYRUN " + json.dumps(out))
+"""
+
+
+def _sharded_cfg(arch, f32=False):
+    """Phase 30's config of ``arch``: SHARDED_CELLS' depth in bf16, or
+    SHARDED_F32's in f32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(attn_impl="pallas", norm_impl="fused", seq_impl="pallas")
+    if f32:
+        return cfg.replace(dtype="float32", n_layers=SHARDED_F32[arch][0])
+    layers = SHARDED_CELLS[arch][0]
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def _sharded_runs():
+    """Phase 30's runs in order: (key, arch, f32, decode steps)."""
+    return ([(arch, arch, False, c[1]) for arch, c in SHARDED_CELLS.items()]
+            + [(f"{arch}:f32", arch, True, c[1]) for arch, c in SHARDED_F32.items()])
+
+
+def _sharded_params(torch, cfg, mesh, rules):
+    """``M.init_params(cfg, seed SEED)`` laid out on ``mesh``, drawn one leaf
+    at a time from the same generator (the same values, in the same order),
+    each rank keeping its shard of each leaf before the next is drawn."""
+    from repro_torch.dist.sharding import distribute_tree
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import materialize, tree_map
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return tree_map(lambda spec, ax: distribute_tree(materialize(spec, gen, DEVICE), ax, mesh,
+                                                     rules),
+                    M.model_specs(cfg), M.param_axes(cfg))
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.models.layers import tree_leaves
+
+    return sum(x.to_local().numel() * x.element_size() for x in tree_leaves(tree))
+
+
+@contextlib.contextmanager
+def _shape_tap(torch, K, seen):
+    """Count in ``seen`` each call of the forward kernels' wrappers by
+    (kernel, positional arguments, keyword arguments), a tensor as
+    ("tensor", shape, dtype name): the local shapes and dtypes a rank's path
+    gives them.  The wrappers run as before."""
+
+    def sig(a):
+        return ("tensor", tuple(a.shape), _dtype_name(a.dtype)) if torch.is_tensor(a) else a
+
+    kept = []
+    for name, mod, attr, _ in SHARDED_WRAPPERS:
+        module = getattr(K, mod)
+        fn = getattr(module, attr)
+
+        def tapped(*args, _fn=fn, _name=name, **kw):
+            key = (_name, tuple(sig(a) for a in args),
+                   tuple(sorted((k, sig(v)) for k, v in kw.items())))
+            seen[key] = seen.get(key, 0) + 1
+            return _fn(*args, **kw)
+
+        setattr(module, attr, tapped)
+        kept.append((module, attr, fn))
+    try:
+        yield
+    finally:
+        for module, attr, fn in kept:
+            setattr(module, attr, fn)
+
+
+def _serve_sharded_rank(rank, world, ref_path):
+    """One rank of phase 30: for each run, the sharded prefill and decode
+    steps on the rank's shards, the launches counted and the kernel calls'
+    local shapes recorded around each call, the gathered logits held (rank
+    0) against the unsharded path's (an f32 run's returned whole)."""
+    import types
+
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru import ops as rg
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_per_process_memory_fraction(SHARDED_MEMORY_FRACTION)
+    K = types.SimpleNamespace(fa=fa, rn=rn, rg=rg, wk=wk)
+    mesh = device_mesh(SHARDED_MESH, ("data", "model"), DEVICE, allow_shared_card=True)
+    ref = torch.load(ref_path, weights_only=True)
+    out = {}
+    for key, arch, f32, steps in _sharded_runs():
+        cfg = _sharded_cfg(arch, f32)
+        rules = ST.rules_for(cfg)
+        t0 = time.perf_counter()
+        params = _sharded_params(torch, cfg, mesh, rules)
+        draw_s = time.perf_counter() - t0
+        b, s = SHARDED_BATCH, SHARDED_PROMPT
+        prefill = ST.make_prefill_step(cfg, mesh, rules, ShapeConfig("p", "prefill", s, b))
+        serve = ST.make_serve_step(cfg, mesh, rules, ShapeConfig("d", "decode", s + steps, b))
+        tokens = ref[key]["tokens"].to(DEVICE)
+        cache = M.init_cache(cfg, b, s + steps, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds0 = collectives.collective_seconds()
+        calls0 = dict(collectives.COUNTS)
+        times, launches, logits, shapes = [], [], [], []
+        for i in range(steps + 1):
+            seen = {}
+            _zero_counters(K)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with _shape_tap(torch, K, seen):
+                if i == 0:
+                    cache, lg = prefill.fn(params, {"tokens": tokens[:, :s]}, cache)
+                else:
+                    cache, lg = serve.fn(params, cache, tokens[:, s + i - 1:s + i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            launches.append(_read_counters(K))
+            shapes.append(seen)
+            logits.append(lg.full_tensor()[:, :cfg.vocab_size].float())  # a collective
+        seconds1 = collectives.collective_seconds()
+        cell = {
+            "draw_s": draw_s, "times": times, "launches": launches, "shapes": shapes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_bytes": _local_bytes(params), "cache_bytes": _local_bytes(cache),
+            "collective_s": {k: seconds1[k] - seconds0[k] for k in seconds1},
+            "collective_calls": {k: collectives.COUNTS[k] - calls0[k] for k in calls0},
+        }
+        if rank == 0 and f32:
+            cell["logits"] = [lg.cpu() for lg in logits]
+        elif rank == 0:
+            want = ref[key]["logits"]
+            cell["finite"] = all(bool(torch.isfinite(lg).all()) for lg in logits)
+            cell["rel"] = [_rel(lg.cpu(), w) for lg, w in zip(logits, want)]
+            cell["max_abs"] = max((lg.cpu() - w).abs().max().item() for lg, w in zip(logits, want))
+        out[key] = cell
+        del params, cache, logits, prefill, serve
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_kernel_case(torch, F, K, gen, kernel, args, kw):
+    """One kernel call of phase 30 rebuilt at a rank's local shapes and
+    dtypes (``_shape_tap``'s record; seeded inputs in the ranges the path
+    gives them), held against its plain version at KERNEL_TOL (its f32
+    second output, the lse or the final state, at 2e-5) and timed as phases
+    2, 3, 10 and 11 time theirs.  Returns the row."""
+    mod, attr, roles = next((getattr(K, m), a, r) for n, m, a, r in SHARDED_WRAPPERS
+                            if n == kernel)
+    plain = {"flash_fwd": "flash_fwd_plain", "rmsnorm_fwd": "rms_norm_plain",
+             "rglru_fwd": "rglru_fwd_plain", "wkv6_fwd": "wkv6_fwd_plain"}[kernel]
+    wrapper, plain = getattr(mod, attr), getattr(mod, plain)
+
+    def make(sig, role):
+        if not (isinstance(sig, tuple) and sig[:1] == ("tensor",)):
+            return sig
+        x = torch.randn(sig[1], generator=gen, device=DEVICE)
+        x = {"gate": torch.sigmoid, "decay": lambda t: torch.exp(-torch.exp(t)),
+             "weight": lambda t: 1.0 + 0.1 * t, "bonus": lambda t: 0.5 * t}.get(
+                 role, lambda t: t)(x)
+        return x.to(getattr(torch, sig[2]))
+
+    a = [make(sig, role) for sig, role in zip(args, roles + (None,) * len(args))]
+    kwargs = {k: make(sig, None) for k, sig in kw}
+    outs, refs = wrapper(*a, **kwargs), plain(*a, **kwargs)
+    torch.cuda.synchronize()
+    outs, refs = (x if isinstance(x, tuple) else (x,) for x in (outs, refs))
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        tol = KERNEL_TOL[_dtype_name(o.dtype)] if i == 0 else 2e-5
+        torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol)
+    err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+    moved = sum(t.numel() * t.element_size() for t in (*a, *kwargs.values(), *outs)
+                if torch.is_tensor(t))
+    x = a[0]
+    library_ms, peak = None, "f32"
+    if kernel == "flash_fwd":
+        q, k, v = a
+        causal, window = kwargs.get("causal", True), kwargs.get("window")
+        ok = _mask_pairs(torch, q.shape[1], k.shape[1], causal, window)
+        flops = 4.0 * q.shape[0] * q.shape[2] * int(ok.sum()) * q.shape[3]
+        peak = "bf16_tensor" if q.dtype == torch.bfloat16 else "f32"
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in a)
+        sdpa_mask = None if window is None else ok
+        library_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal and sdpa_mask is None,
+            enable_gqa=True))
+        shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} {_dtype_name(q.dtype)} "
+                 f"causal={causal} window={window}")
+    elif kernel == "rmsnorm_fwd":
+        w, eps = a[1], (a[2] if len(a) > 2 else kwargs.get("eps", 1e-5))
+        flops = 4.0 * x.numel()
+        library_ms = _device_ms(torch, lambda: F.rms_norm(x, (x.shape[-1],), w, eps))
+        shape = f"{tuple(x.shape)} {_dtype_name(x.dtype)}"
+    else:  # the recurrences: per element, or per state element and step
+        flops = (2.0 * x.numel() if kernel == "rglru_fwd"
+                 else 5.0 * x.numel() * a[2].shape[-1])
+        shape = ", ".join(f"{tuple(t.shape)} {_dtype_name(t.dtype)}" for t in a
+                          if torch.is_tensor(t))
+    ms = _device_ms(torch, lambda: wrapper(*a, **kwargs))
+    plain_ms = _device_ms(torch, lambda: plain(*a, **kwargs))
+    bound_ms, bound_by = _bound_ms(moved, flops, peak)
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _sharded_kernel_rows(torch, F, K, shapes):
+    """Each forward kernel of phase 30 at every local shape its ranks gave it
+    (``shapes``: by arch, (call, kernel call key, count) as ``_shape_tap``
+    recorded them), held and timed by ``_sharded_kernel_case``.  Returns
+    ``{kernel: {arch: [row, ...]}}``, each row with its call ("prefill" or
+    "decode") and its launches a call on every rank."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    rows = {}
+    for arch, calls in shapes.items():
+        for call, (kernel, args, kw), count in calls:
+            row = _sharded_kernel_case(torch, F, K, gen, kernel, args, kw)
+            row.update(call=call, per_call=count)
+            rows.setdefault(kernel, {}).setdefault(arch, []).append(row)
+            lib = row["library_ms"]
+            _print(f"[serve sharded kernels] {kernel} on a rank's shards, {arch} {call} "
+                   f"({count} a call), {row['shape']}: max_abs_err={row['max_abs_err']:.3e} "
+                   f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+                   f"bound_us={1e3 * row['bound_ms']:.3f} ({row['bound_by']}) library_ms="
+                   f"{'None' if lib is None else f'{lib:.5f}'} "
+                   f"{_shares(row['ms'], row['bound_ms'], lib)}")
+    return rows
+
+
+def _sharded_serve_phase(torch, F, K):
+    """Phase 30: every family's sharded prefill and decode steps on a (2, 2)
+    mesh of SHARDED_RANKS processes sharing the card, held to the unsharded
+    kernel path (the recurrent ones also in f32); the dry run of the same
+    cells beside it; then each forward kernel at the local shapes the ranks
+    gave it.  Returns each kernel's launches by arch and rank and its rows
+    (``_sharded_kernel_rows``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    tag = "[serve sharded]"
+    smi = _smi()
+    ref, per_call = {}, {}
+    for key, arch, f32, steps in _sharded_runs():
+        cfg = _sharded_cfg(arch, f32)
+        gen = torch.Generator().manual_seed(SEED + 30)
+        tokens = torch.randint(0, cfg.vocab_size, (SHARDED_BATCH, SHARDED_PROMPT + steps),
+                               generator=gen, dtype=torch.int32)
+        params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+        cache = M.init_cache(cfg, SHARDED_BATCH, SHARDED_PROMPT + steps, device=DEVICE)
+        tok = tokens.to(DEVICE)
+        logits, counts = [], []
+        with torch.no_grad():
+            for i in range(steps + 1):
+                _zero_counters(K)
+                if i == 0:
+                    cache, lg = M.prefill(cfg, params, {"tokens": tok[:, :SHARDED_PROMPT]}, cache)
+                else:
+                    cache, lg = M.decode_step(cfg, params, cache,
+                                              tok[:, SHARDED_PROMPT + i - 1:SHARDED_PROMPT + i])
+                torch.cuda.synchronize()
+                counts.append(_read_counters(K))
+                logits.append(lg[:, :cfg.vocab_size].float().cpu())
+        ref[key] = {"tokens": tokens, "logits": logits}
+        per_call[key] = counts
+        del params, cache
+        _free(torch)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:  # the logits: tens of MB
+        ref_path = os.path.join(tmp, "unsharded.pt")
+        torch.save(ref, ref_path)
+        cells = {"ranks": list(range(SHARDED_RANKS)), "mesh": list(SHARDED_MESH),
+                 "batch": SHARDED_BATCH, "prompt": SHARDED_PROMPT,
+                 "archs": {a: (c[0], c[1]) for a, c in SHARDED_CELLS.items()}}
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        dry = subprocess.Popen([sys.executable, "-c", SHARDED_DRYRUN, json.dumps(cells), tmp],
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+        kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF  # read by each rank's allocator
+        try:
+            results = run_ranks(_serve_sharded_rank, SHARDED_RANKS, ref_path, device=DEVICE)
+        finally:
+            if kept is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+            t2 = time.perf_counter()
+            stdout, stderr = dry.communicate(timeout=600)
+        t3 = time.perf_counter()
+    assert dry.returncode == 0, stderr[-4000:]
+    dryrun = json.loads(next(x for x in stdout.splitlines()
+                             if x.startswith("DRYRUN "))[len("DRYRUN "):])
+    launches = {arch: {rank: {name: 0 for name, _, _ in COUNTERS}
+                       for rank in range(SHARDED_RANKS)} for arch in SHARDED_CELLS}
+    shapes = {}
+    for key, arch, f32, steps in _sharded_runs():
+        cfg = _sharded_cfg(arch, f32)
+        want = per_call[key]
+        for rank, result in enumerate(results):
+            cell = result[key]
+            # every rank launches exactly what the unsharded path launches,
+            # each launch a wrapper call the tap saw, at the same local shapes
+            assert cell["launches"] == want, (key, rank, cell["launches"], want)
+            for counts, seen in zip(cell["launches"], cell["shapes"]):
+                tapped = {name: sum(n for (k, _, _), n in seen.items() if k == name)
+                          for name in counts}
+                assert all(tapped[n] == counts[n] for n, _, _, _ in SHARDED_WRAPPERS), (
+                    key, rank, tapped, counts)
+            assert cell["shapes"] == results[0][key]["shapes"], (key, rank)
+        if f32:
+            lead = results[0][key]
+            worst = 0.0
+            for got, w in zip(lead["logits"], ref[key]["logits"]):
+                torch.testing.assert_close(got, w, atol=F32_ATOL, rtol=F32_ATOL)
+                worst = max(worst, (got - w).abs().max().item())
+            _print(f"{tag} {arch} in f32 at {cfg.n_layers} of {get_config(arch).n_layers} "
+                   f"layers, full width, preset {cfg.sharding}: gathered logits of the prefill "
+                   f"and {steps} decode step(s) vs the unsharded f32 kernel path: max_abs_diff "
+                   f"{worst:.3e}, max_rel_l2 "
+                   f"{max(_rel(g, w) for g, w in zip(lead['logits'], ref[key]['logits'])):.3e} "
+                   f"(atol = rtol = {F32_ATOL}); launches a prefill {want[0]} on every rank")
+            continue
+        layers, _, tol = SHARDED_CELLS[arch]
+        calls = {}
+        for i, seen in enumerate(results[0][key]["shapes"]):
+            for sig, n in seen.items():
+                calls.setdefault(("prefill" if i == 0 else "decode", sig), n)
+        shapes[arch] = [(call, sig, n) for (call, sig), n in calls.items()]
+        pre, dec = dryrun[f"{arch}:prefill"], dryrun[f"{arch}:decode"]
+        assert pre["status"] == dec["status"] == "ok", (pre, dec)
+        for rank, result in enumerate(results):
+            cell = result[key]
+            for counts in cell["launches"]:
+                for name in counts:
+                    launches[arch][rank][name] += counts[name]
+            # the dry run's per-device state is each rank's measured shard
+            assert pre["state_bytes"]["params_bytes_per_device"] == cell["params_bytes"], (
+                arch, rank, pre["state_bytes"], cell["params_bytes"])
+            assert dec["state_bytes"]["params_bytes_per_device"] == cell["params_bytes"]
+            assert dec["state_bytes"]["cache_bytes_per_device"] == cell["cache_bytes"], (
+                arch, rank, dec["state_bytes"], cell["cache_bytes"])
+            decode_s = sorted(cell["times"][1:])[len(cell["times"][1:]) // 2]
+            coll = cell["collective_s"]
+            calls_n = cell["collective_calls"]
+            flops = pre["cost_analysis"]["flops"]
+            _print(f"{tag} {arch} rank {rank}: prefill {cell['times'][0]:.4f} s (dry run: "
+                   f"{flops:.4e} local matmul FLOPs, {flops / cell['times'][0] / 1e12:.3f} "
+                   f"TFLOP/s over the measured prefill), median decode step {decode_s:.4f} s "
+                   f"of {steps}; peak memory {cell['peak_gb']:.3f} GB (cap "
+                   f"{SHARDED_MEMORY_FRACTION} of the card); collectives from the timers "
+                   f"{sum(coll.values()):.3f} s "
+                   f"{ {k: round(v, 4) for k, v in coll.items() if calls_n[k]} } over "
+                   f"{ {k: v for k, v in calls_n.items() if v} } calls; local params "
+                   f"{cell['params_bytes']} B and cache {cell['cache_bytes']} B = the dry "
+                   f"run's; weights drawn in {cell['draw_s']:.2f} s; {smi}; {SHARDED_NOTE}")
+        lead = results[0][key]
+        assert lead["finite"], arch
+        for rel in lead["rel"]:
+            assert rel < tol[1], (arch, lead["rel"], tol)
+        depth = f"{layers} of {get_config(arch).n_layers} layers" if layers else "nothing cut"
+        _print(f"{tag} {arch} ({depth}), bf16, batch {SHARDED_BATCH} x {SHARDED_PROMPT} on a "
+               f"{SHARDED_MESH} ('data', 'model') mesh, preset {cfg.sharding}: gathered logits "
+               f"vs the unsharded kernel path, prefill then {steps} decode steps: max_rel_l2 "
+               f"{max(lead['rel']):.4e} (tolerance {tol}), max_abs_diff {lead['max_abs']:.4f}; "
+               f"launches a prefill {want[0]}, a decode step {want[1]} on every rank; dry run "
+               f"per device: params {pre['state_bytes']['params_bytes_per_device']} B, cache "
+               f"{dec['state_bytes']['cache_bytes_per_device']} B, collectives "
+               f"{pre['collective_operand_bytes_per_device']} (prefill) "
+               f"{dec['collective_operand_bytes_per_device']} (decode), peak "
+               f"{pre['memory_analysis']['peak_bytes'] / 1e9:.3f} GB (prefill), "
+               f"{pre['wall_seconds'] + dec['wall_seconds']:.1f} s of dry run")
+    t4 = time.perf_counter()
+    rows = _sharded_kernel_rows(torch, F, K, shapes)
+    _print(f"{tag} phase 30 took {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s for the "
+           f"unsharded paths, {t2 - t1:.1f} s in the {SHARDED_RANKS} ranks, {t3 - t2:.1f} s "
+           f"more waiting for the dry run beside them, {time.perf_counter() - t4:.1f} s for "
+           f"the kernels at the ranks' shapes); {smi}; {SHARDED_NOTE}")
+    return launches, rows
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3236,6 +3757,22 @@ def _setup(torch):
     return types.SimpleNamespace(fa=fa_ops, rn=rn_ops, rg=rg_ops, wk=wk_ops)
 
 
+_SCRIPT_START = time.perf_counter()
+_PHASE_START = [_SCRIPT_START]
+
+
+def _phase_done(label: str) -> None:
+    """Print the wall seconds since the last phase ended (or the script
+    started) under ``label``, the phase or phases that ran in them; on
+    standard error too, with the seconds since the script started, so the
+    end of the error stream shows how far a run that was stopped got."""
+    now = time.perf_counter()
+    _print(f"[phase {label}] {now - _PHASE_START[0]:.1f} s")
+    print(f"chip_smoke: phase {label} done, {now - _SCRIPT_START:.1f} s since the start",
+          file=sys.stderr, flush=True)
+    _PHASE_START[0] = now
+
+
 def main() -> int:
     import torch
 
@@ -3248,85 +3785,119 @@ def main() -> int:
     import torch.nn.functional as F
 
     K = _setup(torch)
+    _phase_done("1")
     fa_ops, rn_ops, rg_ops, wk_ops = K.fa, K.rn, K.rg, K.wk
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash = _flash_phase(torch, F, fa_ops, gen)
+    _phase_done("2")
     rms = _rmsnorm_phase(torch, F, rn_ops, gen)
+    _phase_done("3")
     launches, engine, sess = _serve_phase(
         torch, K, "llama3.2-1b", PROMPT_LENS, {"flash_fwd": 16}, {"rmsnorm_fwd": 32},
         (16, 2048, 32, 8, 64, 128256, None), ("elementwise", MODEL_ATOL))
+    _phase_done("4")
     _profile_phase(torch, engine, sess, PROMPT_LENS)
     del engine, sess
     _free(torch)
+    _phase_done("5")
 
     flash_bwd = _flash_bwd_phase(torch, F, fa_ops, gen)
+    _phase_done("6")
     rms_bwd = _rmsnorm_bwd_phase(torch, F, rn_ops, gen)
     torch.cuda.empty_cache()
+    _phase_done("7")
     train_launches, cfg, train_losses, *_ = _train_phase(torch, K)
     params, batch = _train_compare_phase(torch, cfg)
+    _phase_done("8")
     _train_profile_phase(torch, cfg, params, batch)
     del params, batch
     _free(torch)
+    _phase_done("9")
 
     rglru = _rglru_phase(torch, rg_ops, gen)
+    _phase_done("10")
     wkv6 = _wkv6_phase(torch, wk_ops, gen)
     _free(torch)
+    _phase_done("11")
     # recurrentgemma-9b: 13 rglru and 25 attn_local layers, 2 norms each
     hybrid_launches, engine, sess = _serve_phase(
         torch, K, "recurrentgemma-9b", HYBRID_PROMPT_LENS,
         {"rglru_fwd": 13, "flash_fwd": 25}, {"rmsnorm_fwd": 76},
         (38, 4096, 16, 1, 256, 256000, 2048), ("relnorm", RECURRENT_REL))
+    _phase_done("12")
     _profile_phase(torch, engine, sess, HYBRID_PROMPT_LENS, "[profile recurrentgemma-9b]")
     del engine, sess
     _free(torch)
     _f32_phase(torch, "recurrentgemma-9b", 4, HYBRID_PROMPT_LENS)
     _free(torch)
+    _phase_done("13")
     # rwkv6-1.6b: 24 rwkv layers, 3 norms each (ln1, the group norm, ln2)
     ssm_launches, engine, sess = _serve_phase(
         torch, K, "rwkv6-1.6b", PROMPT_LENS, {"wkv6_fwd": 24}, {"rmsnorm_fwd": 72},
         (24, 2048, 32, 32, 64, 65536, None), ("relnorm", RECURRENT_REL))
+    _phase_done("14")
     _profile_phase(torch, engine, sess, PROMPT_LENS, "[profile rwkv6-1.6b]")
     del engine, sess
     _free(torch)
     _f32_phase(torch, "rwkv6-1.6b", 24, PROMPT_LENS)
     _free(torch)
+    _phase_done("15")
     smoke_launches = _smoke_phase(torch, K)
     _free(torch)
-    ckpt_launches = _ckpt_phase(torch, K, train_losses)
+    _phase_done("16")
+    ckpt_launches = _ckpt_phase(torch, K)
     _free(torch)
+    _phase_done("17")
     ssm_train_launches = _train_family_phase(torch, K, "rwkv6-1.6b", TRAIN_BATCH, TRAIN_SEQ,
-                                             leaf_rtol=RECURRENT_REL)
+                                             n_layers=SSM_TRAIN_LAYERS, leaf_rtol=RECURRENT_REL)
+    _phase_done("18")
     hybrid_train_launches = _train_family_phase(
         torch, K, "recurrentgemma-9b", HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
         n_layers=HYBRID_TRAIN_LAYERS)
+    _phase_done("19")
     # moonshot-v1-16b-a3b: 48 attention layers with MoE feed-forwards, 2 norms each
     moe_launches = _moe_phase(torch, K)
+    _phase_done("20")
     # and its training at 4 layers, the flash backward at head_dim 128
     moe_train_launches = _moe_train_phase(torch, K)
+    _phase_done("21")
     # internvl2-26b: 48 attention layers (GQA 48/8 at head_dim 128), 2 norms
     # each at width 6144, behind a 256-patch prefix; then its training at 4
     vlm_launches = _vlm_phase(torch, K)
+    _phase_done("22")
     vlm_train_launches = _vlm_train_phase(torch, K)
+    _phase_done("23")
     # seamless-m4t-large-v2: 24 encoder and 24 decoder layers (16/16 heads
     # of 64, width 1024), the non-causal flash instances; served, then
     # trained, at full depth
     encdec_launches = _encdec_phase(torch, K)
+    _phase_done("24")
     encdec_train_launches = _encdec_train_phase(torch, K)
+    _phase_done("25")
     # llama3.2-1b through the 1F1B pipeline schedule: one stage through the
     # launcher, then 4 ranks sharing the card
     pipe_rows, pipe_launches, pipe_ref = _pipeline_phase(torch, F, K, gen)
     _free(torch)
+    _phase_done("26")
     # the serving soak at full width under its live /metrics scrape, the
     # training soak, the fault drills, and real multi-process fleets
     soak_launches = _soak_phase(torch, K)
     _free(torch)
+    _phase_done("27")
     # full-width llama3.2-1b sharded over a (2, 2) DeviceMesh of 4 processes
     # sharing the card, under "tp" and "tp+fsdp"
     dist_rows, dist_launches = _dist_train_phase(torch, F, K, gen, train_losses)
     _free(torch)
+    _phase_done("28")
     # full-width llama3.2-1b through the 1F1B schedule with one process a
     # stage (4 sharing the card), held to phase 26's single controller
     procs_launches = _procs_phase(torch, pipe_ref)
+    _free(torch)
+    _phase_done("29")
+    # every family's sharded prefill and decode steps on a (2, 2) mesh of 4
+    # processes sharing the card, and the dry run of the same cells
+    sharded_launches, sharded_rows = _sharded_serve_phase(torch, F, K)
+    _phase_done("30")
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -3358,7 +3929,9 @@ def main() -> int:
     # RMSNorm rows); under "pipeline_procs", phase 29's run_training on 4
     # processes (each rank's launches over its 4 steps, and their sum; the
     # kernels at phase 26's one-microbatch shapes, which each process gives
-    # them)
+    # them); under "serve_sharded", phase 30's sharded prefills and decode
+    # steps by arch (each rank's launches; the kernel at every local shape
+    # the ranks gave it, the heaviest one's numbers on top)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -3380,6 +3953,19 @@ def main() -> int:
     dist = lambda name: dict(launches=dist_launches[name], **pick(dist_rows[name]))  # noqa: E731
     procs = lambda name: dict(  # noqa: E731
         launches={rank: n[name] for rank, n in procs_launches.items()}, **pick(pipe_rows[name]))
+    def sharded(name):
+        """Phase 30's rows of a kernel by arch: its launches by rank, the
+        numbers of its heaviest call (the largest bound) and every local
+        shape the ranks gave it."""
+        out = {}
+        for arch, cases in sharded_rows[name].items():
+            top = max(cases, key=lambda r: r["bound_ms"])
+            out[arch] = dict(
+                launches={rank: n[name] for rank, n in sharded_launches[arch].items()},
+                shape=top["shape"], **pick(top),
+                cases=[dict(call=r["call"], shape=r["shape"], per_call=r["per_call"], **pick(r))
+                       for r in cases])
+        return out
     # the RMSNorm cases of phases 3 and 7 at the training paths' rows
     rows_2048 = f"({TRAIN_BATCH * TRAIN_SEQ}, 2048)"
     rows_4096 = f"({HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ}, 4096)"
@@ -3409,7 +3995,8 @@ def main() -> int:
              **pipe("flash_fwd"),
              soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak"))),
              dist_train=dist("flash_fwd"),
-             pipeline_procs=procs("flash_fwd")),
+             pipeline_procs=procs("flash_fwd"),
+             serve_sharded=sharded("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -3450,7 +4037,8 @@ def main() -> int:
              soak=dict(launches=soak_launches["rmsnorm_fwd"],
                        **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16"))),
              dist_train=dist("rmsnorm_fwd"),
-             pipeline_procs=procs("rmsnorm_fwd")),
+             pipeline_procs=procs("rmsnorm_fwd"),
+             serve_sharded=sharded("rmsnorm_fwd")),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
@@ -3463,10 +4051,12 @@ def main() -> int:
              pipeline_procs=procs("rmsnorm_bwd")),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
-             launches=hybrid_launches["rglru_fwd"], **pick(rglru[0])),
+             launches=hybrid_launches["rglru_fwd"], **pick(rglru[0]),
+             serve_sharded=sharded("rglru_fwd")),
         dict(name="wkv6_fwd", route="cuda", source=csrc + "rwkv6.cu",
              replaces="src/repro/kernels/rwkv6/kernel.py:65",
-             launches=ssm_launches["wkv6_fwd"], **pick(wkv6[0])),
+             launches=ssm_launches["wkv6_fwd"], **pick(wkv6[0]),
+             serve_sharded=sharded("wkv6_fwd")),
     ]}
     _print(json.dumps(record))
     _print(json.dumps({"ok": True, "device": {

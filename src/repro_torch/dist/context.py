@@ -32,7 +32,7 @@ import torch
 from .sharding import ShardingRules, placements_for, spec_for
 
 __all__ = ["use_sharding", "current_sharding", "constrain", "gather_fsdp", "is_dtensor",
-           "local_apply", "placements_of"]
+           "local_apply", "local_rows", "placements_of", "shard_of"]
 
 _STATE = threading.local()
 
@@ -141,6 +141,21 @@ def placements_of(x: torch.Tensor, *, replicate_dims: Sequence[int] = ()) -> tup
     return tuple(out)
 
 
+def shard_of(x: torch.Tensor, dim: int, placements: Sequence | None = None) -> tuple[int, int]:
+    """(ranks, this rank's index among them) over the mesh dimensions whose
+    placement in ``placements`` (``x``'s own by default) shards tensor
+    dimension ``dim`` of DTensor ``x``, the major mesh dimension first."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    n, idx = 1, 0
+    for i, p in enumerate(placements if placements is not None else x.placements):
+        if p == Shard(dim):
+            n *= mesh.size(i)
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return n, idx
+
+
 def local_apply(
     fn: Callable[..., Any],
     inputs: Sequence[tuple[torch.Tensor, tuple, tuple | None]],
@@ -175,3 +190,19 @@ def local_apply(
     wrapped = tuple(DTensor.from_local(o, mesh, p, run_check=False)
                     for o, p in zip(outs, out_placements))
     return wrapped[0] if single else wrapped
+
+
+def local_rows(fn: Callable[..., Any], x: torch.Tensor, weight: torch.Tensor):
+    """``fn(x, weight)`` of a DTensor ``x`` normalized along its last
+    dimension, on each rank's local rows: ``x`` keeps its shards except
+    along that width (gathered, a ``Partial`` reduced), the weight is
+    replicated (an FSDP-sharded one gathered), and the weight's gradient is
+    each rank's part of the sum over the rows wherever ``x`` is sharded.
+    The output has ``x``'s placements, so its gradient is reduced before
+    ``fn``'s backward runs."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_pl = placements_of(x, replicate_dims=(-1,))
+    w_pl = (Replicate(),) * len(x_pl)
+    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
+    return local_apply(fn, [(x, x_pl, None), (weight, w_pl, w_grad)], [x_pl], mesh=x.device_mesh)

@@ -217,10 +217,13 @@ def placements_for(spec: Sequence, mesh: Any) -> tuple:
     over ``("pod", "data")``) gives one ``Shard(d)`` per axis; in mesh order
     the major axis comes first, so the shards are laid out as JAX lays them
     out when the spec lists its axes in mesh order, as ``spec_for`` does
-    under the rule tables here."""
+    under the rule tables here.  A mesh dimension of one rank splits
+    nothing and stays ``Replicate()`` (DTensor would refuse to merge a
+    dimension sharded over it into another in a view)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    names = tuple(mesh_sizes(mesh))
+    sizes = mesh_sizes(mesh)
+    names = tuple(sizes)
     placements: list = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
         if entry is None:
@@ -229,7 +232,8 @@ def placements_for(spec: Sequence, mesh: Any) -> tuple:
             if axis not in names:
                 raise ValueError(f"spec {tuple(spec)} names {axis!r}, not an axis of "
                                  f"the mesh {names}")
-            placements[names.index(axis)] = Shard(dim)
+            if sizes[axis] > 1:
+                placements[names.index(axis)] = Shard(dim)
     return tuple(placements)
 
 

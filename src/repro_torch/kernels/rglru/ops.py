@@ -51,7 +51,8 @@ def linear_recurrence_assoc(
     a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All prefixes of the affine maps ``(a_t, b_t)`` in ceil(log2 S) doubling
-    steps (Hillis-Steele), f32 inside; ``h0`` folded into ``b_0``."""
+    steps (Hillis-Steele), f32 inside; ``h0`` folded into ``b_0``.  a (B, S,
+    ...) may broadcast against b (B, S, ...) along the trailing dimensions."""
     af, bf = a.float(), b.float()
     if h0 is not None:
         bf = torch.cat([bf[:, :1] + af[:, :1] * h0.float()[:, None], bf[:, 1:]], dim=1)

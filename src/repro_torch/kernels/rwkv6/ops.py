@@ -43,6 +43,8 @@ launches = 0
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_SIZES = (16, 32, 64)
+#: f32 bytes of one group's (B, G, C, C, H, K) decay products in ``wkv6_chunked``
+_TERMS_BYTES = 256 << 20
 #: the kernels' grids put batch row x head on the y axis, which CUDA caps
 _MAX_BATCH_HEADS = 65535
 _NO_BACKWARD = ("wkv6_fwd has no backward kernel (ROADMAP Queue 2 item 5: the reverse-scan "
@@ -50,23 +52,25 @@ _NO_BACKWARD = ("wkv6_fwd has no backward kernel (ROADMAP Queue 2 item 5: the re
                 "as the reference's blocks do")
 
 
-def _chunk_body(u, S, rf, kf, vf, logw):
-    """One chunk: rf/kf/logw (B,C,H,K), vf (B,C,H,V), S (B,H,K,V) f32."""
-    l_incl = torch.cumsum(logw, dim=1)
+def _chunk_terms(u, rf, kf, vf, logw):
+    """Every chunk's own terms at once, rf/kf/logw (B,N,C,H,K), vf
+    (B,N,C,H,V) f32 -> (r ⊙ e^{L⁻}, the intra-chunk output y_intra
+    (B,N,C,H,V), the chunk's decay e^{L_{C−1}} (B,N,H,K) and its state
+    contribution Σ_m (e^{L_{C−1} − L_m} ⊙ k_m) v_mᵀ (B,N,H,K,V))."""
+    l_incl = torch.cumsum(logw, dim=2)
     l_excl = l_incl - logw
-    y_inter = torch.einsum("bchk,bhkv->bchv", rf * torch.exp(l_excl), S)
-    expo = l_excl[:, :, None] - l_incl[:, None, :]  # (B, C_t, C_m, H, K)
-    c = rf.shape[1]
+    expo = l_excl[:, :, :, None] - l_incl[:, :, None, :]  # (B, N, C_t, C_m, H, K)
+    c = rf.shape[2]
     pos = torch.arange(c, device=rf.device)
-    mask = (pos[:, None] > pos[None, :])[None, :, :, None, None]
+    mask = (pos[:, None] > pos[None, :])[None, None, :, :, None, None]
     expo = expo.clamp_max(0.0).masked_fill(~mask, _NEG)
-    scores = torch.einsum("bthk,bmhk,btmhk->btmh", rf, kf, torch.exp(expo))
-    diag = torch.einsum("bthk,hk,bthk->bth", rf, u, kf)
-    y_intra = torch.einsum("btmh,bmhv->bthv", scores, vf) + diag[..., None] * vf
-    l_last = l_incl[:, -1]  # (B,H,K)
-    k_dec = kf * torch.exp(l_last[:, None] - l_incl)
-    S_new = torch.exp(l_last)[..., None] * S + torch.einsum("bmhk,bmhv->bhkv", k_dec, vf)
-    return S_new, y_inter + y_intra
+    scores = torch.einsum("bnthk,bnmhk,bntmhk->bntmh", rf, kf, torch.exp(expo))
+    diag = torch.einsum("bnthk,hk,bnthk->bnth", rf, u, kf)
+    y_intra = torch.einsum("bntmh,bnmhv->bnthv", scores, vf) + diag[..., None] * vf
+    l_last = l_incl[:, :, -1]  # (B,N,H,K)
+    k_dec = kf * torch.exp(l_last[:, :, None] - l_incl)
+    contrib = torch.einsum("bnmhk,bnmhv->bnhkv", k_dec, vf)
+    return rf * torch.exp(l_excl), y_intra, torch.exp(l_last), contrib
 
 
 def wkv6_chunked(
@@ -79,7 +83,17 @@ def wkv6_chunked(
     chunk: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked-parallel form; sequences that are not a multiple of
-    ``chunk`` long, or no longer than one chunk, take the oracle."""
+    ``chunk`` long, or no longer than one chunk, take the oracle.  Each
+    chunk's own terms are computed for a group of chunks at once
+    (``_chunk_terms``; a group's (C, C) decay products within
+    ``_TERMS_BYTES``, so their transients stay bounded); the state
+    entering each chunk, ``S_{i+1} = diag(e^{L_{C−1}}) S_i + contribution_i``,
+    is a linear recurrence over the chunks, taken by the doubling scan of
+    ``kernels.rglru.ops.linear_recurrence_assoc`` — a fixed number of
+    tensor operations whatever the length (the reference scans the chunks
+    one by one; the two sum in different orders)."""
+    from ..rglru.ops import linear_recurrence_assoc
+
     b, s, h, dk = r.shape
     dv = v.shape[-1]
     if s % chunk != 0 or s <= chunk:
@@ -91,13 +105,16 @@ def wkv6_chunked(
     kf = k.float().reshape(b, n, chunk, h, dk)
     vf = v.float().reshape(b, n, chunk, h, dv)
     logw = torch.log(w.float().clamp_min(1e-38)).reshape(b, n, chunk, h, dk)
-    uf = u.float()
-    S = state.float()
-    ys = []
-    for i in range(n):
-        S, y = _chunk_body(uf, S, rf[:, i], kf[:, i], vf[:, i], logw[:, i])
-        ys.append(y)
-    return torch.stack(ys, dim=1).reshape(b, s, h, dv).to(r.dtype), S
+    group = max(1, _TERMS_BYTES // (b * chunk * chunk * h * dk * 4))
+    parts = [_chunk_terms(u.float(), *(t[:, i:i + group] for t in (rf, kf, vf, logw)))
+             for i in range(0, n, group)]
+    r_dec, y_intra, decay, contrib = (torch.cat(t, dim=1) for t in zip(*parts))
+    # the decay stays (B,N,H,K,1), broadcast over V: the scan keeps one
+    # state-sized tensor a doubling step for the backward, not two
+    after, final = linear_recurrence_assoc(decay[..., None], contrib, state.float())
+    entering = torch.cat([state.float()[:, None], after[:, :-1]], dim=1)
+    y = torch.einsum("bnchk,bnhkv->bnchv", r_dec, entering) + y_intra
+    return y.reshape(b, s, h, dv).to(r.dtype), final
 
 
 def wkv6_fwd_plain(r, k, v, w, u, state=None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -10,8 +10,19 @@ reference's logical axes: :func:`rules_for` picks a config's rule table,
 ``DeviceMesh`` distributes nothing itself: the launcher hands it DTensor
 params, optimizer state and batch laid out as those specs say, and the step
 runs the loss under the sharding context (``dist.context.use_sharding``), so
-the model's ``constrain`` calls and its kernel boundaries apply.  The
-prefill and serve step builders come with a later slice (ROADMAP Queue 1).
+the model's ``constrain`` calls and its kernel boundaries apply.
+
+The prefill and serve steps (:func:`make_prefill_step`,
+:func:`make_serve_step`) run ``M.prefill`` / ``M.decode_step`` without
+gradients and, on a ``DeviceMesh`` of more than one rank, under the sharding
+context: every input that is not yet a DTensor is laid out first, each rank
+keeping its own shard of the full tensor it holds (params by ``param_axes``,
+the batch by :func:`batch_axes`, the cache by ``cache_axes``), so nothing
+moves; the cache comes back as DTensors updated on each rank's shards and
+the logits as a DTensor.  :func:`input_specs` gives each cell's inputs as
+``PSpec`` stand-ins (shape, dtype, logical axes; nothing allocated), and a
+:class:`BuiltStep` carries what the dry run (``launch.dryrun``) reads:
+those stand-ins, the state's, and the ``PartitionSpec`` of every input.
 
 The pipeline steps run on a single controller's ``Mesh`` or, one process a
 rank, on a 1-d ``("pod",)`` ``DeviceMesh`` (``dist.pipeline``).  There each
@@ -28,7 +39,7 @@ that runs the new plan.
 from __future__ import annotations
 
 from collections.abc import Callable
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -36,22 +47,34 @@ import torch
 from ..dist.context import is_dtensor, use_sharding
 from ..dist.pipeline import PipelineStep, StagePlan
 from ..dist.pipeline_state import RankShare, clip_norm
-from ..dist.sharding import DEFAULT_RULES, FSDP_RULES, ShardingRules, tree_shardings
+from ..dist.sharding import (
+    DEFAULT_RULES,
+    FSDP_RULES,
+    Axes,
+    ShardingRules,
+    distribute_tree,
+    tree_shardings,
+)
 from ..models import model as M, pipeline as MP
 from ..models.config import ArchConfig, ShapeConfig
-from ..models.layers import tree_leaves, tree_map
+from ..models.layers import PSpec, axes_tree, tree_leaves, tree_map
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
 from ..timing import timed
 
 __all__ = [
     "rules_for",
+    "input_specs",
     "batch_axes",
     "shardings_for",
+    "abstract_opt_state",
     "BuiltStep",
     "PipelineBuiltStep",
     "make_train_step",
     "make_pipeline_train_step",
     "make_transformer_pipeline_train_step",
+    "make_prefill_step",
+    "make_serve_step",
+    "build_step",
 ]
 
 
@@ -79,6 +102,59 @@ def batch_axes(cfg: ArchConfig, kind: str) -> dict[str, tuple]:
     return axes
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """``PSpec`` stand-ins (shape, dtype and logical axes; nothing
+    allocated) for the step inputs of this cell, the reference's shapes and
+    dtypes: a vlm's text is ``seq_len - n_vision_patches`` long behind its
+    bf16 patches; an encdec prefill takes one BOS token a row beside
+    ``seq_len`` bf16 source frames; a decode step one token a row and the
+    ``seq_len``-long cache (``M.cache_specs``)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    axes = batch_axes(cfg, shape.kind)
+
+    def spec(name, dims, dtype):
+        return PSpec(dims, tuple(axes.get(name, ("batch",) + (None,) * (len(dims) - 1))),
+                     init="zeros", dtype=dtype)
+
+    text = s - cfg.n_vision_patches if cfg.family == "vlm" else s
+    if shape.kind == "train":
+        out: dict[str, Any] = {"tokens": spec("tokens", (b, text), i32),
+                               "targets": spec("targets", (b, text), i32)}
+        if cfg.family == "vlm":
+            out["patch_embeds"] = spec("patch_embeds", (b, cfg.n_vision_patches, cfg.d_model),
+                                       bf16)
+        if cfg.family == "encdec":
+            out["src_frames"] = spec("src_frames", (b, s, cfg.d_model), bf16)
+        return out
+    if shape.kind == "prefill":
+        if cfg.family == "encdec":
+            # encode seq_len source frames; prefill the decoder with BOS
+            return {"tokens": spec("tokens", (b, 1), i32),
+                    "src_frames": spec("src_frames", (b, s, cfg.d_model), bf16)}
+        out = {"tokens": spec("tokens", (b, text), i32)}
+        if cfg.family == "vlm":
+            out["patch_embeds"] = spec("patch_embeds", (b, cfg.n_vision_patches, cfg.d_model),
+                                       bf16)
+        return out
+    if shape.kind == "decode":
+        return {"tokens": PSpec((b, 1), ("batch", None), init="zeros", dtype=i32),
+                "cache": M.cache_specs(cfg, b, s)}
+    raise ValueError(f"unknown shape kind {shape.kind!r}")
+
+
+def abstract_opt_state(opt_cfg: AdamWConfig, params_spec):
+    """The optimizer state of ``init_opt_state`` as ``PSpec`` stand-ins:
+    the int32 ``step`` and f32 moments (and master copy) shaped and laid
+    out as the parameters."""
+    f32 = lambda p: PSpec(p.shape, p.axes, init="zeros", dtype=torch.float32)  # noqa: E731
+    state = {"step": PSpec((), (), init="zeros", dtype=torch.int32),
+             "m": tree_map(f32, params_spec), "v": tree_map(f32, params_spec)}
+    if opt_cfg.master_weights:
+        state["master"] = tree_map(f32, params_spec)
+    return state
+
+
 def shardings_for(axes_tree_, shape_tree, mesh, rules: ShardingRules):
     """``PartitionSpec`` of every leaf of an axes tree against a matching tree
     of shapes (``dist.sharding.tree_shardings``)."""
@@ -87,11 +163,23 @@ def shardings_for(axes_tree_, shape_tree, mesh, rules: ShardingRules):
 
 @dataclass
 class BuiltStep:
-    #: ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``
+    #: ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``; a
+    #: prefill step's ``fn(params, batch, cache) -> (cache, logits)``, a
+    #: serve step's ``fn(params, cache, tokens) -> (cache, logits)``
     fn: Callable[..., Any]
     #: tokens consumed per invocation — launchers feed this into the "tokens"
     #: counter channel (one counter_cell bump per executed step)
     tokens_per_call: int = 0
+    #: ``PSpec`` stand-ins of the positional inputs after the state (the
+    #: batch; the batch and cache of a prefill; the cache and tokens of a
+    #: decode step)
+    abstract_inputs: tuple = ()
+    #: ``PartitionSpec`` trees of every positional input, state first
+    #: (None without a mesh)
+    in_shardings: tuple = ()
+    #: ``{"params": ...}``, and ``"opt_state"`` for training, as ``PSpec``
+    #: stand-ins
+    abstract_state: dict[str, Any] = field(default_factory=dict)
 
 
 def _grads(cfg: ArchConfig, params, batch):
@@ -137,8 +225,7 @@ def make_train_step(
     if accum_steps < 1 or shape.global_batch % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} must divide the global batch "
                          f"{shape.global_batch}")
-    sharded = mesh is not None and getattr(mesh, "mesh_dim_names", None) is not None \
-        and mesh.size() > 1
+    sharded = _is_sharded(mesh)
     rules = rules if rules is not None else rules_for(cfg)
 
     def grads_of(params, batch):
@@ -178,7 +265,110 @@ def make_train_step(
         plain = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
         return params, opt_state, plain
 
-    return BuiltStep(fn=train_step, tokens_per_call=shape.global_batch * shape.seq_len)
+    p_abs = M.abstract_params(cfg)
+    o_abs = abstract_opt_state(opt_cfg, p_abs)
+    b_abs = input_specs(cfg, shape)
+    return BuiltStep(fn=train_step, tokens_per_call=shape.global_batch * shape.seq_len,
+                     abstract_inputs=(b_abs,),
+                     in_shardings=tuple(_specs(t, mesh, rules) for t in (p_abs, o_abs, b_abs)),
+                     abstract_state={"params": p_abs, "opt_state": o_abs})
+
+
+def _specs(spec_tree, mesh, rules: ShardingRules):
+    """``PartitionSpec`` of every ``PSpec`` of a tree on ``mesh`` (None
+    without one)."""
+    if mesh is None:
+        return None
+    return tree_shardings(axes_tree(spec_tree), spec_tree, mesh, rules)
+
+
+def _is_sharded(mesh) -> bool:
+    """A ``DeviceMesh`` of more than one rank."""
+    return getattr(mesh, "mesh_dim_names", None) is not None and mesh.size() > 1
+
+
+def _lay_out(tree, axes, mesh, rules: ShardingRules):
+    """``tree`` with every plain leaf laid out by its logical axes (each
+    rank keeps its shard of the full tensor it holds: nothing moves);
+    DTensor leaves as they are."""
+    from ..dist.context import is_dtensor
+
+    return tree_map(lambda x, ax: x if is_dtensor(x) else distribute_tree(x, ax, mesh, rules),
+                    tree, axes)
+
+
+def _serving_fn(mesh, rules: ShardingRules, run, axes):
+    """``fn(*args)``: ``run(*args)`` without gradients; on a sharded mesh
+    with each arg laid out by its axes tree in ``axes`` first, and run
+    under the sharding context."""
+    sharded = _is_sharded(mesh)
+
+    def fn(*args):
+        with torch.no_grad():
+            if not sharded:
+                return run(*args)
+            args = [_lay_out(a, ax, mesh, rules) for a, ax in zip(args, axes)]
+            with use_sharding(mesh, rules):
+                return run(*args)
+
+    return fn
+
+
+@timed("steps::make_prefill_step")
+def make_prefill_step(cfg: ArchConfig, mesh: Any, rules: ShardingRules | None,
+                      shape: ShapeConfig) -> BuiltStep:
+    """``fn(params, batch, cache) -> (cache, last_logits)``: ``M.prefill``
+    (module docstring).  The cache may be longer than the prompt, so decode
+    steps can follow; the cell's stand-in cache is ``shape.seq_len`` long,
+    as the reference's."""
+    rules = rules if rules is not None else rules_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    p_abs, c_abs, b_abs = M.abstract_params(cfg), M.cache_specs(cfg, b, s), input_specs(cfg, shape)
+
+    def run(params, batch, cache):
+        return M.prefill(cfg, params, batch, cache)
+
+    axes = (M.param_axes(cfg), axes_tree(b_abs), M.cache_axes(cfg, b, s))
+    return BuiltStep(
+        fn=_serving_fn(mesh, rules, run, axes), tokens_per_call=b * s,
+        abstract_inputs=(b_abs, c_abs),
+        in_shardings=tuple(_specs(t, mesh, rules) for t in (p_abs, b_abs, c_abs)),
+        abstract_state={"params": p_abs})
+
+
+@timed("steps::make_serve_step")
+def make_serve_step(cfg: ArchConfig, mesh: Any, rules: ShardingRules | None,
+                    shape: ShapeConfig) -> BuiltStep:
+    """``fn(params, cache, tokens) -> (cache, logits)``: one
+    ``M.decode_step`` of ``tokens`` (B, 1) against the cache (module
+    docstring); the cell's stand-in cache is ``shape.seq_len`` long."""
+    rules = rules if rules is not None else rules_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    p_abs, c_abs = M.abstract_params(cfg), M.cache_specs(cfg, b, s)
+    tok_abs = input_specs(cfg, shape)["tokens"]
+
+    def run(params, cache, tokens):
+        return M.decode_step(cfg, params, cache, tokens)
+
+    axes = (M.param_axes(cfg), M.cache_axes(cfg, b, s), Axes(tok_abs.axes))
+    return BuiltStep(
+        fn=_serving_fn(mesh, rules, run, axes),
+        tokens_per_call=b,  # one new token per sequence
+        abstract_inputs=(c_abs, tok_abs),
+        in_shardings=tuple(_specs(t, mesh, rules) for t in (p_abs, c_abs, tok_abs)),
+        abstract_state={"params": p_abs})
+
+
+def build_step(cfg: ArchConfig, mesh: Any, rules: ShardingRules | None, shape: ShapeConfig,
+               **kw) -> BuiltStep:
+    """The step of a shape cell: ``train`` -> :func:`make_train_step` (``kw``
+    its options), ``prefill`` -> :func:`make_prefill_step`, ``decode`` ->
+    :func:`make_serve_step`."""
+    if shape.kind == "train":
+        return make_train_step(cfg, shape, mesh=mesh, rules=rules, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, mesh, rules, shape)
+    return make_serve_step(cfg, mesh, rules, shape)
 
 
 @dataclass

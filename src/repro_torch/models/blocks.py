@@ -43,7 +43,17 @@ params and activations, the hand-written kernels still take plain tensors:
 (``_local_norm``, ``_local_attention``: rows whole along the normalized
 width; batch and heads kept sharded, the GQA group whole on every rank),
 and wrap the result back into a DTensor.  The attention output is pinned to
-``("batch", "seq", "heads", None)``, as the reference pins it.
+``("batch", "seq", "heads", None)``, as the reference pins it.  The
+recurrences take the same boundary (``_local_recurrence``, ``_local_wkv6``):
+each works channel by channel (RG-LRU) or head by head (WKV-6), so a rank's
+shard of channels or heads, with the whole sequence, computes exactly what
+the whole tensor would.  A head view of a projection whose shards do not
+split its heads evenly (two KV heads over four ranks) gathers it first
+(``_heads``), as XLA reshards the reference's before its head view; the
+parameters keep the reference's layout.  A DTensor cache (laid out by
+``model.cache_axes``) is written on each rank's local shards (``_write``,
+``_copy_into``): every write stays in place, on the rank's own rows, heads
+and, where the cache's sequence is sharded, positions.
 
 The ``xattn`` block is self-attention (causal), cross-attention and the
 feed-forward.  Its cross-attention takes q from the block's hidden state and
@@ -54,13 +64,13 @@ not causal; the encoder's own blocks are ``attn`` blocks run with
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from ..dist.context import constrain, is_dtensor, local_apply, placements_of
+from ..dist.context import (constrain, is_dtensor, local_apply, local_rows, placements_of,
+                            shard_of)
 from ..kernels.rglru import ops as rglru_ops
 from ..kernels.rmsnorm.ops import rms_norm_fused
 from ..kernels.rwkv6 import ops as rwkv_ops
@@ -100,18 +110,8 @@ def norm(cfg: ArchConfig, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor
 
 
 def _local_norm(cfg: ArchConfig, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``norm`` of a DTensor on each rank's local rows: ``x`` keeps its
-    shards except along the normalized width (gathered, a ``Partial``
-    reduced), the weight is replicated (an FSDP-sharded one gathered), and
-    the weight's gradient is each rank's part of the sum over the rows
-    wherever ``x`` is sharded."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-
-    x_pl = placements_of(x, replicate_dims=(-1,))
-    w_pl = (Replicate(),) * len(x_pl)
-    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in x_pl)
-    return local_apply(lambda xl, wl: norm(cfg, xl, wl), [(x, x_pl, None), (weight, w_pl, w_grad)],
-                       [x_pl], mesh=x.device_mesh)
+    """``norm`` of a DTensor on each rank's local rows (``local_rows``)."""
+    return local_rows(lambda xl, wl: norm(cfg, xl, wl), x, weight)
 
 
 def _attend(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
@@ -123,37 +123,202 @@ def _attend(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
                      chunk=cfg.attn_chunk)
 
 
-def _local_attention(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
-    """Attention of DTensors q (B,S,H,hd), k/v (B,T,KV,hd) on each rank's
-    local shards: the batch stays sharded where q's is (k and v follow it),
-    the heads where q's and k's are sharded on the same mesh axis (the port
-    groups q heads contiguously per KV head, so a rank's q heads attend to
-    its own KV heads); every other dimension, and a heads shard the two do
-    not share, is gathered.  The output has q's placements."""
-    from torch.distributed.tensor import Replicate, Shard
+def _attention_placements(q, k):
+    """Where attention of DTensors q (B,S,H,hd), k/v (B,T,KV,hd) runs on
+    each rank's local shards: (q's placements, k's and v's, their gradient
+    placements, and the slice ``lo:lo + need`` of the local KV heads the
+    rank's q heads attend to).  The batch stays sharded where q's is (k and
+    v follow it), the heads where q's are; every other dimension is
+    gathered.  Where q's heads are sharded and k's are not (KV heads that do
+    not split over the ranks), each rank keeps the whole K/V and takes the
+    KV heads its own q heads attend to (the port groups q heads
+    contiguously per KV head), the K/V gradient then each rank's part of
+    the sum; where that slice is not whole groups, q is gathered too."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
+    h, n_kv = q.shape[2], k.shape[2]
+    group = h // n_kv
     q_pl = list(placements_of(q, replicate_dims=(1, 3)))
     k_pl = list(placements_of(k, replicate_dims=(1, 3)))
     for i, (qp, kp) in enumerate(zip(q_pl, k_pl)):
         if qp == Shard(0):
             k_pl[i] = qp
-        elif not (qp == Shard(2) and kp == Shard(2)):
+        elif qp == Shard(2):
+            k_pl[i] = kp if kp == Shard(2) else Replicate()
+        else:
             q_pl[i] = k_pl[i] = Replicate()
-    mesh = q.device_mesh
-    sizes = dict(zip(range(mesh.ndim), mesh.shape))
-    heads = q.shape[2] // math.prod(sizes[i] for i, p in enumerate(q_pl) if p == Shard(2))
-    kv_heads = k.shape[2] // math.prod(sizes[i] for i, p in enumerate(k_pl) if p == Shard(2))
-    if heads % kv_heads:
-        raise ValueError(f"local heads {heads} are not a multiple of the local KV heads "
-                         f"{kv_heads} (q {tuple(q.shape)} {q_pl}, k {tuple(k.shape)} {k_pl})")
+    nq, iq = shard_of(q, 2, q_pl)
+    nk, ik = shard_of(k, 2, k_pl)
+    hl, kvl = h // nq, n_kv // nk
+    need = hl // group if hl % group == 0 else 1
+    lo = iq * hl // group - ik * kvl
+    if (hl % group and group % hl) or lo < 0 or lo + need > kvl:
+        for i, (qp, kp) in enumerate(zip(q_pl, k_pl)):
+            if qp == Shard(2) and kp != Shard(2):
+                q_pl[i] = Replicate()
+        lo, need = 0, n_kv // nk
+    kv_grad = tuple(Partial() if qp == Shard(2) and kp != Shard(2) else kp
+                    for qp, kp in zip(q_pl, k_pl))
+    return tuple(q_pl), tuple(k_pl), kv_grad, lo, need
+
+
+def _kv_heads(kl, vl, lo: int, need: int):
+    """The local K/V's heads ``lo:lo + need`` (all of them: as they are)."""
+    if need == kl.shape[2]:
+        return kl, vl
+    return tuple(x[:, :, lo:lo + need].contiguous() for x in (kl, vl))
+
+
+def _local_attention(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
+    """Attention of DTensors q (B,S,H,hd), k/v (B,T,KV,hd) on each rank's
+    local shards (``_attention_placements``); the output has q's
+    placements."""
+    q_pl, k_pl, kv_grad, lo, need = _attention_placements(q, k)
 
     def run(ql, kl, vl):
+        kl, vl = _kv_heads(kl, vl, lo, need)
         return attention(ql, kl, vl, impl=cfg.attn_impl, causal=causal, window=window,
                          chunk=cfg.attn_chunk)
 
-    q_pl, k_pl = tuple(q_pl), tuple(k_pl)
-    return local_apply(run, [(q, q_pl, None), (k, k_pl, None), (v, k_pl, None)], [q_pl],
-                       mesh=mesh)
+    return local_apply(run, [(q, q_pl, None), (k, k_pl, kv_grad), (v, k_pl, kv_grad)], [q_pl],
+                       mesh=q.device_mesh)
+
+
+def _decode_attend(q, k_cache, v_cache, valid):
+    """``decode_attention``; DTensors on each rank's local shards as
+    ``_local_attention`` runs them, the (B, T) mask following the batch."""
+    if not is_dtensor(q):
+        return decode_attention(q, k_cache, v_cache, valid)
+    from torch.distributed.tensor import Replicate, Shard
+
+    q_pl, k_pl, kv_grad, lo, need = _attention_placements(q, k_cache)
+    m_pl = tuple(p if p == Shard(0) else Replicate() for p in q_pl)
+
+    def run(ql, kl, vl, ml):
+        kl, vl = _kv_heads(kl, vl, lo, need)
+        return decode_attention(ql, kl, vl, ml)
+
+    return local_apply(run, [(q, q_pl, None), (k_cache, k_pl, kv_grad),
+                             (v_cache, k_pl, kv_grad), (valid, m_pl, None)], [q_pl],
+                       mesh=q.device_mesh)
+
+
+def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose last dimension is
+    split over more ranks than divide ``n`` is gathered along it first."""
+    if is_dtensor(y) and n % shard_of(y, y.ndim - 1)[0]:
+        from torch.distributed.tensor import Replicate, Shard
+
+        placements = tuple(Replicate() if p == Shard(y.ndim - 1) else p for p in y.placements)
+        y = y.redistribute(y.device_mesh, placements)
+    return y.reshape(*y.shape[:2], n, hd)
+
+
+def _local_recurrence(impl: str, a, b, h0):
+    """``rglru_ops.linear_recurrence`` of DTensors a, b (B, S, D) and h0
+    (B, D) or None on each rank's local shards: the batch and the channels
+    stay sharded where b's are, the sequence is gathered; the recurrence
+    runs channel by channel, so each rank's shard is exact."""
+    from torch.distributed.tensor import Shard
+
+    pl = placements_of(b, replicate_dims=(1,))
+    h_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+    inputs = [(a, pl, None), (b, pl, None)] + ([] if h0 is None else [(h0, h_pl, None)])
+
+    def run(al, bl, *hl):
+        return rglru_ops.linear_recurrence(al, bl, hl[0] if hl else None, impl=impl)
+
+    return local_apply(run, inputs, [pl, h_pl], mesh=b.device_mesh)
+
+
+def _local_wkv6(impl: str, r, k, v, w, u, state):
+    """``rwkv_ops.wkv6`` of DTensors r/k/w (B,S,H,K), v (B,S,H,V), u (H,K)
+    and state (B,H,K,V) or None on each rank's local shards: the batch and
+    the heads stay sharded where r's are, the sequence and each head's
+    width are gathered; the recurrence runs head by head, so each rank's
+    shard is exact.  u's gradient is each rank's part of the sum over the
+    batch shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    pl = placements_of(r, replicate_dims=(1, 3))
+    u_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in pl)
+    u_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(pl, u_pl))
+    s_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+    inputs = [(r, pl, None), (k, pl, None), (v, pl, None), (w, pl, None), (u, u_pl, u_grad)]
+    inputs += [] if state is None else [(state, s_pl, None)]
+
+    def run(rl, kl, vl, wl, ul, *sl):
+        return rwkv_ops.wkv6(rl, kl, vl, wl, ul, sl[0] if sl else None, impl=impl)
+
+    return local_apply(run, inputs, [pl, s_pl], mesh=r.device_mesh)
+
+
+def _reduced_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient laid out as ``x`` is (a partial sum
+    reduced) before it reaches the op that made ``x``: the input gradient of
+    a column-parallel product is a partial sum, and DTensor would
+    reduce-scatter it onto the sequence for an elementwise backward (whose
+    strided shards of the flattened tokens its matmul rules then refuse on
+    a three-axis mesh)."""
+    if not is_dtensor(x):
+        return x
+    pl = tuple(x.placements)
+    return local_apply(lambda t: t, [(x, pl, None)], [pl], mesh=x.device_mesh)
+
+
+def _merged(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd) for the output projection; a DTensor's
+    gradient comes back laid out as the merged tensor is (``_reduced_grad``),
+    so the view's backward never splits heads that its shards do not
+    split evenly (40 heads on 16 ranks)."""
+    return _reduced_grad(x.reshape(*x.shape[:2], -1))
+
+
+def _write(dst: torch.Tensor, fn, *srcs: torch.Tensor) -> None:
+    """``fn(dst, *srcs, offset)`` writes into the cache tensor ``dst`` in
+    place, ``offset`` being the first sequence position (dimension 1) that
+    ``dst`` holds.  A plain ``dst`` is written whole (offset 0).  A DTensor
+    is written on this rank's local shard: each source (a DTensor, or a
+    plain tensor taken as replicated) is laid out as ``dst`` is along the
+    dimensions the two share, the sequence whole, and handed over as its
+    local shard; offset is where the rank's positions start."""
+    if not is_dtensor(dst):
+        fn(dst, *srcs, 0)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = dst.device_mesh
+    local = []
+    for src in srcs:
+        if not is_dtensor(src):
+            src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        pl = tuple(p if isinstance(p, Shard) and p.dim != 1 and p.dim < src.ndim
+                   else Replicate() for p in dst.placements)
+        local.append(src.redistribute(mesh, pl).to_local())
+    n, idx = shard_of(dst, 1)
+    fn(dst.to_local(), *local, idx * (dst.shape[1] // n) if dst.ndim > 1 else 0)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` on its local shard, ``src``
+    laid out as ``dst`` first."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = dst.device_mesh
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    dst.to_local().copy_(src.redistribute(mesh, dst.placements).to_local())
+
+
+def _put_front(dst, src, offset: int) -> None:
+    """``dst[:, :n] = src`` (n = ``src.shape[1]``) for the positions
+    ``[offset, offset + dst.shape[1])`` that ``dst`` holds."""
+    hi = min(src.shape[1], offset + dst.shape[1])
+    if offset < hi:
+        dst[:, :hi - offset] = src[:, offset:hi]
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +480,10 @@ def block_cache_specs(
 # ---------------------------------------------------------------------------
 
 def _project_qkv(cfg, p, x):
-    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads, hd)
+    k = _heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _heads(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = norm(cfg, q, p["qn"])
         k = norm(cfg, k, p["kn"])
@@ -332,24 +496,32 @@ def _fill_ring(k, v, cache, window):
     into ``cache`` in place (it is reset first, as the reference builds a
     fresh ring), or into a new ring of ``min(window, S)`` slots."""
     b, s = k.shape[:2]
-    if cache is None:
+    fresh = cache is None
+    if fresh:
         w = min(window, s)
         cache = {
             "k": k.new_zeros((b, w) + k.shape[2:]),
             "v": v.new_zeros((b, w) + v.shape[2:]),
             "slot_pos": torch.full((b, w), -1, dtype=torch.int32, device=k.device),
         }
-    else:
-        w = cache["k"].shape[1]
-        cache["k"].zero_()
-        cache["v"].zero_()
-        cache["slot_pos"].fill_(-1)
+    w = cache["k"].shape[1]
     w_fill = min(s, w)
     positions = torch.arange(s - w_fill, s, device=k.device)
     slots = positions % w
-    cache["k"][:, slots] = k[:, s - w_fill:]
-    cache["v"][:, slots] = v[:, s - w_fill:]
-    cache["slot_pos"][:, slots] = positions.to(torch.int32)
+
+    def ring(dst, src, offset):  # the ring's slots are never sharded
+        if not fresh:
+            dst.zero_()
+        dst[:, slots] = src[:, s - w_fill:]
+
+    def ring_pos(dst, offset):
+        if not fresh:
+            dst.fill_(-1)
+        dst[:, slots] = positions.to(torch.int32)
+
+    _write(cache["k"], ring, k)
+    _write(cache["v"], ring, v)
+    _write(cache["slot_pos"], ring_pos)
     return cache
 
 
@@ -364,7 +536,7 @@ def _attn_core_train(cfg, p, h, rope, *, window, mode, cache, causal=True):
         k = apply_rotary(k, cos, sin)
     att = _attend(cfg, q, k, v, causal=causal, window=window)
     att = constrain(att, "batch", "seq", "heads", None)
-    out = att.reshape(att.shape[0], att.shape[1], -1) @ p["wo"]
+    out = _merged(att) @ p["wo"]
     h = h + out
     new_cache = None
     if mode == "prefill":
@@ -373,9 +545,9 @@ def _attn_core_train(cfg, p, h, rope, *, window, mode, cache, causal=True):
         elif cache is None:
             new_cache = {"k": k, "v": v}
         else:
-            s = k.shape[1]
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
+            _check_fits(cache["k"], k.shape[1])
+            for name, new in (("k", k), ("v", v)):
+                _write(cache[name], _put_front, new)
             new_cache = cache
     return h, new_cache
 
@@ -388,26 +560,40 @@ def _attn_core_decode(cfg, p, h, cache, pos, *, window):
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     b = q.shape[0]
-    rows = torch.arange(b, device=pos.device)
     col = pos.long()
     if window is None:
         t = cache["k"].shape[1]
-        # a row past the cache's end (a free slot that decodes on) writes
-        # nothing, as the reference's scatter drops out-of-range updates
-        last = col.clamp_max(t - 1)
-        inside = (col < t)[:, None, None]
+
+        def put(dst, new, at, offset):
+            # a row past the cache's end (a free slot that decodes on)
+            # writes nothing, as the reference's scatter drops out-of-range
+            # updates; nor does a position another rank's shard holds
+            rows = torch.arange(dst.shape[0], device=dst.device)
+            at = at.long()
+            here = at - offset
+            inside = ((here >= 0) & (here < dst.shape[1]) & (at < t))[:, None, None]
+            here = here.clamp(0, dst.shape[1] - 1)
+            dst[rows, here] = torch.where(inside, new[:, 0], dst[rows, here])
+
         for name, new in (("k", k), ("v", v)):
-            kept = cache[name][rows, last]
-            cache[name][rows, last] = torch.where(inside, new[:, 0], kept)
+            _write(cache[name], put, new, pos)
         valid = torch.arange(t, device=pos.device)[None, :] <= col[:, None]
     else:
-        slot = col % cache["k"].shape[1]
-        cache["k"][rows, slot] = k[:, 0]
-        cache["v"][rows, slot] = v[:, 0]
+
+        def put_ring(dst, new, at, offset):  # the ring's slots are never sharded
+            rows = torch.arange(dst.shape[0], device=dst.device)
+            dst[rows, at.long() % dst.shape[1]] = new[:, 0]
+
+        def put_pos(dst, at, offset):
+            rows = torch.arange(dst.shape[0], device=dst.device)
+            dst[rows, at.long() % dst.shape[1]] = at.to(torch.int32)
+
+        for name, new in (("k", k), ("v", v)):
+            _write(cache[name], put_ring, new, pos)
+        _write(cache["slot_pos"], put_pos, pos)
         sp = cache["slot_pos"]
-        sp[rows, slot] = pos.to(torch.int32)
         valid = (sp >= 0) & (sp > (col[:, None] - window)) & (sp <= col[:, None])
-    att = decode_attention(q, cache["k"], cache["v"], valid)
+    att = _decode_attend(q, cache["k"], cache["v"], valid)
     out = att.reshape(b, 1, -1) @ p["wo"]
     return h + out, cache
 
@@ -421,25 +607,26 @@ def _cross_attn(cfg, p, h, *, enc_out, mode, cache):
     b, s, _ = h.shape
     hd = cfg.resolved_head_dim
     x = norm(cfg, h, p["ln"])
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads, hd)
     fresh = None
     if mode == "decode":
         t = cache["xk"].shape[1]
         valid = torch.arange(t, device=h.device)[None, :] < cache["xlen"][:, None]
-        att = decode_attention(q, cache["xk"], cache["xv"], valid)
+        att = _decode_attend(q, cache["xk"], cache["xv"], valid)
     else:
         t = enc_out.shape[1]
-        xk = (enc_out @ p["wk"]).reshape(b, t, cfg.n_kv_heads, hd)
-        xv = (enc_out @ p["wv"]).reshape(b, t, cfg.n_kv_heads, hd)
+        xk = _heads(enc_out @ p["wk"], cfg.n_kv_heads, hd)
+        xv = _heads(enc_out @ p["wv"], cfg.n_kv_heads, hd)
         att = _attend(cfg, q, xk, xv, causal=False, window=None)
         if mode == "prefill" and cache is None:
             fresh = {"xk": xk, "xv": xv,
                      "xlen": torch.full((b,), t, dtype=torch.int32, device=h.device)}
         elif mode == "prefill":
-            cache["xk"][:, :t] = xk
-            cache["xv"][:, :t] = xv
-            cache["xlen"].fill_(t)
-    out = att.reshape(b, s, -1) @ p["wo"]
+            _check_fits(cache["xk"], t)
+            for name, new in (("xk", xk), ("xv", xv)):
+                _write(cache[name], _put_front, new)
+            _write(cache["xlen"], lambda dst, offset: dst.fill_(t))
+    out = _merged(att) @ p["wo"]
     return h + out, fresh
 
 
@@ -465,8 +652,15 @@ def _update(cache, fresh):
     if cache is None:
         return fresh
     for key, value in fresh.items():
-        cache[key].copy_(value)
+        _copy_into(cache[key], value)
     return cache
+
+
+def _check_fits(dst: torch.Tensor, n: int) -> None:
+    """A prefill of ``n`` positions must fit the cache's ``dst.shape[1]``."""
+    if n > dst.shape[1]:
+        raise ValueError(f"a prefill of {n} positions does not fit a cache of "
+                         f"{dst.shape[1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -485,10 +679,13 @@ def _causal_conv(p_conv, x, state):
 
 
 def _rglru_gates(cfg, p, u):
-    """Decay a and driven input b of the recurrence, both f32."""
+    """Decay a and driven input b of the recurrence, both f32.  Sharded, the
+    gates' pre-activations (partial sums over the channel shards of u) are
+    reduced onto channel shards before the sigmoid, whose backward would
+    otherwise reduce-scatter a partial gradient onto the sequence."""
     uf = u.float()
-    r = torch.sigmoid((u @ p["rg_a"]).float() + p["b_a"])
-    i = torch.sigmoid((u @ p["rg_x"]).float() + p["b_x"])
+    r = torch.sigmoid(constrain(u @ p["rg_a"], "batch", "seq", "ffn").float() + p["b_a"])
+    i = torch.sigmoid(constrain(u @ p["rg_x"], "batch", "seq", "ffn").float() + p["b_x"])
     log_a = -cfg.rglru_c * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * uf)
@@ -508,7 +705,11 @@ def _rglru_block(cfg, p, h, *, mode, cache):
         hseq = new_h[:, None]
     else:
         h0 = cache["h"] if cache is not None else None
-        hseq, new_h = rglru_ops.linear_recurrence(a, bdrive, h0, impl=_seq_impls(cfg)[0])
+        impl = _seq_impls(cfg)[0]
+        if is_dtensor(bdrive):
+            hseq, new_h = _local_recurrence(impl, a, bdrive, h0)
+        else:
+            hseq, new_h = rglru_ops.linear_recurrence(a, bdrive, h0, impl=impl)
     h = h + (hseq.to(x.dtype) * gate) @ rp["w_out"]
     new_cache = None
     if mode in ("prefill", "decode"):
@@ -539,18 +740,21 @@ def _rwkv_block(cfg, p, h, *, mode, cache):
     def mix(mu):
         return x + (xprev - x) * mu
 
-    r = (mix(p["mu_r"]) @ p["w_r"]).reshape(b, s, nh, hd)
-    k = (mix(p["mu_k"]) @ p["w_k"]).reshape(b, s, nh, hd)
-    v = (mix(p["mu_v"]) @ p["w_v"]).reshape(b, s, nh, hd)
+    r = _heads(mix(p["mu_r"]) @ p["w_r"], nh, hd)
+    k = _heads(mix(p["mu_k"]) @ p["w_k"], nh, hd)
+    v = _heads(mix(p["mu_v"]) @ p["w_v"], nh, hd)
     g = mix(p["mu_g"]) @ p["w_g"]
-    w_dyn = torch.tanh(mix(p["mu_w"]) @ p["w_lora_a"]) @ p["w_lora_b"]
+    w_dyn = _reduced_grad(torch.tanh(mix(p["mu_w"]) @ p["w_lora_a"])) @ p["w_lora_b"]
     logw = -torch.exp(torch.clamp(p["w0"] + w_dyn.float(), -8.0, 8.0))
-    w = torch.exp(logw).reshape(b, s, nh, hd)
+    w = _heads(torch.exp(logw), nh, hd)
     state = cache["wkv"] if cache is not None else None
     impl = "ref" if mode == "decode" else _seq_impls(cfg)[1]
-    y, new_state = rwkv_ops.wkv6(r, k, v, w, p["u"], state, impl=impl)
+    if is_dtensor(r):
+        y, new_state = _local_wkv6(impl, r, k, v, w, p["u"], state)
+    else:
+        y, new_state = rwkv_ops.wkv6(r, k, v, w, p["u"], state, impl=impl)
     # per-head group norm, gate, out projection
-    y = norm(cfg, y, torch.ones((hd,), dtype=y.dtype, device=y.device)).reshape(b, s, d)
+    y = _merged(norm(cfg, y, torch.ones((hd,), dtype=y.dtype, device=y.device)))
     y = y * p["gn"].to(y.dtype)
     y = y * F.silu(g.float()).to(y.dtype)
     h = h + y @ p["w_o"]
@@ -564,7 +768,9 @@ def _rwkv_block(cfg, p, h, *, mode, cache):
 
     kc = torch.square(torch.relu((mix2(p["mu_ck"]) @ p["w_ck"]).float())).to(x2.dtype)
     rc = torch.sigmoid((mix2(p["mu_cr"]) @ p["w_cr"]).float()).to(x2.dtype)
-    h = h + rc * (kc @ p["w_cv"])
+    # the product's partial sums reduced before they scale rc: rc's sigmoid
+    # backward would reduce-scatter a partial gradient onto the sequence
+    h = h + rc * constrain(kc @ p["w_cv"], "batch", "seq", None)
     new_cache = None
     if mode in ("prefill", "decode"):
         new_cache = _update(cache, {"wkv": new_state, "shift_tm": new_shift_tm,

@@ -142,7 +142,15 @@ def axes_tree(specs):
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in f32, cast back to input dtype."""
+    """RMSNorm in f32, cast back to input dtype.  A DTensor is normalized on
+    each rank's local rows (``dist.context.local_rows``): its partial sums
+    reduced once, in its own dtype, and its gradient reduced before the
+    norm's backward (DTensor's own rules would keep the product, and the
+    gradient behind it, partial)."""
+    from ..dist.context import is_dtensor, local_rows
+
+    if is_dtensor(x):
+        return local_rows(lambda xl, wl: rms_norm(xl, wl, eps), x, weight)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)

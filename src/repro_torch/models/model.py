@@ -50,7 +50,9 @@ to the stored shards.
 
 Entry points that allocate take ``device`` (default ``"cuda"``).  Prefill and
 decode update the tensors of the cache they are given in place (K/V, ring
-slots, recurrent states) and return that cache with a new ``pos``.
+slots, recurrent states) and return that cache with a new ``pos``; a cache
+of DTensors (laid out by ``cache_axes``) is updated on each rank's local
+shards (``models.blocks``), its ``pos`` laid out as the given one.
 
 In ``mode="train"`` each stacked unit runs under ``cfg.remat``: ``"none"``
 keeps every activation; ``"full"`` is ``torch.utils.checkpoint`` per unit
@@ -68,7 +70,8 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as ckpt
 
-from ..dist.context import constrain, gather_fsdp, is_dtensor, local_apply, placements_of
+from ..dist.context import (constrain, gather_fsdp, is_dtensor, local_apply, placements_of,
+                            shard_of)
 from .blocks import block_apply, block_cache_specs, block_specs
 from .config import ArchConfig
 from .layers import (
@@ -460,17 +463,53 @@ def _ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
 
 
 def _local_ce_terms(cfg: ArchConfig, logits, targets, z_coef: float):
-    """``_ce_terms`` of DTensor logits on each rank's rows: the batch stays
-    sharded where the logits' is (the targets follow it), the vocabulary is
-    gathered, so each row's log-sum-exp is the unsharded one; the three sums
+    """``_ce_terms`` of DTensor logits on each rank's shards, vocabulary-
+    parallel: the batch stays sharded where the logits' is (the targets
+    follow it), and so does the vocabulary.  Each row's log-sum-exp is put
+    together from the vocabulary shards' maxima (all-reduced, max) and sums
+    of exponentials (all-reduced), and the target's logit from the shard
+    that holds it, so no rank holds a whole row of logits; the three sums
     are each rank's part (``Partial``) over the batch shards."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
-    rows = placements_of(logits, replicate_dims=tuple(range(1, logits.ndim)))
+    mesh = logits.device_mesh
+    pl = placements_of(logits, replicate_dims=(1,))
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    n_vocab, shard = shard_of(logits, 2, pl)  # this rank's vocabulary shard
+    first = shard * (logits.shape[2] // n_vocab)
+
+    def over_vocab(op):
+        return tuple(Partial(op) if p == Shard(2) else r for p, r in zip(pl, rows))
+
+    def f32(lg):
+        lf = lg.float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            ids = first + torch.arange(lf.shape[-1], device=lf.device)
+            lf = lf.masked_fill(ids >= cfg.vocab_size, -1e30)
+        return lf
+
+    m = local_apply(lambda lg: f32(lg).amax(-1), [(logits.detach(), pl, None)],
+                    [over_vocab("max")], mesh=mesh).redistribute(mesh, rows)
+
+    def shard_terms(lg, mx, tg):
+        lf = f32(lg)
+        here = (tg >= first) & (tg < first + lf.shape[-1])
+        at = (tg.long() - first).clamp(0, lf.shape[-1] - 1)
+        gold = torch.gather(lf, -1, at[..., None])[..., 0]
+        return torch.exp(lf - mx[..., None]).sum(-1), torch.where(here, gold, 0.0)
+
+    sumexp, gold = (x.redistribute(mesh, rows) for x in local_apply(
+        shard_terms, [(logits, pl, None), (m, rows, None), (targets, rows, None)],
+        [over_vocab("sum")] * 2, mesh=mesh))
     parts = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
-    return local_apply(lambda lg, tg: _ce_terms(cfg, lg, tg, z_coef),
-                       [(logits, rows, None), (targets, rows, None)], [parts] * 3,
-                       mesh=logits.device_mesh)
+
+    def sums(mx, se, gd, tg):
+        lse = mx + torch.log(se)
+        valid = (tg >= 0).float()
+        return ((lse - gd) * valid).sum(), z_coef * (lse.square() * valid).sum(), valid.sum()
+
+    return local_apply(sums, [(m, rows, None), (sumexp, rows, None), (gold, rows, None),
+                              (targets, rows, None)], [parts] * 3, mesh=mesh)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: float = 1e-4):
@@ -509,7 +548,9 @@ def loss_fn(cfg: ArchConfig, params, batch, aux_coef: float = 0.01, z_coef: floa
 def prefill(cfg: ArchConfig, params, batch, cache):
     """Fill the decode cache from a full prompt (behind its patch prefix for
     vlm; with the encoder output's cross K/V for encdec); returns (cache,
-    last_logits)."""
+    last_logits).  Under FSDP rules the parameters' width is gathered for
+    compute first (``gather_fsdp``), as ``loss_fn`` gathers it."""
+    params = gather_fsdp(params)
     enc_out = _encode(cfg, params, batch, training=False)
     h, _ = _build_inputs(cfg, params, batch)
     s = h.shape[1]
@@ -518,8 +559,11 @@ def prefill(cfg: ArchConfig, params, batch, cache):
                                     enc_out=enc_out)
     h = rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _logits(cfg, params, h)
+    pos = torch.full((h.shape[0],), s, dtype=torch.int32, device=h.device)
+    if cache is not None and is_dtensor(cache["pos"]):  # laid out as the cache's
+        pos = torch.full_like(cache["pos"], s)
     new_cache = {
-        "pos": torch.full((h.shape[0],), s, dtype=torch.int32, device=h.device),
+        "pos": pos,
         "scan": new_caches["scan"],
         "tail": new_caches["tail"],
     }
@@ -527,7 +571,9 @@ def prefill(cfg: ArchConfig, params, batch, cache):
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens):
-    """One decode step. tokens: (B, 1). Returns (cache, logits (B, padded_vocab))."""
+    """One decode step. tokens: (B, 1). Returns (cache, logits (B, padded_vocab));
+    FSDP-sharded parameters gathered as in ``prefill``."""
+    params = gather_fsdp(params)
     pos = cache["pos"]
     h = _embed_tokens(cfg, params, tokens)
     h, new_caches, _ = _apply_stack(cfg, params, h, rope=None, mode="decode", caches=cache,

@@ -743,6 +743,69 @@ def test_sharded_step_on_two_ranks_sharing_the_card(gen, dtype):
             assert abs(a - b) <= loss_tol * abs(b), (sharded, plain)
 
 
+def _sharded_serve_worker(rank, world, arch):
+    """One rank of a (1, 2) ("data", "model") mesh sharing the card: the
+    smoke config's sharded prefill and one decode step (``make_prefill_step``
+    / ``make_serve_step``, f32) against the unsharded port, and the
+    launches of each kernel in each call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as PM
+    from repro_torch.models.config import ShapeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = device_mesh((1, 2), ("data", "model"), device="cuda", allow_shared_card=True)
+    cfg = get_smoke_config(arch).replace(attn_impl="pallas", norm_impl="fused",
+                                         seq_impl="pallas", dtype="float32")
+    rules = ST.rules_for(cfg)
+    params = PM.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    mods = (fa_ops, rn_ops, rg_ops, wk_ops)
+
+    def counted(fn, *args):
+        before = [m.launches for m in mods]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, [m.launches - b for m, b in zip(mods, before)]
+
+    outs = []
+    for sharded in (False, True):
+        cache = PM.init_cache(cfg, 2, 72, device="cuda")
+        if sharded:
+            pre = ST.make_prefill_step(cfg, mesh, rules, ShapeConfig("p", "prefill", 64, 2)).fn
+            dec = ST.make_serve_step(cfg, mesh, rules, ShapeConfig("d", "decode", 72, 2)).fn
+        else:
+            pre = lambda p, b, c: PM.prefill(cfg, p, b, c)  # noqa: E731
+            dec = lambda p, c, t: PM.decode_step(cfg, p, c, t)  # noqa: E731
+        with torch.no_grad():
+            (cache, last), n_pre = counted(pre, params, {"tokens": tokens[:, :64]}, cache)
+            (cache, step), n_dec = counted(dec, params, cache, tokens[:, 64:])
+        if sharded:
+            last, step = last.full_tensor(), step.full_tensor()
+        outs.append((last.cpu(), step.cpu(), n_pre, n_dec))
+    (l0, s0, p0, d0), (l1, s1, p1, d1) = outs
+    rel = [((a - b).norm() / b.norm()).item() for a, b in ((l1, l0), (s1, s0))]
+    return {"rel": rel, "launches": (p0, d0, p1, d1)}
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b", "rwkv6-1.6b"])
+def test_sharded_prefill_and_decode_on_two_ranks_sharing_the_card(gen, arch):
+    """A 2-rank (1, 2) mesh on one card (gloo): the sharded prefill and decode
+    step match the unsharded port in f32, and each rank launches every
+    kernel exactly as often as the unsharded path does, on its own shards."""
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.kernels import build
+
+    build.build_all()
+    for r in run_ranks(_sharded_serve_worker, 2, arch, device="cuda"):
+        assert max(r["rel"]) < 1e-4, r["rel"]
+        plain_pre, plain_dec, pre, dec = r["launches"]
+        assert pre == plain_pre and dec == plain_dec, r["launches"]
+        assert sum(pre) > 0 and sum(dec) > 0
+
+
 def _pipeline_procs_worker(rank, world, dtype):
     """One process of a 2-stage 1F1B pipeline on the card (gloo, the ring
     messages staged through pinned host memory): the llama smoke config cut

@@ -11,7 +11,11 @@ same seed, parameters and batch, in f32 at the smoke width: three AdamW
 steps' losses, every leaf of the first step's gradient (gathered) and every
 parameter after the third step, each to 1e-5 relative.  The cases: the
 llama smoke config under "tp" and "tp+fsdp", the moonshot smoke config
-(MoE) under each ``moe_dispatch_mode``; a checkpoint saved by
+(MoE) under each ``moe_dispatch_mode``, the recurrentgemma (hybrid), rwkv6
+(SSM), internvl2 (vlm) and seamless-m4t (encdec) smoke configs under "tp"
+and "tp+fsdp"; on a (1, 4) mesh the llama and glm4 smoke configs, whose two
+KV heads do not split over four ranks (their projections are gathered
+before the head view); a checkpoint saved by
 ``run_training`` on (2, 2) resumed on (2, 2) and on (1, 1), whose losses
 continue the unsharded run's; and a mesh of one rank, which must stay bit
 for bit the unsharded path.  Every mesh spawns once, in a module-scoped
@@ -34,6 +38,19 @@ STEP_CASES = {  # name: (arch, sharding preset, moe_dispatch_mode)
     "llama_tp_fsdp": ("llama3.2-1b", "tp+fsdp", "embed"),
     "moonshot_tokens": ("moonshot-v1-16b-a3b", "tp", "tokens"),
     "moonshot_embed": ("moonshot-v1-16b-a3b", "tp+fsdp", "embed"),
+    "recurrentgemma_tp": ("recurrentgemma-9b", "tp", "embed"),
+    "recurrentgemma_tp_fsdp": ("recurrentgemma-9b", "tp+fsdp", "embed"),
+    "rwkv6_tp": ("rwkv6-1.6b", "tp", "embed"),
+    "rwkv6_tp_fsdp": ("rwkv6-1.6b", "tp+fsdp", "embed"),
+    "internvl2_tp": ("internvl2-26b", "tp", "embed"),
+    "internvl2_tp_fsdp": ("internvl2-26b", "tp+fsdp", "embed"),
+    "seamless_tp": ("seamless-m4t-large-v2", "tp", "embed"),
+    "seamless_tp_fsdp": ("seamless-m4t-large-v2", "tp+fsdp", "embed"),
+}
+#: on a (1, 4) mesh: two KV heads, which do not split over the four ranks
+MESH14_CASES = {
+    "llama_tp": ("llama3.2-1b", "tp", "embed"),
+    "glm4_tp_fsdp": ("glm4-9b", "tp+fsdp", "embed"),
 }
 RESUME_SEQ, RESUME_STEPS, RESUME_AT = 32, 4, 2
 
@@ -206,6 +223,19 @@ def mesh22(tmp_path_factory):
     return run_ranks(_mesh22_worker, 4, root)
 
 
+def _mesh14_worker(rank, world):
+    from repro_torch.dist.meshutil import device_mesh
+
+    torch.set_num_threads(1)
+    mesh = device_mesh((1, 4), ("data", "model"), device="cpu")
+    return {name: _step_case(mesh, *case) for name, case in MESH14_CASES.items()}
+
+
+@pytest.fixture(scope="module")
+def mesh14():
+    return run_ranks(_mesh14_worker, 4)
+
+
 @pytest.fixture(scope="module")
 def mesh1():
     return run_ranks(_mesh1_worker, 1)[0]
@@ -220,6 +250,16 @@ def test_sharded_step_matches_unsharded(mesh22, case):
     assert param_err < RTOL, param_err
     # every rank computed the same losses
     assert all(r[case][1] == sharded for r in mesh22)
+
+
+@pytest.mark.parametrize("case", sorted(MESH14_CASES))
+def test_sharded_step_on_1x4_matches_unsharded(mesh14, case):
+    losses, sharded, grad_err, param_err, _ = mesh14[0][case]
+    for a, b in zip(sharded, losses):
+        assert abs(a - b) <= RTOL * abs(b), (sharded, losses)
+    assert grad_err < RTOL, grad_err
+    assert param_err < RTOL, param_err
+    assert all(r[case][1] == sharded for r in mesh14)
 
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
