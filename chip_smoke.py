@@ -360,6 +360,48 @@ caught):
     shapes against its plain version, times it and bounds it.  The
     kernels' record adds, under ``serve_sharded``, each kernel's launches
     by arch and rank and its rows at those shapes.
+31. the examples on the card (``_examples_phase``), each through its
+    ``main`` or its functions, in this process: (a)
+    ``examples/quickstart_torch.py``: its printed timer tree must be the
+    reference quickstart's (QUICKSTART_TREE: paths, nesting, counts), with
+    xla_flops 24576 and steps_done 6; (b) ``amr_adaptive_checkpoint_torch``'s
+    ``run_experiment``, fixed then adaptive, at the example's defaults (120
+    iterations, levels of 48^3 on the card, up to 4): each run's checkpoint
+    share, seconds, checkpoints and suppressed decisions and the runtime cut
+    beside the paper's ~17% are printed; the fixed run takes 14
+    checkpoints, the adaptive share is at most 0.08 and its checkpoint
+    seconds under half the fixed run's (the reference benchmark's checks);
+    (c) ``serve_llm_torch`` at full-width llama3.2-1b with the kernels and a
+    50 ms decode target (24 requests, prompts of 32, 16 new tokens, 8
+    slots): every handle resolves, 16 flash forwards a prefill and 32
+    RMSNorm forwards a prefill and a decode step exactly; the ADAPT/serving
+    decisions, tokens/s and p95 TTFT are printed; (d) ``train_llm_torch``'s
+    demo-100m with the kernels, TRAIN_LLM_STEPS steps of the example's
+    defaults (batch 8 x 256, copy task, adaptive checkpointing at 5%):
+    launches exactly TRAIN_LLM_PER_STEP a step, the logged loss falling
+    (the mean of its last tenth under that of its first), the checkpoint
+    share at most 0.08; then the five training kernels at demo-100m's
+    shapes (flash B=8 S=T=256, 10/5 heads of 64 causal bf16; RMSNorm
+    (2048, 640)) and the forward kernels at serve_llm's prefill (B=1 S=T=32,
+    32/8 heads; (32, 2048)), held and timed as in phase 26.
+32. sharded MoE training (``_moe_dist_train_phase``): the five training
+    kernels at a rank's local shapes (flash B=2 S=T=1024, 8/8 heads of 128
+    causal bf16; RMSNorm (2048, 2048)), held and timed; the unsharded
+    kernel path's loss-and-gradient step of moonshot-v1-16b-a3b at phase
+    21's depth (4 layers), weights and batch, with each layer's routing
+    (``_routing_tap``: top-k choices keyed by the router weight's bits),
+    saved to the host; then phase 28's 4 processes on the card, (2, 2)
+    ("data", "model"), "tp+fsdp" with ``moe_dispatch_mode="embed"``:
+    ``run_training`` for MOE_DIST_STEPS steps, each rank's launches exactly
+    phase 21's per-step counts x MOE_DIST_STEPS, finite losses, the first
+    at TRAIN_RTOL of the unsharded step's; one sharded loss-and-gradient
+    step whose every layer replays the unsharded path's choices for the
+    rank's batch rows (a near-tie that the split matmuls round differently
+    would move a token to another expert), its loss at TRAIN_RTOL and every
+    gathered leaf at LEAF_RTOL (relative norm) of the unsharded step.  It
+    prints each rank's peak memory, collective seconds, calls and bytes,
+    the share of the choices it would have made alike, the step seconds,
+    and the card's name and power limit.
 
 Every phase ends with a ``[phase N] seconds`` line (wall seconds since the
 line before), and with a line on standard error giving the seconds since
@@ -1557,25 +1599,39 @@ def _train_phase(torch, K, arch="llama3.2-1b", smoke=False, steps=TRAIN_STEPS,
     return launches, cfg, losses, summary, sess.db
 
 
+def _router_key(torch, router) -> str:
+    """A layer's router weight by its bits: the same in the forward and the
+    backward's recompute, on two paths that share the weights, and in every
+    process that holds the same weights, whatever its address (an FSDP
+    gather makes a new tensor each call)."""
+    import hashlib
+
+    t = router.detach().contiguous()
+    bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return hashlib.sha1(bits.cpu().numpy().tobytes()).hexdigest()
+
+
 @contextlib.contextmanager
-def _routing_tap(torch, replay=None):
+def _routing_tap(torch, replay=None, rows=slice(None)):
     """Wrap ``moe.route`` inside the block; yields ``{key: (top_i, mask,
     keep, own)}``, what each MoE layer chose the first time it routed, in
-    that order.  A layer's key is the address of its router weight: the
-    same in the forward and in the backward's recompute (which under remat
-    runs the layers again, in reverse order), and on two paths that share
-    the weights.  With ``replay`` (``{key: top_i}``) each layer routes with
-    those choices instead of its own (the indices only: gates and
-    renormalised weights stay the path's own), and ``own`` is the top-k it
-    would have chosen; else ``own`` is ``top_i``."""
+    that order.  A layer's key is its router weight's bits
+    (``_router_key``): the same in the forward and in the backward's
+    recompute (which under remat runs the layers again, in reverse order).
+    With ``replay`` (``{key: top_i}``) each layer routes with those
+    choices, the groups ``rows`` of them (a sharded rank's batch rows),
+    instead of its own (the indices only: gates and renormalised weights
+    stay the path's own), and ``own`` is the top-k it would have chosen;
+    else ``own`` is ``top_i``."""
     from repro_torch.models import moe
 
     route = moe.route
     seen = {}
 
     def tapped(cfg, router, x, top_i=None):
-        key = router.data_ptr()
-        r = route(cfg, router, x, top_i=None if replay is None else replay[key])
+        key = _router_key(torch, router)
+        given = None if replay is None else replay[key][rows].to(x.device)
+        r = route(cfg, router, x, top_i=given)
         if key not in seen:
             with torch.no_grad():
                 own = r.top_i if replay is None else torch.topk(r.gates, cfg.moe.top_k, -1)[1]
@@ -2155,14 +2211,15 @@ def _pipeline_kernels_phase(torch, F, K, gen):
                                   "at one microbatch")
 
 
-def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where):
-    """The five training kernels at llama3.2-1b's shapes for a batch of
-    ``b`` x TRAIN_SEQ and ``heads`` (q, KV) heads of 64, causal bf16, and
-    RMSNorm rows of ``b`` x TRAIN_SEQ x 2048: held against their plain
-    versions and timed as phases 2, 3, 6 and 7 time theirs.  Returns
-    ``{kernel: row}``."""
+def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where, s=TRAIN_SEQ, hd=64, d=2048,
+                           only=None):
+    """The five training kernels at the shapes of a batch of ``b`` x ``s``
+    (llama3.2-1b's by default): ``heads`` (q, KV) heads of ``hd``, causal
+    bf16, and RMSNorm rows of ``b`` x ``s`` x ``d``: held against their
+    plain versions and timed as phases 2, 3, 6 and 7 time theirs (those
+    named in ``only``, when given).  Returns ``{kernel: row}``."""
     fa_ops, rn_ops = K.fa, K.rn
-    s, (h, kv), hd, d = TRAIN_SEQ, heads, 64, 2048
+    h, kv = heads
     n = b * s
     q = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
     k, v = (torch.randn((b, s, kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -2199,7 +2256,7 @@ def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where):
                                                               retain_graph=True))
     xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
     yl = F.rms_norm(xl, (d,), wl, 1e-5)
-    attn, norm = f"B={b} S=T={s} {h}/{kv} heads of 64 causal bf16", f"({n}, {d}) bf16"
+    attn, norm = f"B={b} S=T={s} {h}/{kv} heads of {hd} causal bf16", f"({n}, {d}) bf16"
     cases = [
         ("flash_fwd", attn, err(out, ref_out), lambda: fa_ops.flash_fwd(q, k, v, causal=True),
          lambda: fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None),
@@ -2225,6 +2282,8 @@ def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where):
     ]
     rows = {}
     for name, shape, e, fn, plain, library_ms, moved, flops, peak in cases:
+        if only is not None and name not in only:
+            continue
         ms, plain_ms = _device_ms(torch, fn), _device_ms(torch, plain)
         bound_ms, bound_by = _bound_ms(moved, flops, peak)
         rows[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -3725,6 +3784,446 @@ def _sharded_serve_phase(torch, F, K):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the examples on the card (examples/*_torch.py)
+# ---------------------------------------------------------------------------
+
+# the reference quickstart's timer tree (examples/quickstart.py): (depth, path, count)
+QUICKSTART_TREE = [
+    (0, "poisson", 1), (1, "poisson/residual", 1), (0, "simulation/total", 1),
+    (1, "bin/STARTUP", 1), (1, "bin/INITIAL", 1), (1, "bin/PRESTEP", 6), (1, "bin/EVOL", 6),
+    (2, "EVOL/demo::evolve", 6), (3, "poisson/hot_loop", 6), (1, "bin/ANALYSIS", 6),
+    (2, "ANALYSIS/demo::analysis", 3), (1, "bin/CHECKPOINT", 6), (1, "bin/OUTPUT", 6),
+    (1, "bin/SHUTDOWN", 1)]
+# the AMR demonstration at the example's defaults: the reference benchmark's
+# checks (benchmarks/bench_adaptive_checkpoint.py:45-46) and the fixed run's
+# checkpoints (every 8th of 120 iterations)
+AMR_MAX_ADAPTIVE_SHARE, AMR_FIXED_CHECKPOINTS, AMR_PAPER_CUT = 0.08, 14, 0.17
+# serve_llm at full-width llama3.2-1b through the kernels, the example's
+# defaults otherwise (24 requests, prompts of 32, 16 new tokens, 8 slots)
+SERVE_LLM_ARGV = ["--full", "--attn-impl", "pallas", "--norm-impl", "fused", "--target-ms", "50"]
+# (n_layers, d_model) served, and the launches a prefill and a model call (phase 4's)
+SERVE_LLM_SHAPE, SERVE_LLM_PER_PREFILL, SERVE_LLM_PER_CALL = (16, 2048), 16, 32
+# train_llm: demo-100m at the example's defaults (batch 8 x seq 256, the copy
+# task, adaptive checkpointing at 5%) through the kernels, TRAIN_LLM_STEPS
+# steps (the example's 300 halved: the script's time limit); per step under
+# remat "dots" (10 layers) 20 flash forwards, 10 dq, 10 dkv, 40 RMSNorm
+# forwards and 20 backwards
+TRAIN_LLM_STEPS, TRAIN_LLM_MAX_CKPT_SHARE = 150, 0.08
+TRAIN_LLM_ARGV = ["--steps", str(TRAIN_LLM_STEPS), "--attn-impl", "pallas", "--norm-impl", "fused"]
+TRAIN_LLM_PER_STEP = {"flash_fwd": 20, "flash_bwd_dq": 10, "flash_bwd_dkv": 10,
+                      "rmsnorm_fwd": 40, "rmsnorm_bwd": 20, "rglru_fwd": 0, "wkv6_fwd": 0}
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module (the directory is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses resolve their annotations there
+    spec.loader.exec_module(module)
+    return module
+
+
+def _printed_tree(out):
+    """(depth, path, count) of each row of a printed timer tree."""
+    rows = []
+    for line in out.split("Timer tree", 1)[1].splitlines()[4:]:
+        if not line.strip():
+            break
+        path, count = line.split()[:2]
+        rows.append(((len(line) - len(line.lstrip())) // 2, path, int(count)))
+    return rows
+
+
+def _fresh_registries() -> None:
+    """The port's process-global timer database, steerable parameters and
+    clocks as a fresh process has them, so that an example starts as its
+    script does (an earlier phase's serving controller leaves
+    ``serving.max_active`` steered, and a new ``ServeSession`` takes it)."""
+    from repro_torch.core.clocks import reset_default_clocks
+    from repro_torch.core.params import reset_param_registry
+    from repro_torch.core.timers import reset_timer_db
+
+    reset_timer_db()
+    reset_param_registry()
+    reset_default_clocks()
+
+
+def _quickstart_phase(torch):
+    """Phase 31 (a): the quickstart's ``main`` on the card; its timer tree
+    must be the reference's (paths, nesting, counts), with xla_flops 24576
+    and steps_done 6 on its EVOL routine and on the whole run."""
+    import io
+
+    example = _example("quickstart_torch")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert example.main(["--device", DEVICE]) == 0
+    out = out.getvalue()
+    _print(out)
+    tree = _printed_tree(out)
+    assert tree == QUICKSTART_TREE, tree
+    report = {line.split()[0]: line.split() for line in out.split("Timer tree")[0].splitlines()
+              if line.startswith(("EVOL/demo::evolve ", "simulation/total "))}
+    for name, fields in report.items():
+        assert (int(fields[1]), float(fields[4]), float(fields[5])) == (
+            6 if name.startswith("EVOL") else 1, 24576.0, 6.0), fields
+    _print(f"[examples quickstart] on {torch.cuda.get_device_name(0)}: the timer tree is the "
+           f"reference's ({len(tree)} rows); xla_flops 24576 and steps_done 6 on "
+           f"EVOL/demo::evolve and simulation/total; {_smi()}")
+
+
+def _amr_phase(torch):
+    """Phase 31 (b): the AMR adaptive-checkpoint demonstration, fixed then
+    adaptive, at the example's defaults with the levels on the card."""
+    example = _example("amr_adaptive_checkpoint_torch")
+    smi = _smi()
+    res = {}
+    with tempfile.TemporaryDirectory(dir=_ckpt_root()) as tmp:
+        for mode in ("fixed", "adaptive"):
+            res[mode] = example.run_experiment(example.AMRSettings(
+                mode=mode, device=DEVICE, ckpt_dir=os.path.join(tmp, "amr")))
+    for mode, r in res.items():
+        at = [int(x["iteration"]) for x in r["fraction_trace"] if x["checkpointed"]]
+        _print(f"[examples amr] {mode}: {r['iterations']} iterations, {r['final_levels']} "
+               f"levels of 48^3 on the card: checkpoint share {r['checkpoint_fraction']:.6f}, "
+               f"checkpoint_s {r['checkpoint_seconds']:.6f}, total_s {r['total_seconds']:.6f}, "
+               f"checkpoints {r['n_checkpoints']} at iterations {at}, suppressed "
+               f"{r['n_suppressed']}; {smi}")
+    fixed, adaptive = res["fixed"], res["adaptive"]
+    cut = 1.0 - adaptive["total_seconds"] / fixed["total_seconds"]
+    _print(f"[examples amr] total runtime cut {cut:.4f} (the paper: ~{AMR_PAPER_CUT}); adaptive "
+           f"checkpoint seconds {adaptive['checkpoint_seconds'] / fixed['checkpoint_seconds']:.4f}"
+           f" of the fixed run's; {smi}")
+    assert fixed["n_checkpoints"] == AMR_FIXED_CHECKPOINTS, fixed["n_checkpoints"]
+    assert adaptive["checkpoint_fraction"] <= AMR_MAX_ADAPTIVE_SHARE, adaptive
+    assert adaptive["checkpoint_seconds"] < 0.5 * fixed["checkpoint_seconds"], res
+    return res
+
+
+def _serve_llm_phase(torch, K):
+    """Phase 31 (c): serve_llm at full-width llama3.2-1b through the kernels
+    (SERVE_LLM_ARGV): every handle resolves, 16 flash forwards a prefill and
+    32 RMSNorm forwards a prefill and a decode step, as phase 4 counts them."""
+    from repro_torch import timing
+    from repro_torch.core import adapt_rows
+
+    tag = "[examples serve_llm]"
+    example = _example("serve_llm_torch")
+    args = example.parse_args(SERVE_LLM_ARGV)
+    cfg, params = example.build(args)
+    assert (cfg.n_layers, cfg.d_model, cfg.attn_impl, cfg.norm_impl) == (
+        SERVE_LLM_SHAPE + ("pallas", "fused")), cfg
+    with timing.session() as sess:
+        _zero_counters(K)
+        t0 = time.perf_counter()
+        engine, handles = example.serve(cfg, params, args, sess)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters(K)
+        example.report(engine, handles, sess)
+    n_prefill, prefill_s = _scope(sess, "serve/prefill")
+    n_decode, decode_s = _scope(sess, "serve/decode")
+    stats = engine.stats()
+    assert all(h.done for h in handles) and len(handles) == args.requests, stats
+    assert n_prefill == args.requests, n_prefill
+    want = {name: 0 for name, _, _ in COUNTERS}
+    want.update(flash_fwd=SERVE_LLM_PER_PREFILL * n_prefill,
+                rmsnorm_fwd=SERVE_LLM_PER_CALL * (n_prefill + n_decode))
+    assert launches == want, (launches, want, n_prefill, n_decode)
+    decisions = [(r["step"], r["action"], r["trigger"]) for r in adapt_rows(engine.control_loop)
+                 if r["controller"] == "serving"]
+    _print(f"{tag} {args.requests} requests, prompts of {args.prompt_len}, {args.max_new} new "
+           f"tokens, {args.slots} slots, target {args.target_ms} ms a decode step: wall_s="
+           f"{wall:.3f} prefills={n_prefill} decode_steps={n_decode} launches={launches}; "
+           f"completed {stats['completed']:.0f}, shed {stats['shed']:.0f}; tokens_per_s="
+           f"{stats['throughput_tokens_per_s']:.3f} p95_ttft_s={stats['p95_ttft_s']:.5f} "
+           f"serve/prefill_s={prefill_s:.5f} serve/decode_s={decode_s:.5f} (mean decode "
+           f"{1e3 * decode_s / max(n_decode, 1):.3f} ms a step); {_smi()}")
+    _print(f"{tag} ADAPT/serving decisions ({len(decisions)}): {decisions[:20]}")
+    del engine, handles, params
+    return launches, n_prefill, n_decode
+
+
+def _train_llm_phase(torch, F, K, gen):
+    """Phase 31 (d): train_llm's demo-100m through the kernels
+    (TRAIN_LLM_STEPS steps of the example's defaults): exact launches a
+    step, the logged loss falling, the checkpoint share at most
+    TRAIN_LLM_MAX_CKPT_SHARE; then the five training kernels at its shapes
+    and serve_llm's prefill's, held and timed as in phase 26."""
+    from repro_torch.core import TimerLogger
+
+    tag = "[examples train_llm]"
+    example = _example("train_llm_torch")
+    with tempfile.TemporaryDirectory(dir=_ckpt_root()) as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        argv = TRAIN_LLM_ARGV + ["--ckpt-dir", ckpt]
+        cfg, settings = example.settings_for(example.parse_args(argv))
+        cfg = cfg.replace(attn_impl=settings.attn_impl, norm_impl=settings.norm_impl)
+        assert _per_step_launches(cfg) == TRAIN_LLM_PER_STEP, _per_step_launches(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(K)
+        t0 = time.perf_counter()
+        summary, sess = example.train(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counters(K)
+        records = TimerLogger(os.path.join(ckpt, "timers.jsonl"), sess.db).read_all()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["extra"]["loss"] for r in records]
+    window = max(len(losses) // 10, 1)
+    first, last = (sum(xs) / len(xs) for xs in (losses[:window], losses[-window:]))
+    share = summary["ckpt_fraction"]
+    cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
+    step_s = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+    median_s = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    b, s = settings.global_batch, settings.seq_len
+    at = sorted({0, 1, 10, 50, 100, 150, 200, 250, len(losses) - 1} & set(range(len(losses))))
+    _print(f"{tag} {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+           f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}), bf16, batch {b} x {s}, "
+           f"{TRAIN_LLM_STEPS} steps: wall_s={wall:.3f} launches={launches} (per step "
+           f"{TRAIN_LLM_PER_STEP}); loss at steps {at}: {[round(losses[i], 4) for i in at]}; "
+           f"mean of the first {window} {first:.4f}, of the last {window} {last:.4f}")
+    _print(f"{tag} median_s(steps 2-{TRAIN_LLM_STEPS})={median_s:.5f} tokens_per_s(median step)="
+           f"{b * s / median_s:.1f} checkpoint share {share:.5f} (limit "
+           f"{TRAIN_LLM_MAX_CKPT_SHARE}), AdaptCheck {summary['checkpoint']['n_checkpoints']} "
+           f"taken, {summary['checkpoint']['n_suppressed']} suppressed; "
+           f"max_memory_allocated_GB={peak_gb:.3f}; {_smi()}")
+    assert launches == {k: v * TRAIN_LLM_STEPS for k, v in TRAIN_LLM_PER_STEP.items()}, launches
+    assert summary["iterations"] == TRAIN_LLM_STEPS == len(records), summary["iterations"]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert last < first, (first, last)
+    assert share <= TRAIN_LLM_MAX_CKPT_SHARE, summary["checkpoint"]
+    del summary, sess
+    _free(torch)
+    rows = _training_kernels_rows(torch, F, K, gen, b, (cfg.n_heads, cfg.n_kv_heads),
+                                  "[examples kernels]", f"at train_llm's {cfg.name}", s=s,
+                                  hd=cfg.resolved_head_dim, d=cfg.d_model)
+    serve = _training_kernels_rows(torch, F, K, gen, 1, (32, 8), "[examples kernels]",
+                                   "at serve_llm's prefill", s=32,
+                                   only=("flash_fwd", "rmsnorm_fwd"))
+    return launches, rows, serve
+
+
+def _examples_phase(torch, F, K, gen):
+    """Phase 31: the four examples on the card (module docstring); returns
+    the kernels' launches by example and their rows at the examples' shapes."""
+    t0 = time.perf_counter()
+    _fresh_registries()
+    _quickstart_phase(torch)
+    _fresh_registries()  # drops the quickstart's own clock too
+    _amr_phase(torch)
+    _fresh_registries()
+    serve_launches, _, _ = _serve_llm_phase(torch, K)
+    _free(torch)
+    _fresh_registries()
+    train_launches, rows, serve_rows = _train_llm_phase(torch, F, K, gen)
+    _fresh_registries()
+    _free(torch)
+    _print(f"[examples] phase 31 took {time.perf_counter() - t0:.1f} s; {_smi()}")
+    return {"serve_llm": serve_launches, "train_llm": train_launches}, rows, serve_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 32: sharded MoE training
+# ---------------------------------------------------------------------------
+
+# moonshot-v1-16b-a3b at phase 21's depth and batch x seq on phase 28's (2, 2)
+# mesh of processes sharing the card, "tp+fsdp" with the "embed" dispatch
+# mode, MOE_DIST_STEPS steps ("tp" alone would hold ~20 GB of training state
+# a rank, past the cap of DIST_MEMORY_FRACTION)
+MOE_DIST_STEPS = 2
+
+
+def _moe_dist_cfg():
+    return _train_cfg("moonshot-v1-16b-a3b", n_layers=MOE_TRAIN_LAYERS).replace(
+        sharding="tp+fsdp", moe_dispatch_mode="embed")
+
+
+def _moe_dist_rank(rank, world, ref_path, log_dir):
+    """One rank of phase 32: ``run_training`` for MOE_DIST_STEPS steps (the
+    launches counted), then one loss-and-gradient step of the sharded path
+    replaying the unsharded path's routing for this rank's rows, gathered
+    and (rank 0) held leaf by leaf against the unsharded step saved at
+    ``ref_path``.  Returns what the parent prints and holds."""
+    import types
+
+    import torch
+
+    from repro_torch.core import TimerLogger
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.context import use_sharding
+    from repro_torch.dist.meshutil import device_mesh
+    from repro_torch.dist.sharding import Axes, distribute_tree
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import TrainSettings, run_training
+    from repro_torch.models.layers import tree_map
+    from repro_torch.timing import TimingSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_per_process_memory_fraction(DIST_MEMORY_FRACTION)
+    K = types.SimpleNamespace(fa=fa, rn=rn)
+    counters = COUNTERS[:5]  # the flash and RMSNorm kernels
+    mesh = device_mesh(DIST_MESH, ("data", "model"), DEVICE, allow_shared_card=True)
+    cfg = _moe_dist_cfg()
+    out = {}
+    _fresh_registries()
+    log_path = os.path.join(log_dir, "moe.jsonl")
+    settings = TrainSettings(
+        arch="moonshot-v1-16b-a3b", smoke=False, steps=MOE_DIST_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, data_mode="copy", seed=SEED,
+        report_every=0, log_path=log_path, device=DEVICE, lr_total_steps=TRAIN_STEPS,
+        mesh_shape=DIST_MESH, allow_shared_card=True)
+    sess = TimingSession()
+    torch.cuda.reset_peak_memory_stats()
+    for name, mod, attr in counters:
+        setattr(getattr(K, mod), attr, 0)
+    t0 = time.perf_counter()
+    summary = run_training(settings, cfg=cfg, session=sess)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {name: getattr(getattr(K, mod), attr) for name, mod, attr in counters}
+    out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mesh"] = summary["mesh"]
+    if rank == 0:
+        records = TimerLogger(log_path, sess.db).read_all()
+        out["losses"] = [r["extra"]["loss"] for r in records]
+        cum = [r["timers"]["EVOL/trainer::train_step"]["walltime"] for r in records]
+        out["step_s"] = [b - a for a, b in zip([0.0] + cum[:-1], cum)]
+    del sess, summary
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one loss-and-gradient step of the sharded path, from phase 21's weights
+    # and batch, routing this rank's rows as the unsharded path did
+    torch.cuda.reset_peak_memory_stats()
+    rules = ST.rules_for(cfg)
+    params = _sharded_params(torch, cfg, mesh, rules)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+                                       seed=SEED), arch=cfg).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    axes = {k: Axes(v) for k, v in ST.batch_axes(cfg, "train").items()}
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    local = TRAIN_BATCH // DIST_MESH[0]  # "batch" lies on "data"
+    rows = slice(mesh.get_local_rank(0) * local, (mesh.get_local_rank(0) + 1) * local)
+    with use_sharding(mesh, rules), _routing_tap(torch, ref["routing"], rows) as seen:
+        grads, metrics = ST._grads(cfg, params, distribute_tree(batch, axes, mesh, rules))
+        out["loss"] = metrics["loss"].full_tensor().item()
+        grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                         grads, params)
+    assert list(seen) == list(ref["routing"]), "the layers routed in another order"
+    out["own_share"] = [_choice_share(torch, own, top_i, cfg.moe.n_experts)
+                        for top_i, _, _, own in seen.values()]
+    del params
+    rel = {}
+    for name, g in _named_leaves(grads):
+        full = g.full_tensor()  # a collective: every rank gathers every leaf
+        if rank == 0:
+            want = ref["grads"][name].to(DEVICE).float()
+            rel[name] = ((full.float() - want).norm() / want.norm()).item()
+        del full
+    out["grad_rel"] = rel
+    out["grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_dist_train_phase(torch, F, K, gen):
+    """Phase 32: moonshot-v1-16b-a3b trained sharded over a ("data",
+    "model") mesh of DIST_RANKS processes sharing the card (module
+    docstring).  Returns the kernels' rows at a rank's local shapes and each
+    rank's launches."""
+    from repro_torch.data import SyntheticConfig, SyntheticLM
+    from repro_torch.dist.collectives import COLLECTIVES
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    tag = "[moe dist]"
+    smi = _smi()
+    cfg = _moe_dist_cfg()
+    local_batch = TRAIN_BATCH // DIST_MESH[0]
+    heads = (cfg.n_heads // DIST_MESH[1], cfg.n_kv_heads // DIST_MESH[1])
+    rows = _training_kernels_rows(torch, F, K, gen, local_batch, heads, "[moe dist kernels]",
+                                  "at a rank's local shards", hd=cfg.resolved_head_dim,
+                                  d=cfg.d_model)
+    _free(torch)
+    per_step = _per_step_launches(cfg)
+    assert per_step == MOE_TRAIN_PER_STEP, per_step
+    # the unsharded kernel path's step on phase 21's weights and batch, and its routing
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, mode="copy",
+                                       seed=SEED), arch=cfg).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    with _routing_tap(torch) as chosen:
+        loss_ref, gn_ref, grads = _loss_and_grads(torch, cfg, params, batch)
+    assert len(chosen) == cfg.n_layers, len(chosen)
+    names = [name for name, _ in _named_leaves(params)]
+    with tempfile.TemporaryDirectory(dir=_ckpt_root()) as tmp:
+        ref_path = os.path.join(tmp, "unsharded.pt")
+        torch.save({"grads": {name: g.cpu() for name, g in zip(names, grads)},
+                    "routing": {key: tap[0].cpu() for key, tap in chosen.items()}},
+                   ref_path)
+        del params, batch, grads, chosen
+        _free(torch)
+        t1 = time.perf_counter()
+        kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = DIST_ALLOC_CONF  # read by each rank's allocator
+        try:
+            results = run_ranks(_moe_dist_rank, DIST_RANKS, ref_path, tmp, device=DEVICE)
+        finally:
+            if kept is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+        ranks_s = time.perf_counter() - t1
+    want = {k: v * MOE_DIST_STEPS for k, v in per_step.items() if k in results[0]["launches"]}
+    for rank, r in enumerate(results):
+        assert r["launches"] == want, (rank, r["launches"], want)
+        coll = r["mesh"]["collective_seconds"]
+        calls, moved = r["mesh"]["collective_calls"], r["mesh"]["collective_bytes"]
+        assert set(calls) == set(COLLECTIVES), calls
+        _print(f"{tag} rank {rank}: launches {r['launches']} (phase 21's per step x "
+               f"{MOE_DIST_STEPS}); peak memory {r['train_peak_gb']:.3f} GB training, "
+               f"{r['grad_peak_gb']:.3f} GB in the held step (cap {DIST_MEMORY_FRACTION} of "
+               f"the card); collectives from the timers {sum(coll.values()):.3f} s "
+               f"{ {k: round(v, 4) for k, v in coll.items() if calls[k]} } over "
+               f"{ {k: v for k, v in calls.items() if v} } calls of "
+               f"{ {k: round(v / 1e9, 4) for k, v in moved.items() if v} } GB; routing: the "
+               f"share of the unsharded path's choices this rank would have made alike, by "
+               f"layer {[round(x, 5) for x in r['own_share']]}; wall_s {r['wall_s']:.2f}; "
+               f"{smi}; {DIST_NOTE}")
+    lead = results[0]
+    losses, step_s = lead["losses"], lead["step_s"]
+    assert len(losses) == MOE_DIST_STEPS and all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - loss_ref) <= TRAIN_RTOL * abs(loss_ref), (losses, loss_ref)
+    assert abs(lead["loss"] - loss_ref) <= TRAIN_RTOL * abs(loss_ref), (lead["loss"], loss_ref)
+    rel = lead["grad_rel"]
+    worst = max(rel, key=rel.get)
+    assert sorted(rel) == sorted(names) and rel[worst] < LEAF_RTOL, rel
+    _print(f"{tag} moonshot-v1-16b-a3b at full width, {cfg.n_layers} of 48 layers, bf16, "
+           f"remat dots, \"tp+fsdp\", moe_dispatch_mode \"embed\", batch {TRAIN_BATCH} x "
+           f"{TRAIN_SEQ} over a {DIST_MESH} ('data', 'model') mesh ({heads[0]}/{heads[1]} heads "
+           f"of {cfg.resolved_head_dim}, {cfg.moe.n_experts // DIST_MESH[1]} of "
+           f"{cfg.moe.n_experts} experts and batch {local_batch} a rank): losses "
+           f"{[round(x, 5) for x in losses]} (the unsharded step's {loss_ref:.5f}); step_s "
+           f"{[round(x, 4) for x in step_s]}; one sharded loss-and-gradient step replaying the "
+           f"unsharded path's routing vs that path: loss {lead['loss']:.6f} vs {loss_ref:.6f} "
+           f"(TRAIN_RTOL {TRAIN_RTOL}), worst of {len(rel)} gathered leaves {rel[worst]:.3e} "
+           f"({worst}; LEAF_RTOL {LEAF_RTOL}), median {sorted(rel.values())[len(rel) // 2]:.3e}"
+           f"; {smi}; {DIST_NOTE}")
+    _print(f"{tag} phase 32 took {time.perf_counter() - t0:.1f} s ({ranks_s:.1f} s in the "
+           f"{DIST_RANKS} ranks); {smi}; {DIST_NOTE}")
+    return rows, {rank: r["launches"] for rank, r in enumerate(results)}
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3897,7 +4396,17 @@ def main() -> int:
     # every family's sharded prefill and decode steps on a (2, 2) mesh of 4
     # processes sharing the card, and the dry run of the same cells
     sharded_launches, sharded_rows = _sharded_serve_phase(torch, F, K)
+    _free(torch)
     _phase_done("30")
+    # the four examples on the card: the quickstart, the paper's AMR
+    # adaptive-checkpoint demonstration, serve_llm and train_llm
+    example_launches, example_rows, example_serve_rows = _examples_phase(torch, F, K, gen)
+    _phase_done("31")
+    # moonshot-v1-16b-a3b at 4 layers, "tp+fsdp" over a (2, 2) DeviceMesh of 4
+    # processes sharing the card
+    moe_dist_rows, moe_dist_launches = _moe_dist_train_phase(torch, F, K, gen)
+    _free(torch)
+    _phase_done("32")
 
     # each kernel at the shapes of its main path: the forward kernels on the
     # serving path (their launches in phase 4) and, under "train", on the
@@ -3931,7 +4440,14 @@ def main() -> int:
     # kernels at phase 26's one-microbatch shapes, which each process gives
     # them); under "serve_sharded", phase 30's sharded prefills and decode
     # steps by arch (each rank's launches; the kernel at every local shape
-    # the ranks gave it, the heaviest one's numbers on top)
+    # the ranks gave it, the heaviest one's numbers on top); under
+    # "examples", phase 31's examples (train_llm's launches and the kernels
+    # at demo-100m's shapes, B=8 S=T=256 10/5 heads of 64 and (2048, 640)
+    # RMSNorm rows; serve_llm's launches and the forward kernels at its
+    # prefill, B=1 S=T=32 32/8 heads of 64 and (32, 2048)); under
+    # "moe_dist_train", phase 32's sharded MoE training (each rank's
+    # launches; the kernels at a rank's local shapes, B=2 S=T=1024 8/8 heads
+    # of 128 and (2048, 2048))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     csrc = "src/repro_torch/kernels/csrc/"
     pick = lambda row: {k: row[k] for k in keys}  # noqa: E731
@@ -3953,6 +4469,18 @@ def main() -> int:
     dist = lambda name: dict(launches=dist_launches[name], **pick(dist_rows[name]))  # noqa: E731
     procs = lambda name: dict(  # noqa: E731
         launches={rank: n[name] for rank, n in procs_launches.items()}, **pick(pipe_rows[name]))
+    def examples(name):
+        """Phase 31's rows of a kernel: train_llm's, and serve_llm's for the
+        forward kernels."""
+        out = {"train_llm": dict(launches=example_launches["train_llm"][name],
+                                 **pick(example_rows[name]))}
+        if name in ("flash_fwd", "rmsnorm_fwd"):
+            out["serve_llm"] = dict(launches=example_launches["serve_llm"][name],
+                                    **pick(example_serve_rows[name]))
+        return out
+    moe_dist = lambda name: dict(  # noqa: E731
+        launches={rank: n[name] for rank, n in moe_dist_launches.items()},
+        **pick(moe_dist_rows[name]))
     def sharded(name):
         """Phase 30's rows of a kernel by arch: its launches by rank, the
         numbers of its heaviest call (the largest bound) and every local
@@ -3996,7 +4524,8 @@ def main() -> int:
              soak=dict(launches=soak_launches["flash_fwd"], **pick(_role(flash, "soak"))),
              dist_train=dist("flash_fwd"),
              pipeline_procs=procs("flash_fwd"),
-             serve_sharded=sharded("flash_fwd")),
+             serve_sharded=sharded("flash_fwd"),
+             examples=examples("flash_fwd"), moe_dist_train=moe_dist("flash_fwd")),
         dict(name="flash_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:176",
              launches=train_launches["flash_bwd_dq"], **pick(flash_bwd["flash_bwd_dq"][0]),
@@ -4008,7 +4537,8 @@ def main() -> int:
              encdec_train=enc_tr("flash_bwd_dq",
                                  _role(flash_bwd["flash_bwd_dq"], "encdec_train")),
              **pipe("flash_bwd_dq"), dist_train=dist("flash_bwd_dq"),
-             pipeline_procs=procs("flash_bwd_dq")),
+             pipeline_procs=procs("flash_bwd_dq"),
+             examples=examples("flash_bwd_dq"), moe_dist_train=moe_dist("flash_bwd_dq")),
         dict(name="flash_bwd_dkv", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:242",
              launches=train_launches["flash_bwd_dkv"], **pick(flash_bwd["flash_bwd_dkv"][0]),
@@ -4020,7 +4550,8 @@ def main() -> int:
              encdec_train=enc_tr("flash_bwd_dkv",
                                  _role(flash_bwd["flash_bwd_dkv"], "encdec_train")),
              **pipe("flash_bwd_dkv"), dist_train=dist("flash_bwd_dkv"),
-             pipeline_procs=procs("flash_bwd_dkv")),
+             pipeline_procs=procs("flash_bwd_dkv"),
+             examples=examples("flash_bwd_dkv"), moe_dist_train=moe_dist("flash_bwd_dkv")),
         dict(name="rmsnorm_fwd", route="cuda", source=csrc + "rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:30",
              launches=launches["rmsnorm_fwd"], **pick(rms[0]),
@@ -4038,7 +4569,8 @@ def main() -> int:
                        **pick(case(rms, f"({SOAK_PROMPT_MAX}, 2048) bf16"))),
              dist_train=dist("rmsnorm_fwd"),
              pipeline_procs=procs("rmsnorm_fwd"),
-             serve_sharded=sharded("rmsnorm_fwd")),
+             serve_sharded=sharded("rmsnorm_fwd"),
+             examples=examples("rmsnorm_fwd"), moe_dist_train=moe_dist("rmsnorm_fwd")),
         dict(name="rmsnorm_bwd", route="cuda", source=csrc + "rmsnorm_bwd.cu",
              replaces="src/repro/kernels/rmsnorm/kernel.py:75",
              launches=train_launches["rmsnorm_bwd"], **pick(rms_bwd[0]),
@@ -4048,7 +4580,8 @@ def main() -> int:
              vlm_train=vlm_tr("rmsnorm_bwd", bwd_6144),
              encdec_train=enc_tr("rmsnorm_bwd", bwd_1024), **pipe("rmsnorm_bwd"),
              dist_train=dist("rmsnorm_bwd"),
-             pipeline_procs=procs("rmsnorm_bwd")),
+             pipeline_procs=procs("rmsnorm_bwd"),
+             examples=examples("rmsnorm_bwd"), moe_dist_train=moe_dist("rmsnorm_bwd")),
         dict(name="rglru_fwd", route="cuda", source=csrc + "rglru.cu",
              replaces="src/repro/kernels/rglru/kernel.py:53",
              launches=hybrid_launches["rglru_fwd"], **pick(rglru[0]),

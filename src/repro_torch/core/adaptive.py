@@ -17,8 +17,9 @@ Beyond-paper (the paper's stated future work, implemented here):
 
 * **Duration predictor** — a least-squares ``duration ≈ a + b·bytes`` model over
   the observed checkpoint history (falling back to an EMA when bytes do not
-  vary).  With the predictor on, the controller checkpoints *as early as the
-  bound allows* — i.e. when ``(ckpt + t̂)/(total + t̂) ≤ max_fraction`` — which
+  vary, scaled by the bytes for a checkpoint larger than any observed, which
+  the JAX package's EMA is not).  With the predictor on, the controller
+  checkpoints *as early as the bound allows* — i.e. when ``(ckpt + t̂)/(total + t̂) ≤ max_fraction`` — which
   keeps the realised fraction close to the bound from below instead of
   oscillating around it.
 * **Queue-deadline final checkpoint** — given ``queue_ends_at`` (seconds of
@@ -81,6 +82,11 @@ class CheckpointDurationPredictor:
         ema = ys[0]
         for y in ys[1:]:
             ema = 0.5 * ema + 0.5 * y
+        # a checkpoint larger than every one observed costs at least their
+        # seconds per byte: else one small first write admits a far larger one
+        # at the small one's cost, and the weak bound overshoots by all of it
+        if nbytes is not None and max(xs) > 0 and nbytes > max(xs):
+            ema *= float(nbytes) / max(xs)
         return max(ema, 0.0)
 
 

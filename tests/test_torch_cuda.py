@@ -873,3 +873,54 @@ def test_pipeline_processes_on_the_card_match_the_single_controller(gen, dtype):
         assert len(flat) == len(ref)
         assert all(torch.equal(a, b.cpu()) for a, b in zip(flat, ref))
     assert [r["launches"] for r in results] == [2 * 2 * 4] * 2
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module (the directory is not a package)."""
+    import importlib.util
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses resolve their annotations there
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_amr_example_on_the_card(gen, tmp_path):
+    """The AMR demonstration briefly on the card (24 iterations: one level):
+    the fixed run writes at iterations 8 and 16, the adaptive run fewer
+    checkpoints (its first, with no history, at iteration 0) and fewer
+    seconds of them."""
+    amr = _example("amr_adaptive_checkpoint_torch")
+    res = {mode: amr.run_experiment(amr.AMRSettings(
+        mode=mode, iterations=24, device="cuda", ckpt_dir=str(tmp_path / "amr")))
+        for mode in ("fixed", "adaptive")}
+    fixed, adaptive = res["fixed"], res["adaptive"]
+    assert fixed["n_checkpoints"] == 2 and fixed["final_levels"] == adaptive["final_levels"] == 1
+    assert 1 <= adaptive["n_checkpoints"] < fixed["n_checkpoints"]
+    assert adaptive["checkpoint_seconds"] < fixed["checkpoint_seconds"]
+
+
+def test_train_example_on_the_card(gen, tmp_path):
+    """train_llm's ``--fast`` model (6 layers) for 6 steps through the
+    kernels: finite losses and the launches of ``_per_step_launches`` (12
+    flash forwards, 6 dq, 6 dkv, 24 RMSNorm forwards and 12 backwards a
+    step)."""
+    from repro_torch.kernels import build
+
+    build.build_all()
+    train = _example("train_llm_torch")
+    before = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches, rn_ops.launches,
+              rn_ops.bwd_launches)
+    summary, _ = train.train(["--fast", "--steps", "6", "--batch", "2", "--seq", "64",
+                              "--attn-impl", "pallas", "--norm-impl", "fused",
+                              "--ckpt-dir", str(tmp_path / "ckpt")])
+    after = (fa_ops.launches, fa_ops.dq_launches, fa_ops.dkv_launches, rn_ops.launches,
+             rn_ops.bwd_launches)
+    assert [b - a for a, b in zip(before, after)] == [6 * n for n in (12, 6, 6, 24, 12)]
+    assert summary["iterations"] == 6
+    assert torch.isfinite(torch.tensor(summary["final_metrics"]["loss"]))

@@ -15,7 +15,8 @@ of the reference's ``loss_fn``, never its 1F1B, which fails under this
 container's jax); one AdamW step (each rank's leaves, the two copies of the
 tied table identical); a restage between steps, which moves units with
 their ``master``, ``m`` and ``v``.  The launcher: ``run_training`` on 2
-processes gives the single controller's losses; a 4-process save restores
+processes gives the single controller's losses (its runs in a fresh
+process at one thread, as each rank's); a 4-process save restores
 on 2 processes and on the single controller, and a single-controller save
 on 4 processes; a restage decided on rank 0 runs on every rank at the same
 step; and ``pipeline_stages`` other than the world size raises.  Each world
@@ -24,8 +25,10 @@ Spawned ranks import this module, so JAX is imported inside tests only.
 """
 
 import json
+import multiprocessing
 import os
 import shutil
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -201,6 +204,25 @@ def _train(root, name, stages, session=None, **kw):
         "llama3.2-1b", n_layers=4), session=session or TimingSession())
 
 
+def _fresh_train(root, name, stages, kw):
+    """``_train`` in a fresh process at one thread, as each rank runs; the
+    summary's picklable parts."""
+    torch.set_num_threads(1)
+    summary = _train(root, name, stages, **kw)
+    return {key: summary[key] for key in ("pipeline", "resume")}
+
+
+def _single_controller(root, *runs):
+    """The single controller's launcher runs ``(name, kw)`` on 4 stages, one
+    after another in one fresh process: the losses the ranks' runs are held
+    to bit for bit come from a process that, like each rank, inherits
+    nothing of this test process (its thread count, its process-global
+    state)."""
+    with ProcessPoolExecutor(max_workers=1,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        return [pool.submit(_fresh_train, root, name, 4, kw).result() for name, kw in runs]
+
+
 def _losses(path):
     with open(path) as fh:
         return [json.loads(line)["extra"]["loss"] for line in fh if line.strip()]
@@ -327,8 +349,8 @@ def root(tmp_path_factory):
     """The single controller's launcher runs: uninterrupted, and saved at
     label ``TRAIN["at"]`` (a copy for the 4 processes to restore)."""
     path = str(tmp_path_factory.mktemp("pipeline_procs"))
-    _train(path, "single", 4)
-    _train(path, "single_saved", 4, steps=TRAIN["at"], ckpt=os.path.join(path, "single_on4"))
+    _single_controller(path, ("single", {}), ("single_saved", dict(
+        steps=TRAIN["at"], ckpt=os.path.join(path, "single_on4"))))
     return path
 
 
@@ -608,7 +630,8 @@ def test_saves_restore_across_process_counts(root, procs2, run, world):
     at = TRAIN["at"]
     if run == "single_on":
         shutil.copytree(os.path.join(root, "ck4"), os.path.join(root, "ck4_on1"))
-        summary = _train(root, "ck4_on1", 4, ckpt=os.path.join(root, "ck4_on1"))
+        summary, = _single_controller(root, ("ck4_on1", dict(ckpt=os.path.join(root,
+                                                                              "ck4_on1"))))
         assert summary["resume"]["selected_step"] == at
         assert summary["pipeline"]["mode"] == "controller"
         run = "ck4_on1"

@@ -114,12 +114,12 @@ def _params(cfg_j):
 
 
 def _router_keys(cfg, params):
-    """The ``_routing_tap`` key of each layer, in layer order: the address
-    of its router weight (a unit's slice of the stacked leaf, then the tail)."""
+    """The ``_routing_tap`` key of each layer, in layer order: the bits of
+    its router weight (a unit's slice of the stacked leaf, then the tail)."""
     n_scan, pattern, _ = PM._split_stack(cfg)
-    keys = [params["scan"][j]["moe"]["router"][i].data_ptr()
+    keys = [chip_smoke._router_key(torch, params["scan"][j]["moe"]["router"][i])
             for i in range(n_scan) for j in range(len(pattern))]
-    return keys + [p["moe"]["router"].data_ptr() for p in params["tail"]]
+    return keys + [chip_smoke._router_key(torch, p["moe"]["router"]) for p in params["tail"]]
 
 
 def _jax_value_and_grad(monkeypatch, cfg_j, params_j, batch_j):
