@@ -420,7 +420,7 @@ Which design runs where: in bf16 at head_dim 32 to 256, ``flash_fwd``
 (phases 2, 4, 8, 12, 19 to 25), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (phases
 6, 8, 19, 21, 23, 25) are tensor-core kernels (``wgmma`` fed by TMA through an
 mbarrier-guarded shared-memory ring, sm_90a; at head_dim 256 dq streams
-32-key tiles, and dkv keeps dk and dv on the two warpgroups of a 64-key
+32-key tiles; dkv keeps dv and dk on the two warpgroups of a 64-key
 block, passing P^T between them through shared memory, and splits the GQA
 group's heads across blocks where that grid is under one wave, adding the
 split's f32 partials in a second, fixed-order launch); their f32
@@ -2231,6 +2231,17 @@ def _training_kernels_rows(torch, F, K, gen, b, heads, tag, where, s=TRAIN_SEQ, 
     args = (q, k, v, do, lse, delta)
     dq = fa_ops.flash_bwd_dq(*args, causal=True, window=None)
     dk, dv = fa_ops.flash_bwd_dkv(*args, causal=True, window=None)
+    dk2, dv2 = fa_ops.flash_bwd_dkv(*args, causal=True, window=None)
+    torch.cuda.synchronize()
+    # the split's partials are added in a fixed order: the same bits again
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv), tag
+    del dk2, dv2
+    plan = fa_ops.dkv_plan(b, s, kv, h // kv, hd, torch.bfloat16,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    _print(f"{tag} flash_bwd_dkv {where}: split={plan['split']} grid={plan['blocks']} blocks "
+           f"launches_per_call={plan['launches']} workspace_MB="
+           f"{plan['workspace_bytes'] / 1e6:.2f}; a second call bit-equal "
+           f"{_kernel_note(fa_ops, 'flash_bwd_dkv', torch.bfloat16, hd, plan['split'])}")
     ref_dq = fa_ops.flash_bwd_dq_plain(*args, causal=True, window=None)
     ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(*args, causal=True, window=None)
     x = torch.randn((n, d), generator=gen, device=DEVICE).to(torch.bfloat16)

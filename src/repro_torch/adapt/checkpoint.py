@@ -81,6 +81,10 @@ class CheckpointControl:
         #: durable-save routine for the eviction barrier; bound by the
         #: launcher (``bind_durable_save``) once a checkpoint manager exists
         self._durable_save: Callable[[int], float] | None = None
+        #: seconds by which a write started at a step's poll would land
+        #: before the run's final save (None where unknown); bound by the
+        #: launcher (``bind_final_save``)
+        self._final_save_margin: Callable[[int], float | None] | None = None
         #: barrier bookkeeping for summaries / tests
         self.barrier_saves = 0
         self.barrier_failures = 0
@@ -97,6 +101,13 @@ class CheckpointControl:
         """Pop the decision made at the last poll (None when never polled)."""
         decision, self._pending = self._pending, None
         return decision
+
+    def bind_final_save(self, margin: Callable[[int], float | None]) -> None:
+        """Bind the launcher's estimate of the seconds by which an
+        asynchronous write started at step ``step``'s poll would land before
+        the run's final save: AdaptCheck starts none that would not
+        (``AdaptiveCheckpointController.decide``)."""
+        self._final_save_margin = margin
 
     # -- eviction barrier ---------------------------------------------------------
     def bind_durable_save(self, save_fn: Callable[[int], float]) -> None:
@@ -160,8 +171,10 @@ class CheckpointControl:
         # the STARTUP compile — matches the paper's "time spent on the problem"
         total = now - self.inner.started_at
         ckpt = measurements.get(self.ckpt_timer, Measurement(0.0, 0)).seconds
+        margin = self._final_save_margin(step) if self._final_save_margin is not None else None
         decision = self.inner.decide(
-            iteration=step, now=now, total_seconds=total, checkpoint_seconds=ckpt
+            iteration=step, now=now, total_seconds=total, checkpoint_seconds=ckpt,
+            final_save_margin=margin,
         )
         self._pending = decision
         if not decision.checkpoint:

@@ -110,6 +110,8 @@ class CheckpointManager:
         self.n_saves = 0
         self.total_blocking_seconds = 0.0
         self.total_bytes = 0
+        #: seconds the last write took from its start to durable (0 before any)
+        self.last_write_seconds = 0.0
         self.last_resume_plan: ResumePlan | None = None
 
     @property
@@ -118,6 +120,7 @@ class CheckpointManager:
 
     # -- save ------------------------------------------------------------------
     def _write(self, step: int, host_tree, metadata) -> tuple[str, int]:
+        t0 = time.monotonic()
         if self.delay_s or self.delay_s_per_mb:
             nbytes = checkpoint_nbytes(host_tree)
             time.sleep(self.delay_s + self.delay_s_per_mb * nbytes / 1e6)
@@ -128,6 +131,7 @@ class CheckpointManager:
         _BUMP_IO_BYTES(float(nbytes))
         _BUMP_IO_OPS(1.0)
         self.gc()
+        self.last_write_seconds = time.monotonic() - t0
         return path, nbytes
 
     def save(

@@ -178,7 +178,12 @@ class AdaptiveCheckpointController:
         total_seconds: float,
         checkpoint_seconds: float,
         next_checkpoint_bytes: float | None = None,
+        final_save_margin: float | None = None,
     ) -> Decision:
+        """``final_save_margin``: seconds by which an asynchronous write
+        started now would land before the run's final save starts (negative:
+        the save would wait for it), where the caller knows them (None: the
+        reference's decision)."""
         p = self.policy
         predicted = self.predictor.predict(next_checkpoint_bytes)
         fraction = checkpoint_seconds / total_seconds if total_seconds > 0 else 0.0
@@ -190,6 +195,7 @@ class AdaptiveCheckpointController:
             checkpoint_seconds=checkpoint_seconds,
             fraction=fraction,
             predicted=predicted,
+            final_save_margin=final_save_margin,
         )
         if not decision.checkpoint:
             self.n_suppressed += 1
@@ -205,6 +211,7 @@ class AdaptiveCheckpointController:
         checkpoint_seconds: float,
         fraction: float,
         predicted: float,
+        final_save_margin: float | None = None,
     ) -> Decision:
         p = self.policy
 
@@ -238,6 +245,11 @@ class AdaptiveCheckpointController:
         # (4) predictor-aware admission (beyond-paper): checkpoint as early as
         # the bound allows, so the realised fraction tracks the bound from below.
         if p.use_predictor and self.predictor.n_observations > 0:
+            # (4a) beyond the reference: an asynchronous write that would
+            # still be in flight when the run's final save starts only delays
+            # that save, which holds a later state
+            if final_save_margin is not None and final_save_margin < 0:
+                return Decision(False, "final-save-near", fraction, predicted)
             lookahead = (checkpoint_seconds + predicted) / max(total_seconds + predicted, 1e-12)
             if lookahead <= p.max_fraction:
                 return Decision(True, "predictor-admit", fraction, predicted)

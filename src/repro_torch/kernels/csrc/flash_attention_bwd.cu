@@ -20,9 +20,9 @@
 // rounded accumulator as the register-A operand), two warpgroups of 128
 // threads a block, with thread 0 issuing every TMA load (128-byte swizzle;
 // 64-byte at hd 32; rows past S or T read as zeros) into a ring of
-// STAGES = 2 stages guarded by full/empty mbarriers, STAGES - 1 tiles ahead
-// of the compute (a third stage measured no faster for dkv; a producer warp
-// would cap the registers at 168, see flash_attention.cu).  Each kernel runs
+// STAGES stages guarded by full/empty mbarriers, STAGES - 1 tiles ahead of
+// the compute (a producer warp would cap the registers at 168, see
+// flash_attention.cu).  Each kernel runs
 // the element mask only on tiles that cut the causal diagonal, the window
 // edge or a ragged edge, skips tiles that no row of a warpgroup sees, and
 // orders its grid with the most causal work first.
@@ -47,30 +47,30 @@
 //    pass the 227 KB a block may have; the dQ accumulator is then 128
 //    registers a thread, beside 16 each for S and dP.
 //
-// dkv in bf16 at hd 32-128 (`flash_bwd_dkv_tc_kernel`).  One block per (key
-// tile of 128 keys, KV head, batch row), each warpgroup owning 64 keys:
+// dkv in bf16 at hd 32-256 (`flash_bwd_dkv_wg_kernel`, described above it).
+// One block per key tile of 64 keys, KV head and batch row; its two
+// warpgroups own the same 64 keys, warpgroup 0 dV and warpgroup 1 dK (one
+// f32 accumulator a warpgroup: 64 keys' dK and dV together would take 256
+// registers a thread in one warpgroup at hd 256, and 128 at hd 128, which
+// would leave room only for 32-row query tiles), and P^T passes from the
+// first to the second through shared memory:
 //  * thread 0 loads the block's K and V once, then streams Q and dO tiles
-//    of the group's query heads x the query tiles the mask leaves;
+//    of 64 rows of the group's query heads x the query tiles the mask
+//    leaves, each with its 64 lse and delta values, all by TMA;
 //  * the scores are computed transposed, keys as wgmma's M dimension:
-//    S^T = K Q^T and dP^T = V dO^T (K-major); P^T and dS^T, rounded to
-//    bf16, are then already wgmma's register-A operand for dV += P^T dO and
-//    dK += dS^T Q, which read dO and Q in the transposed-B (MN-major) mode:
-//    no round trip through shared memory;
-//  * dK and dV accumulate in registers across the whole GQA group and leave
-//    the kernel once, scaled, in bf16, with no atomics.  Query tiles of 64
-//    rows (32 at hd 128, where the two accumulators alone take 128
-//    registers a thread): at most ~200 registers a thread, no spills.
-// dkv in bf16 at hd 256 (`flash_bwd_dkv_wg_kernel`, described above it):
-// 64 x 256 f32 dK and dV would take 256 registers a thread in one
-// warpgroup, past the 255 cap, so a block's two warpgroups own the same 64
-// keys, warpgroup 0 dV and warpgroup 1 dK, and pass P^T from the first to
-// the second through shared memory.  Under MQA (recurrentgemma-9b's 16/1
-// heads) one block a key tile is 64 blocks at T = 4096, one an SM (225 KB
-// of shared memory), while each walks 16 heads; so where that grid is under
-// one wave the wrapper's planner splits the GQA group's heads over SPLIT
-// blocks a key tile (the least divisor of the group that makes two waves),
-// each writing its scaled f32 dK and dV to its own plane of a workspace
-// [2][SPLIT][B][T][KV][256], and `dkv_split_sum_kernel` adds the planes in
+//    S^T = K Q^T and dP^T = V dO^T (m64n64, K-major), one a warpgroup; P^T
+//    and dS^T, rounded to bf16, are wgmma's register-A operand for dV +=
+//    P^T dO and dK += dS^T Q, which read dO and Q in the transposed-B
+//    (MN-major) mode;
+//  * at hd <= 64 two blocks share an SM (<= 128 registers a thread, two
+//    stages of ~84 KB), at hd 128 one block with three stages, at hd 256
+//    one with two (230 KB).
+// Where that grid is under one wave of SMs (a batch row or two: the
+// pipeline's microbatch, a rank's shard, recurrentgemma-9b's MQA) the
+// wrapper's planner splits the GQA group's heads over SPLIT blocks a key
+// tile (the least divisor of the group that makes two waves), each writing
+// its scaled f32 dK and dV to its own plane of a workspace
+// [2][SPLIT][B][T][KV][HD], and `dkv_split_sum_kernel` adds the planes in
 // split order and writes bf16, so the result is the same on every run.
 // SPLIT = 1 writes bf16 from the block, in one launch.
 //  Rounding P and dS to bf16 before their products is the rounding the f32
@@ -441,28 +441,65 @@ namespace tc {
 
 using namespace hopper;
 
-constexpr int BKV = 128;      // dkv: keys of a block, two warpgroups of 64
 constexpr int BQ = 128;       // dq: query rows of a block, two warpgroups of 64
 constexpr int THREADS = 256;  // two warpgroups; thread 0 also issues the TMA loads
 constexpr float LOG2E = 1.4426950408889634f;
 
+// dkv in bf16 (`flash_bwd_dkv_wg_kernel`): one block per (key tile of 64
+// keys, split of the GQA group's heads, KV head, batch row).  The two
+// warpgroups own the same 64 keys and one accumulator each (HD / 2
+// registers a thread: 16 at hd 32 ... 128 at hd 256):
+//  * warpgroup 0 computes S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse
+//    log2 e) (masked), writes P^T in f32 to a shared-memory slot of its
+//    stage, and accumulates dV += P^T dO;
+//  * warpgroup 1 computes dP^T = V dO^T at the same time, waits for P^T
+//    (an mbarrier of 128 arrivals per stage), forms dS^T = P^T (dP^T -
+//    delta) and accumulates dK += dS^T Q.
+// The m64n64 accumulators of S^T and dP^T have the same layout in both
+// warpgroups, so thread i of warpgroup 1 reads the 32 values that thread i
+// of warpgroup 0 wrote, laid out thread-fastest (no bank conflicts): no
+// product is done twice and the exchange is 16 KB a tile in one direction.
+// A stage's P^T slot is written again only after the stage's next tile has
+// landed, which waits for both warpgroups to release the stage.  The tile's
+// 64 lse and delta values land by TMA with its Q and dO (1-d maps over the
+// (B, H, S) rows, each box 68 values from the 16-byte boundary at or below
+// the tile's first: TMA reads a box only from such a boundary), so no
+// global read waits inside the loop.  Warpgroup 1's first thread issues
+// the loads, each into the stage that warpgroup 1 has just released:
+// warpgroup 0, which releases a stage first, never waits for warpgroup 1
+// at the top of a tile, and so runs up to a tile ahead of it (its S^T and
+// softmax of tile it + 1 beside warpgroup 1's dS^T and dK of tile it).
 template <int HD>
 struct DkvTiles {
-  static_assert(HD <= 128, "head_dim 256 runs flash_bwd_dkv_wg_kernel");
-  static constexpr int STAGES = 2;  // Q/dO ring depth
-  static constexpr int BQ = HD >= 128 ? 32 : 64;  // query rows per streamed tile
+  // Q/dO (and P^T, lse, delta) ring depth: three where one block holds an
+  // SM (hd 128; at hd 256 a third would not fit), two where two blocks share
+  // it (hd <= 64: ~85 KB each; four stages at one block an SM measured
+  // slower)
+  static constexpr int STAGES = HD == 128 ? 3 : 2;
+  // blocks an SM holds: two at hd <= 64, where a thread needs at most 128
+  // registers, so one block's softmax overlaps the other's products
+  static constexpr int BLOCKS_PER_SM = HD <= 64 ? 2 : 1;
+  static constexpr int BK = 64;  // keys of a block, shared by both warpgroups
+  // query rows per streamed tile: the score products are m64n64 (128 rows,
+  // m64n128, measured slower at hd 64)
+  static constexpr int BQ = 64;
   static constexpr int SPAN = HD < 64 ? HD : 64;  // columns of one swizzled slab
   static constexpr int SLABS = HD / SPAN;
-  static constexpr int ROWB = 2 * SPAN;           // bytes of a slab row = swizzle span
-  static constexpr int KV_BYTES = BKV * HD * 2;   // the block's K or V
-  static constexpr int Q_BYTES = BQ * HD * 2;     // one Q or dO tile
-  static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * STAGES * Q_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int ROWB = 2 * SPAN;          // bytes of a slab row = swizzle span
+  static constexpr int KV_BYTES = BK * HD * 2;   // the block's K or V
+  static constexpr int Q_BYTES = BQ * HD * 2;    // one Q or dO tile
+  static constexpr int P_VALUES = BQ / 2;        // P^T values a thread exchanges a tile
+  static constexpr int P_BYTES = 128 * P_VALUES * 4;
+  static constexpr int ROW_BOX = BQ + 4;         // lse or delta values a tile loads
+  static constexpr int ROW_SLOT = 96;            // floats of their 128-byte-aligned slot
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES +
+                              STAGES * (2 * Q_BYTES + P_BYTES + 2 * ROW_SLOT * 4) +
+                              8 * (1 + 3 * STAGES);
 };
 
 struct DkvParams {
   CUtensorMap tk, tv, tq, tdo;
-  const float* lse;    // (B, H, S) f32, contiguous
-  const float* delta;  // (B, H, S) f32, contiguous
+  CUtensorMap tlse, tdelta;  // (B, H, S) f32 as one vector each
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   float* ws;  // split > 1: f32 partial dK, dV planes [2][split][B][T][KV][HD]
@@ -475,259 +512,31 @@ struct DkvParams {
   float scale_log2;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkv_tc_kernel(const __grid_constant__ DkvParams p) {
-  using C = DkvTiles<HD>;
-  constexpr int BQ = C::BQ;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sv = sk + C::KV_BYTES;
-  uint8_t* sqd = sv + C::KV_BYTES;  // [STAGES][Q tile, dO tile], each [SLABS][BQ][SPAN]
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sqd + C::STAGES * 2 * C::Q_BYTES);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + C::STAGES;
-
-  // key tiles with the most causal work first
-  const int kb = p.KV * p.B;
-  const int k0 = (int)(blockIdx.x / kb) * BKV;
-  const int kvh = (int)(blockIdx.x % kb) % p.KV;
-  const int b = (int)(blockIdx.x % kb) / p.KV;
-
-  // query tiles that intersect the mask support of this key tile
-  int q_lo = 0;
-  int q_hi = p.S;
-  if (p.causal) q_lo = min(k0, p.S);
-  if (p.window > 0) q_hi = min(q_hi, k0 + BKV - 1 + p.window);
-  const int qt0 = q_lo / BQ;
-  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt0 : 0;
-  const int n_it = p.group * n_qt;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, 2 * 128);  // every thread releases the stage
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  // Thread 0 issues every TMA load: K and V and Q/dO tiles 0 .. STAGES - 2
-  // here, tile it + STAGES - 1 at the top of iteration it, into the stage
-  // that tile it - 1 has released, so tiles load while another is computed.
-  const bool issuer = threadIdx.x == 0;
-  auto load_q = [&](int it) {
-    const int s = it % C::STAGES;
-    const int h = kvh * p.group + it / n_qt;
-    const int q0 = (qt0 + it % n_qt) * BQ;
-    uint8_t* st = sqd + s * 2 * C::Q_BYTES;
-    mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
-    mbar_expect_tx(full + s, 2 * C::Q_BYTES);
-    for (int j = 0; j < C::SLABS; ++j) {
-      tma_load_4d(st + j * BQ * C::ROWB, &p.tq, full + s, j * C::SPAN, q0, h, b);
-      tma_load_4d(st + C::Q_BYTES + j * BQ * C::ROWB, &p.tdo, full + s, j * C::SPAN, q0, h, b);
-    }
-  };
-  if (issuer) {
-    mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
-    for (int j = 0; j < C::SLABS; ++j) {
-      tma_load_4d(sk + j * BKV * C::ROWB, &p.tk, kv_full, j * C::SPAN, k0, kvh, b);
-      tma_load_4d(sv + j * BKV * C::ROWB, &p.tv, kv_full, j * C::SPAN, k0, kvh, b);
-    }
-    for (int j = 0; j < C::STAGES - 1 && j < n_it; ++j) load_q(j);
-  }
-
-  // each warpgroup owns 64 keys
-  const int wg = warpgroup_idx();
-  const int tid = threadIdx.x % 128;
-  const int ka = k0 + 64 * wg;                           // first key of this warpgroup
-  const int t0 = ka + 16 * (tid / 32) + (tid % 32) / 4;  // this thread's keys: t0, t0 + 8
-  const int col = 2 * (tid % 4);                         // its first query column of each 8
-  // K-major descriptors of this warpgroup's K and V rows and of stage 0's Q
-  // and dO tiles; MN-major ones of stage 0's Q and dO tiles
-  const uint64_t k_desc = make_desc(sk + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
-  const uint64_t v_desc = make_desc(sv + 64 * wg * C::ROWB, 0, 8 * C::ROWB, C::ROWB);
-  const uint64_t q_desc = make_desc(sqd, 0, 8 * C::ROWB, C::ROWB);
-  const uint64_t qt_desc = make_desc(sqd, BQ * C::ROWB, 8 * C::ROWB, C::ROWB);
-
-  float dk[HD / 2], dv[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
-
-  mbar_wait(kv_full, 0);
-  for (int it = 0; it < n_it; ++it) {
-    if (issuer && it + C::STAGES - 1 < n_it) load_q(it + C::STAGES - 1);
-    __syncwarp();
-    const int s = it % C::STAGES;
-    const uint32_t phase = (it / C::STAGES) & 1;
-    const int h = kvh * p.group + it / n_qt;
-    const int q0 = (qt0 + it % n_qt) * BQ;
-    // no key of this warpgroup is seen by a row of the tile / some element is masked
-    const bool skip = ka >= p.T || (p.causal && q0 + BQ - 1 < ka) ||
-                      (p.window > 0 && ka + 63 <= q0 - p.window);
-    const bool edge = q0 + BQ > p.S || ka + 64 > p.T || (p.causal && q0 < ka + 63) ||
-                      (p.window > 0 && q0 + BQ - 1 >= ka + p.window);
-
-    // lse (base 2) and delta of this thread's query columns, read while the
-    // tile lands
-    float lse2[BQ / 4], del[BQ / 4];
-    if (!skip) {
-      const long long row = ((long long)b * p.H + h) * p.S;
-#pragma unroll
-      for (int i = 0; i < BQ / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = q0 + 8 * i + col + e;
-          lse2[2 * i + e] = q < p.S ? __ldg(p.lse + row + q) * LOG2E : 0.f;
-          del[2 * i + e] = q < p.S ? __ldg(p.delta + row + q) : 0.f;
-        }
-    }
-
-    const uint64_t dq = desc_at(q_desc, s * 2 * C::Q_BYTES);
-    const uint64_t dqt = desc_at(qt_desc, s * 2 * C::Q_BYTES);
-
-    mbar_wait(full + s, phase);
-    if (!skip) {
-      float sc[BQ / 2], dp[BQ / 2];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int slab = kk / (C::SPAN / 16);
-        const int off = (kk % (C::SPAN / 16)) * 32;
-        wgmma_ss<BQ>(sc, desc_at(k_desc, slab * BKV * C::ROWB + off),
-                     desc_at(dq, slab * BQ * C::ROWB + off), kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int slab = kk / (C::SPAN / 16);
-        const int off = (kk % (C::SPAN / 16)) * 32;
-        wgmma_ss<BQ>(dp, desc_at(v_desc, slab * BKV * C::ROWB + off),
-                     desc_at(dq, C::Q_BYTES + slab * BQ * C::ROWB + off), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      fence_regs(dp);
-
-#pragma unroll
-      for (int i = 0; i < BQ / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 2 * i + (e & 1);
-          float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lse2[c]));
-          if (edge) {
-            const int t = t0 + 8 * (e >> 1);
-            const int q = q0 + 8 * i + col + (e & 1);
-            const bool ok = q < p.S && t < p.T && (!p.causal || t <= q) &&
-                            (p.window <= 0 || t > q - p.window);
-            if (!ok) pv = 0.f;
-          }
-          sc[4 * i + e] = pv;
-          dp[4 * i + e] = pv * (dp[4 * i + e] - del[c]);
-        }
-      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
-          da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
-        }
-
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<HD>(dv, pa[kk], desc_at(dqt, C::Q_BYTES + kk * 16 * C::ROWB));
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        wgmma_rs<HD>(dk, da[kk], desc_at(dqt, kk * 16 * C::ROWB));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-    }
-    mbar_arrive(empty + s);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int t = t0 + 8 * r;
-    if (t < p.T) {
-      __nv_bfloat16* dkp = p.dk + b * p.sdk[0] + kvh * p.sdk[2] + (long long)t * p.sdk[1] + col;
-      __nv_bfloat16* dvp = p.dv + b * p.sdv[0] + kvh * p.sdv[2] + (long long)t * p.sdv[1] + col;
-#pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(dkp + 8 * i) =
-            pack_bf16(dk[4 * i + 2 * r] * p.scale, dk[4 * i + 2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + 8 * i) =
-            pack_bf16(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
-      }
-    }
-  }
-}
-
-// dkv in bf16 at head_dim 256 (`flash_bwd_dkv_wg_kernel`): one block per
-// (key tile of 64 keys, split of the GQA group's heads, KV head, batch row).
-// dK and dV of 64 keys x 256 columns would take 256 f32 registers a thread
-// in one warpgroup, so the two warpgroups own the same 64 keys and one
-// accumulator each:
-//  * warpgroup 0 computes S^T = K Q^T, P^T = exp2(S^T scale log2 e - lse
-//    log2 e) (masked), writes P^T in f32 to a shared-memory slot of its
-//    stage, and accumulates dV += P^T dO;
-//  * warpgroup 1 computes dP^T = V dO^T at the same time, waits for P^T
-//    (an mbarrier of 128 arrivals per stage), forms dS^T = P^T (dP^T -
-//    delta) and accumulates dK += dS^T Q.
-// The m64n32 accumulators of S^T and dP^T have the same layout in both
-// warpgroups, so thread i of warpgroup 1 reads the 16 values that thread i
-// of warpgroup 0 wrote, laid out thread-fastest (no bank conflicts): no
-// product is done twice and the exchange is 16 KB a tile in one direction.
-// A stage's P^T slot is written again only after the stage's next tile has
-// landed, which waits for both warpgroups to release the stage.
-struct DkvWgTiles {
-  static constexpr int HD = 256;
-  static constexpr int STAGES = 2;  // Q/dO (and P^T) ring depth: a third would not fit
-  static constexpr int BK = 64;     // keys of a block, shared by both warpgroups
-  // query rows per streamed tile: 64 makes the score products m64n64 rather
-  // than m64n32, fewer and fuller products a tile (215 registers a thread,
-  // no spills)
-  static constexpr int BQ = 64;
-  static constexpr int SPAN = 64;   // columns of one swizzled slab
-  static constexpr int SLABS = HD / SPAN;
-  static constexpr int ROWB = 2 * SPAN;  // bytes of a slab row = swizzle span
-  static constexpr int KV_BYTES = BK * HD * 2;  // the block's K or V
-  static constexpr int Q_BYTES = BQ * HD * 2;   // one Q or dO tile
-  static constexpr int P_VALUES = BQ / 2;       // P^T values a thread exchanges a tile
-  static constexpr int P_BYTES = 128 * P_VALUES * 4;
-  static constexpr int SMEM =
-      1024 + 2 * KV_BYTES + STAGES * (2 * Q_BYTES + P_BYTES) + 8 * (1 + 3 * STAGES);
-};
-
 // PARTIAL: the block walks its split's group / split heads and writes f32
 // partial sums to the workspace; otherwise the whole group, and bf16 dK, dV
-template <bool PARTIAL>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int HD, bool PARTIAL>
+__global__ void __launch_bounds__(THREADS, DkvTiles<HD>::BLOCKS_PER_SM)
     flash_bwd_dkv_wg_kernel(const __grid_constant__ DkvParams p) {
-  using C = DkvWgTiles;
-  constexpr int BQ = C::BQ, HD = C::HD;
+  using C = DkvTiles<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sv = sk + C::KV_BYTES;
   uint8_t* sqd = sv + C::KV_BYTES;  // [STAGES][Q tile, dO tile], each [SLABS][BQ][SPAN]
   float* sp = reinterpret_cast<float*>(sqd + C::STAGES * 2 * C::Q_BYTES);  // [STAGES][P][128]
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sqd + C::STAGES * (2 * C::Q_BYTES + C::P_BYTES));
+  float* srow = sp + C::STAGES * C::P_VALUES * 128;  // [STAGES][lse, delta][ROW_SLOT]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(srow + C::STAGES * 2 * C::ROW_SLOT);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + C::STAGES;
   uint64_t* p_full = empty + C::STAGES;
 
   // key tiles with the most causal work first, then the splits of a key
   // tile's group side by side
+  // (a key tile's blocks side by side, sharing Q and dO in L2, measured
+  // 30-40% slower under the causal mask)
   const int split = PARTIAL ? p.split : 1;
   const int kb = p.KV * p.B * split;
-  const int k0 = (int)(blockIdx.x / kb) * C::BK;
+  const int k0 = (int)(blockIdx.x / kb) * BK;
   const int part = (int)(blockIdx.x % kb) % split;
   const int kvh = (int)(blockIdx.x % kb) / split % p.KV;
   const int b = (int)(blockIdx.x % kb) / split / p.KV;
@@ -739,7 +548,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   int q_lo = 0;
   int q_hi = p.S;
   if (p.causal) q_lo = min(k0, p.S);
-  if (p.window > 0) q_hi = min(q_hi, k0 + C::BK - 1 + p.window);
+  if (p.window > 0) q_hi = min(q_hi, k0 + BK - 1 + p.window);
   const int qt0 = q_lo / BQ;
   const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt0 : 0;
   const int n_it = heads * n_qt;
@@ -755,30 +564,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  // Thread 0 issues every TMA load: K and V and Q/dO tiles 0 .. STAGES - 2
-  // here, tile it + STAGES - 1 at the top of iteration it, into the stage
-  // that tile it - 1 has released, so tiles load while another is computed.
-  const bool issuer = threadIdx.x == 0;
+  // Warpgroup 1's first thread issues every TMA load: K and V and Q/dO
+  // tiles (with their lse and delta) 0 .. STAGES - 1 here, tile it + STAGES
+  // at the end of iteration it, into the stage that tile it has released.
+  const bool issuer = threadIdx.x == 128;
   auto load_q = [&](int it) {
     const int s = it % C::STAGES;
     const int h = h0 + it / n_qt;
     const int q0 = (qt0 + it % n_qt) * BQ;
     uint8_t* st = sqd + s * 2 * C::Q_BYTES;
     mbar_wait(empty + s, ((it / C::STAGES) & 1) ^ 1);
-    mbar_expect_tx(full + s, 2 * C::Q_BYTES);
+    mbar_expect_tx(full + s, 2 * C::Q_BYTES + 2 * C::ROW_BOX * 4);
     for (int j = 0; j < C::SLABS; ++j) {
       tma_load_4d(st + j * BQ * C::ROWB, &p.tq, full + s, j * C::SPAN, q0, h, b);
       tma_load_4d(st + C::Q_BYTES + j * BQ * C::ROWB, &p.tdo, full + s, j * C::SPAN, q0, h, b);
     }
+    const int row = ((b * p.H + h) * p.S + q0) & ~3;  // from a 16-byte boundary
+    tma_load_1d(srow + s * 2 * C::ROW_SLOT, &p.tlse, full + s, row);
+    tma_load_1d(srow + (s * 2 + 1) * C::ROW_SLOT, &p.tdelta, full + s, row);
   };
   if (issuer) {
     mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
     for (int j = 0; j < C::SLABS; ++j) {
-      tma_load_4d(sk + j * C::BK * C::ROWB, &p.tk, kv_full, j * C::SPAN, k0, kvh, b);
-      tma_load_4d(sv + j * C::BK * C::ROWB, &p.tv, kv_full, j * C::SPAN, k0, kvh, b);
+      tma_load_4d(sk + j * BK * C::ROWB, &p.tk, kv_full, j * C::SPAN, k0, kvh, b);
+      tma_load_4d(sv + j * BK * C::ROWB, &p.tv, kv_full, j * C::SPAN, k0, kvh, b);
     }
-    for (int j = 0; j < C::STAGES - 1 && j < n_it; ++j) load_q(j);
+    for (int j = 0; j < C::STAGES && j < n_it; ++j) load_q(j);
   }
+  __syncwarp();
 
   // warpgroup 0: scores against Q, then dV against dO; warpgroup 1: dP
   // against dO, then dK against Q
@@ -793,6 +606,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint64_t q_desc = make_desc(sqd + first, 0, 8 * C::ROWB, C::ROWB);
   const uint64_t qt_desc = make_desc(sqd + (C::Q_BYTES - first), BQ * C::ROWB, 8 * C::ROWB,
                                      C::ROWB);
+  // lse (warpgroup 0) or delta (warpgroup 1) of stage 0's tile
+  const float* lv0 = srow + wg * C::ROW_SLOT + col;
 
   float acc[HD / 2];  // dV (warpgroup 0) or dK (warpgroup 1) of this thread's keys
 #pragma unroll
@@ -800,33 +615,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_it; ++it) {
-    if (issuer && it + C::STAGES - 1 < n_it) load_q(it + C::STAGES - 1);
-    __syncwarp();
     const int s = it % C::STAGES;
     const uint32_t phase = (it / C::STAGES) & 1;
     const int h = h0 + it / n_qt;
     const int q0 = (qt0 + it % n_qt) * BQ;
     // no key of the block is seen by a row of the tile / some element is masked
     const bool skip = k0 >= p.T || (p.causal && q0 + BQ - 1 < k0) ||
-                      (p.window > 0 && k0 + C::BK - 1 <= q0 - p.window);
-    const bool edge = q0 + BQ > p.S || k0 + C::BK > p.T || (p.causal && q0 < k0 + C::BK - 1) ||
+                      (p.window > 0 && k0 + BK - 1 <= q0 - p.window);
+    const bool edge = q0 + BQ > p.S || k0 + BK > p.T || (p.causal && q0 < k0 + BK - 1) ||
                       (p.window > 0 && q0 + BQ - 1 >= k0 + p.window);
     float* slot = sp + s * C::P_VALUES * 128 + tid;  // this thread's P^T values, stride 128
-
-    // lse (base 2; warpgroup 0) or delta (warpgroup 1) of this thread's
-    // query columns, read while the tile lands
-    float lv[BQ / 4];
-    if (!skip) {
-      const float* src = (wg == 0 ? p.lse : p.delta) + ((long long)b * p.H + h) * p.S;
-      const float mul = wg == 0 ? LOG2E : 1.f;
-#pragma unroll
-      for (int i = 0; i < BQ / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = q0 + 8 * i + col + e;
-          lv[2 * i + e] = q < p.S ? __ldg(src + q) * mul : 0.f;
-        }
-    }
+    // lse or delta of its query columns, lv[8 i + e], past the box's offset
+    const float* lv = lv0 + s * 2 * C::ROW_SLOT + (((b * p.H + h) * p.S + q0) & 3);
 
     mbar_wait(full + s, phase);
     if (!skip) {
@@ -836,7 +636,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kk = 0; kk < HD / 16; ++kk) {
         const int slab = kk / (C::SPAN / 16);
         const int off = (kk % (C::SPAN / 16)) * 32;
-        wgmma_ss<BQ>(sc, desc_at(kv_desc, slab * C::BK * C::ROWB + off),
+        wgmma_ss<BQ>(sc, desc_at(kv_desc, slab * BK * C::ROWB + off),
                      desc_at(q_desc, s * 2 * C::Q_BYTES + slab * BQ * C::ROWB + off), kk > 0);
       }
       wgmma_commit();
@@ -845,10 +645,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       if (wg == 0) {
 #pragma unroll
-        for (int i = 0; i < BQ / 8; ++i)
+        for (int i = 0; i < BQ / 8; ++i) {
+          const float lse2[2] = {lv[8 * i] * LOG2E, lv[8 * i + 1] * LOG2E};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lv[2 * i + (e & 1)]));
+            float pv = exp2f(fmaf(sc[4 * i + e], p.scale_log2, -lse2[e & 1]));
             if (edge) {
               const int t = t0 + 8 * (e >> 1);
               const int q = q0 + 8 * i + col + (e & 1);
@@ -859,6 +660,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             sc[4 * i + e] = pv;
             slot[(4 * i + e) * 128] = pv;
           }
+        }
         mbar_arrive(p_full + s);
       } else {
         mbar_wait(p_full + s, phase);
@@ -866,7 +668,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int i = 0; i < BQ / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            sc[4 * i + e] = slot[(4 * i + e) * 128] * (sc[4 * i + e] - lv[2 * i + (e & 1)]);
+            sc[4 * i + e] = slot[(4 * i + e) * 128] * (sc[4 * i + e] - lv[8 * i + (e & 1)]);
       }
       // P^T or dS^T, rounded to bf16: the register-A operand of the product
       uint32_t a[BQ / 16][4];
@@ -887,6 +689,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_arrive(p_full + s);  // the P^T barrier completes a phase every tile
     }
     mbar_arrive(empty + s);
+    if (issuer && it + C::STAGES < n_it) load_q(it + C::STAGES);
+    __syncwarp();
   }
 
   // warpgroup 0 writes dV, warpgroup 1 dK (scaled)
@@ -961,26 +765,27 @@ __global__ void __launch_bounds__(SUM_THREADS)
 
 template <int HD>
 int launch_dkv(const Params& p, int B, int KV, int split, float* ws, cudaStream_t stream) {
-  // only the hd-256 instance splits the group; the planner keeps 1 elsewhere
-  if (split < 1 || p.group % split != 0 || (split > 1 && (HD != 256 || ws == nullptr)))
+  using C = DkvTiles<HD>;
+  if (split < 1 || p.group % split != 0 || (split > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  constexpr int BK = HD == 256 ? DkvWgTiles::BK : BKV;
-  constexpr int Q_ROWS = HD == 256 ? DkvWgTiles::BQ : DkvTiles<(HD > 128 ? 128 : HD)>::BQ;
-  constexpr int SPAN = HD < 64 ? HD : 64;
   DkvParams d;
-  int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], BK,
-                          SPAN);
+  int err = make_tile_map(&d.tk, p.k, B, p.T, KV, HD, p.st[K][0], p.st[K][1], p.st[K][2], C::BK,
+                          C::SPAN);
   if (!err)
-    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], BK, SPAN);
+    err = make_tile_map(&d.tv, p.v, B, p.T, KV, HD, p.st[V][0], p.st[V][1], p.st[V][2], C::BK,
+                        C::SPAN);
   if (!err)
-    err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], Q_ROWS,
-                        SPAN);
+    err = make_tile_map(&d.tq, p.q, B, p.S, p.H, HD, p.st[Q][0], p.st[Q][1], p.st[Q][2], C::BQ,
+                        C::SPAN);
   if (!err)
     err = make_tile_map(&d.tdo, p.dout, B, p.S, p.H, HD, p.st[DO][0], p.st[DO][1], p.st[DO][2],
-                        Q_ROWS, SPAN);
+                        C::BQ, C::SPAN);
+  // a box may not be longer than its vector: the wrapper pads lse and
+  // delta to at least one box
+  const long long rows = max((long long)B * p.H * p.S, (long long)C::ROW_BOX);
+  if (!err) err = make_vector_map(&d.tlse, p.lse, rows, C::ROW_BOX);
+  if (!err) err = make_vector_map(&d.tdelta, p.delta, rows, C::ROW_BOX);
   if (err) return err;
-  d.lse = p.lse;
-  d.delta = p.delta;
   d.dk = static_cast<__nv_bfloat16*>(p.dk);
   d.dv = static_cast<__nv_bfloat16*>(p.dv);
   d.ws = ws;
@@ -999,30 +804,22 @@ int launch_dkv(const Params& p, int B, int KV, int split, float* ws, cudaStream_
   d.window = p.window;
   d.scale = p.scale;
   d.scale_log2 = p.scale * LOG2E;
-  const int blocks = (p.T + BK - 1) / BK * KV * B * split;
-  if constexpr (HD == 256) {
-    // set on every launch: the attribute holds for the current device only
-    const auto kernel = split > 1 ? flash_bwd_dkv_wg_kernel<true> : flash_bwd_dkv_wg_kernel<false>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DkvWgTiles::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<blocks, THREADS, DkvWgTiles::SMEM, stream>>>(d);
-    e = cudaGetLastError();
-    if (e != cudaSuccess || split == 1) return (int)e;
-    const long long rows = (long long)B * p.T * KV;
-    const dim3 grid((unsigned)((rows * (HD / 4) + SUM_THREADS - 1) / SUM_THREADS), 2);
-    dkv_split_sum_kernel<HD><<<grid, SUM_THREADS, 0, stream>>>(
-        ws, d.dk, d.dv, split, p.T, KV, rows, d.sdk[0], d.sdk[1], d.sdk[2], d.sdv[0], d.sdv[1],
-        d.sdv[2]);
-    return (int)cudaGetLastError();
-  } else {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         DkvTiles<HD>::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_tc_kernel<HD><<<blocks, THREADS, DkvTiles<HD>::SMEM, stream>>>(d);
-    return (int)cudaGetLastError();
-  }
+  const int blocks = (p.T + C::BK - 1) / C::BK * KV * B * split;
+  // set on every launch: the attribute holds for the current device only
+  const auto kernel =
+      split > 1 ? flash_bwd_dkv_wg_kernel<HD, true> : flash_bwd_dkv_wg_kernel<HD, false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<blocks, THREADS, C::SMEM, stream>>>(d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || split == 1) return (int)e;
+  const long long kv_rows = (long long)B * p.T * KV;
+  const dim3 grid((unsigned)((kv_rows * (HD / 4) + SUM_THREADS - 1) / SUM_THREADS), 2);
+  dkv_split_sum_kernel<HD><<<grid, SUM_THREADS, 0, stream>>>(
+      ws, d.dk, d.dv, split, p.T, KV, kv_rows, d.sdk[0], d.sdk[1], d.sdk[2], d.sdv[0], d.sdv[1],
+      d.sdv[2]);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1339,9 +1136,12 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
 }
 
 // split: blocks a key tile's work is split into over the GQA group's query
-// heads, a divisor of H / KV; above 1 only for the bf16 hd-256 instance,
-// which then needs `ws`, 2 * split * B * T * KV * hd f32 of scratch, and
-// makes two launches (the split kernel, then the fixed-order sum).
+// heads, a divisor of H / KV; above 1 only for the bf16 tensor-core
+// instances (hd >= 32), which then need `ws`, 2 * split * B * T * KV * hd
+// f32 of scratch, and make two launches (the split kernel, then the
+// fixed-order sum).  The dkv tensor-core instances read lse and delta by
+// TMA: both need a 16-byte-aligned base and at least 68 elements (zeros
+// past B * H * S).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int dtype,
                              int B, int S, int T, int H, int KV, int hd,
@@ -1356,14 +1156,9 @@ namespace {
 // the dkv tensor-core instance at HD: its attributes and dynamic shared memory
 template <int HD>
 cudaError_t dkv_tc_attributes(cudaFuncAttributes* a, bool partial, int* smem) {
-  if constexpr (HD == 256) {
-    *smem = tc::DkvWgTiles::SMEM;
-    return partial ? cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<true>)
-                   : cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<false>);
-  } else {
-    *smem = tc::DkvTiles<HD>::SMEM;
-    return cudaFuncGetAttributes(a, tc::flash_bwd_dkv_tc_kernel<HD>);
-  }
+  *smem = tc::DkvTiles<HD>::SMEM;
+  return partial ? cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<HD, true>)
+                 : cudaFuncGetAttributes(a, tc::flash_bwd_dkv_wg_kernel<HD, false>);
 }
 
 // registers and local (spill) bytes a thread, dynamic shared memory and
@@ -1415,7 +1210,7 @@ int info_hd(bool dkv, int dtype, int hd, bool partial, int* out) {
 // out[5] = registers a thread, local bytes a thread, dynamic shared memory
 // bytes and threads a block of the kernel that (dtype, hd) launches, and 1
 // if it is a tensor-core kernel (the wrapper then checks strides for TMA);
-// for dkv with split > 1, of the bf16 hd-256 instance that writes partials
+// for dkv with split > 1, of the bf16 instance that writes partials
 extern "C" int flash_bwd_dq_info(int dtype, int hd, int* out) {
   return info_hd(false, dtype, hd, false, out);
 }

@@ -109,6 +109,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 1-d tensor map into shared memory; completion counted on `bar`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 #if CUDART_VERSION < 12050
 #error "the tensor-map encoder is reached through cudaGetDriverEntryPointByVersion (CUDA 12.5+)"
 #endif
@@ -148,6 +158,23 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int len,
       unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       span == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Tensor map of a contiguous f32 vector of `len` elements (16-byte-aligned
+// base), read in boxes of `box` elements from any element offset; elements
+// past `len` read as zeros.  Returns a cudaError_t code.
+inline int make_vector_map(CUtensorMap* map, const float* base, long long len, int box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[1] = {(cuuint64_t)len};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has no strides
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
+                            dims, strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

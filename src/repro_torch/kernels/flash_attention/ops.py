@@ -12,9 +12,9 @@ length on the card goes through them; the reference's untiled fallback to
 ``chunked_attention`` is deliberately absent.  The dkv kernel sums over the
 GQA group inside each block and returns dk/dv already reduced to the KV
 heads.  In bf16 all three kernels run on the tensor cores (``wgmma`` fed
-by TMA, sm_90a) at head_dim 32 to 256 (the dkv kernel at 256 with dk and
-dv on the two warpgroups of a 64-key block and, where that grid is under
-one wave of SMs, the GQA group's query heads split across blocks:
+by TMA, sm_90a) at head_dim 32 to 256 (the dkv kernel with dv and dk on
+the two warpgroups of a 64-key block and, where that grid is under one
+wave of SMs, the GQA group's query heads split across blocks:
 :func:`dkv_split`); every f32 instance, and the bf16 one at head_dim 16
 (the smoke configs'), uses f32 FMAs from shared memory.
 PERF.md has their times against their bounds.
@@ -73,13 +73,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims of the forward and backward kernels (256: recurrentgemma-9b's
 #: MQA heads, which train through all three)
 _HEAD_DIMS = (16, 32, 64, 128, 256)
-#: keys of a tensor-core dkv block (``tc::BKV`` of csrc/flash_attention_bwd.cu),
-#: of one at head_dim 256 (``tc::DkvWgTiles::BK``) and of an f32-FMA one
-#: (``KV_BK``)
-_DKV_TC_KEYS, _DKV_WG_KEYS, _DKV_FMA_KEYS = 128, 64, 32
-#: the head_dim whose tensor-core dkv kernel may split the GQA group
-#: across blocks
-_DKV_SPLIT_HD = 256
+#: keys of a tensor-core dkv block (``tc::DkvTiles::BK`` of
+#: csrc/flash_attention_bwd.cu, at every head_dim from 32 to 256) and of an
+#: f32-FMA one (``KV_BK``)
+_DKV_TC_KEYS, _DKV_FMA_KEYS = 64, 32
+#: lse or delta values a tensor-core dkv tile loads by TMA in one box of a
+#: 1-d map (``tc::DkvTiles::ROW_BOX``): its 64 query rows, from the 16-byte
+#: boundary at or below the first
+_DKV_ROW_BOX = 68
 
 
 # ---------------------------------------------------------------------------
@@ -242,26 +243,27 @@ def _bwd_kernel(name: str):
     return fn
 
 
-def _dkv_tc_blocks(b: int, t: int, n_kv: int, head_dim: int) -> int:
-    """Blocks of the unsplit tensor-core dkv kernel: one a key tile of 128
-    keys (64 at head_dim 256), KV head and batch row."""
-    keys = _DKV_WG_KEYS if head_dim == _DKV_SPLIT_HD else _DKV_TC_KEYS
-    return -(-t // keys) * n_kv * b
+def _dkv_tc_blocks(b: int, t: int, n_kv: int) -> int:
+    """Blocks of the unsplit tensor-core dkv kernel: one a key tile of 64
+    keys, KV head and batch row."""
+    return -(-t // _DKV_TC_KEYS) * n_kv * b
 
 
 def dkv_split(b: int, t: int, n_kv: int, group: int, head_dim: int, sms: int) -> int:
-    """Blocks that each key tile of the bf16 dkv kernel is split into over
-    the GQA group's ``group`` query heads.  1 below head_dim 256 and
-    wherever the grid of one block a key tile of 64 — ceil(T / 64) x KV x
-    B — already fills ``sms`` SMs; otherwise the least divisor of the group
-    that makes the grid two waves, or the whole group where none does (each
-    split then holds one head).  Two waves, not one: a causal or windowed
-    mask gives key tiles unequal work, and blocks of half a wave's length
-    let the SMs that finish early take the rest (``tools/time_flash.py
-    --dkv-splits`` times every split on the card; PERF.md has the times)."""
-    if head_dim != _DKV_SPLIT_HD:
+    """Blocks that each key tile of the bf16 tensor-core dkv kernel (head_dim
+    32 to 256) is split into over the GQA group's ``group`` query heads.  1
+    wherever the grid of one block a key tile of 64 — ceil(T / 64) x KV x B
+    — already fills ``sms`` SMs (training at batch 4); otherwise (a batch
+    row or two: the pipeline's microbatch, a rank's shard, MQA at hd 256)
+    the least divisor of the group that makes the grid two waves, or the
+    whole group where none does (each split then holds one head).  Two
+    waves, not one: a causal or windowed mask gives key tiles unequal work,
+    and blocks of half a wave's length let the SMs that finish early take
+    the rest (``tools/time_flash.py --dkv-splits`` times every split on the
+    card; PERF.md has the times)."""
+    if head_dim < 32:  # hopper::tensor_core_hd: the f32-FMA instance
         return 1
-    blocks = _dkv_tc_blocks(b, t, n_kv, head_dim)
+    blocks = _dkv_tc_blocks(b, t, n_kv)
     if blocks >= sms:
         return 1
     return next((d for d in range(2, group + 1) if group % d == 0 and blocks * d >= 2 * sms),
@@ -280,7 +282,7 @@ def dkv_plan(b: int, t: int, n_kv: int, group: int, head_dim: int, dtype: torch.
         return dict(split=1, blocks=-(-t // _DKV_FMA_KEYS) * n_kv * b, launches=1,
                     workspace_bytes=0)
     split = dkv_split(b, t, n_kv, group, head_dim, sms)
-    return dict(split=split, blocks=_dkv_tc_blocks(b, t, n_kv, head_dim) * split,
+    return dict(split=split, blocks=_dkv_tc_blocks(b, t, n_kv) * split,
                 launches=1 + (split > 1),
                 workspace_bytes=0 if split == 1 else 2 * split * b * t * n_kv * head_dim * 4)
 
@@ -341,13 +343,24 @@ def flash_fwd(
     return out, lse
 
 
+def _tma_vector(x: torch.Tensor) -> torch.Tensor:
+    """lse or delta as the backward kernels read them: contiguous f32 and,
+    for the dkv kernel's TMA, from a 16-byte-aligned base and at least one
+    box (``_DKV_ROW_BOX`` elements) long: a zero-padded copy where it is not."""
+    x = x.float().contiguous()
+    if x.data_ptr() % 16 == 0 and x.numel() >= _DKV_ROW_BOX:
+        return x
+    out = torch.zeros(max(x.numel(), _DKV_ROW_BOX), dtype=torch.float32, device=x.device)
+    out[:x.numel()] = x.reshape(-1)
+    return out
+
+
 def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, window) -> None:
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     if lse.shape != (b, h, s) or delta.shape != (b, h, s):
         raise ValueError(f"lse/delta must be (B, H, S) = {(b, h, s)}")
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
+    lse, delta = _tma_vector(lse), _tma_vector(delta)
     dq = outs[0] if name == "flash_bwd_dq" else q
     dk, dv = (outs if name == "flash_bwd_dkv" else (k, v))
     tc = kernel_info(name, q.dtype, hd)["tensor_cores"]

@@ -161,6 +161,8 @@ class TrainSettings:
     #: save through the manager's chained handler (None installs no deadline)
     save_deadline_s: float | None = None
     queue_seconds: float | None = None
+    #: kept for the reference's settings; no code reads it, as in the reference
+    eval_every: int = 0
     report_every: int = 25
     log_path: str | None = None
     status_path: str | None = None
@@ -363,6 +365,19 @@ def run_training(
         # a save under a process group is a collective, which an eviction
         # barrier on one rank cannot start
         ckpt_control.bind_durable_save(durable_save)
+    if ckpt_active and not settings.ckpt_synchronous:
+        def final_save_margin(step: int) -> float | None:
+            """Seconds by which a write started at step ``step`` would land
+            before SHUTDOWN's final save: the steps left at the mean step so
+            far, less the last write's seconds (None before both exist)."""
+            if (manager is None or not manager.last_write_seconds
+                    or not db.exists("EVOL/trainer::train_step")):
+                return None
+            evol = db.get("EVOL/trainer::train_step")
+            left = (settings.steps - step - 1) * evol.seconds() / max(evol.count, 1)
+            return left - manager.last_write_seconds
+
+        ckpt_control.bind_final_save(final_save_margin)
     # single-process topology: this host feeds its own EVOL step timer into
     # the reduction; multi-host launchers hand the detector a transport.  On
     # the pipeline path the response controller additionally owns the

@@ -52,14 +52,16 @@ def naive_attention(
     *,
     causal: bool = True,
     window: int | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Full-matrix reference attention."""
+    """Full-matrix reference attention.  ``q_offset`` is the position of the
+    first query in the causal and window masks."""
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     scale = hd ** -0.5
     qg = _split_heads(q, n_kv)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
-    q_pos = torch.arange(s, device=q.device)
+    q_pos = q_offset + torch.arange(s, device=q.device)
     k_pos = torch.arange(t, device=q.device)
     scores = scores + _mask_bias(q_pos, k_pos, causal, window)
     probs = torch.softmax(scores, dim=-1)
@@ -75,12 +77,13 @@ def chunked_attention(
     causal: bool = True,
     window: int | None = None,
     chunk: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Exact attention, looped over query chunks (no S×T buffer)."""
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
     if s % chunk != 0 or s <= chunk:
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     n_chunks = s // chunk
     scale = hd ** -0.5
     qg = _split_heads(q, n_kv).reshape(b, n_chunks, chunk, n_kv, h // n_kv, hd)
@@ -92,7 +95,7 @@ def chunked_attention(
 
     outs = []
     for idx in range(n_chunks):
-        q_pos = idx * chunk + torch.arange(chunk, device=q.device)
+        q_pos = q_offset + idx * chunk + torch.arange(chunk, device=q.device)
         if band is not None and band < t:
             start = min(max(idx * chunk - (band - chunk), 0), t - band)
             kc, vc = k[:, start : start + band], v[:, start : start + band]
@@ -117,12 +120,15 @@ def attention(
     causal: bool = True,
     window: int | None = None,
     chunk: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     if impl == "naive":
-        return naive_attention(q, k, v, causal=causal, window=window)
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if impl == "chunked":
-        return chunked_attention(q, k, v, causal=causal, window=window, chunk=chunk)
-    if impl == "pallas":
+        return chunked_attention(
+            q, k, v, causal=causal, window=window, chunk=chunk, q_offset=q_offset
+        )
+    if impl == "pallas":  # the kernel's masks start at 0; the reference's drops q_offset too
         from ..kernels.flash_attention import ops as fa_ops
 
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window)

@@ -322,6 +322,73 @@ def test_flash_bwd_dkv_hd256_split_matches_plain_and_repeats(gen, b, s, t, h, kv
         assert torch.equal(got, rerun)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("b,s,t,h,kv,causal,window,split", [
+    (1, 1024, 1024, 32, 8, True, None, None),  # the pipeline's microbatch: split 4
+    (2, 1024, 1024, 16, 4, True, None, None),  # a TP rank's shard: split 4
+    (1, 1024, 1024, 32, 8, True, None, 1),     # the same, forced unsplit
+    (1, 1024, 1024, 32, 8, True, None, 2),     # and at a split of 2
+    (1, 333, 333, 8, 2, True, 128, None),      # ragged (S % 4 != 0), the window bites
+    (1, 200, 330, 8, 1, True, 96, None),       # ragged T past S, MQA: split 8
+    (2, 301, 301, 4, 4, False, 64, None),      # group 1, window without causality
+    (4, 300, 300, 32, 8, True, None, None),    # training at batch 4, ragged: unsplit
+    (1, 256, 256, 8, 2, False, None, 2),       # no mask, group 4, split 2
+])
+def test_flash_bwd_dkv_split_matches_plain_and_repeats(gen, monkeypatch, hd, b, s, t, h, kv,
+                                                      causal, window, split):
+    """The bf16 dkv kernel at head_dim 64 and 128, unsplit and with the GQA
+    group split across blocks (the planner's split, or one forced by
+    replacing it), agrees with the plain version, and gives the same bits on
+    a second call."""
+    dtype = torch.bfloat16
+    if split is not None:
+        monkeypatch.setattr(fa_ops, "dkv_split", lambda *_: split)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+    mask = dict(causal=causal, window=window)
+    out, lse = fa_ops.flash_fwd_plain(q, k, v, **mask)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    plan = fa_ops.dkv_plan(b, t, kv, h // kv, hd, dtype,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan["blocks"] == -(-t // 64) * kv * b * plan["split"]
+    before = fa_ops.dkv_launches
+    dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, **mask)
+    again = fa_ops.flash_bwd_dkv(q, k, v, do, lse, delta, **mask)
+    torch.cuda.synchronize()
+    assert fa_ops.dkv_launches == before + 2
+    ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **mask)
+    for got, ref, rerun in ((dk, ref_dk, again[0]), (dv, ref_dv, again[1])):
+        assert got.dtype == dtype and got.shape == (b, t, kv, hd)
+        torch.testing.assert_close(got.float(), ref.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+        assert torch.equal(got, rerun)
+
+
+def test_flash_bwd_dkv_reads_unaligned_lse(gen):
+    """lse and delta that start off a 16-byte boundary (views into a larger
+    buffer) are copied before the kernel reads them by TMA."""
+    dtype, (b, s, h, kv, hd) = torch.bfloat16, (1, 130, 4, 2, 64)
+    q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=None)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    shifted = [torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+               for x in (lse, delta)]
+    assert all(x.data_ptr() % 16 for x in shifted)
+    dk, dv = fa_ops.flash_bwd_dkv(q, k, v, do, *shifted, causal=True)
+    torch.cuda.synchronize()
+    ref_dk, ref_dv = fa_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True,
+                                                window=None)
+    torch.testing.assert_close(dk.float(), ref_dk.float(), atol=BWD_TOL[dtype],
+                               rtol=BWD_TOL[dtype])
+    torch.testing.assert_close(dv.float(), ref_dv.float(), atol=BWD_TOL[dtype],
+                               rtol=BWD_TOL[dtype])
+
+
 @pytest.mark.parametrize("qk_norm", [False, True])
 def test_kernel_path_loss_gives_every_leaf_a_gradient(gen, qk_norm):
     """A loss through ``attn_impl="pallas"`` / ``norm_impl="fused"`` on the

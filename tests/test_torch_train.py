@@ -573,3 +573,51 @@ def test_adaptcheck_bounds_the_checkpoint_fraction(tmp_path):
     assert summary["ckpt_fraction"] == pytest.approx(
         write.seconds() / sess.db.get("simulation/total").seconds())
     assert _on_disk(str(tmp_path)) == sorted({a.step + 1 for a in actions} | {steps})
+
+
+def test_adaptcheck_starts_no_async_write_that_runs_into_the_final_save():
+    """Beyond the reference: given the seconds by which a write started now
+    would land before the run's final save, AdaptCheck defers a write that
+    would not ("final-save-near": the final save would wait for it and it
+    holds an earlier state); given none, it decides as the reference does."""
+    from repro.core.adaptive import AdaptiveCheckpointController as JaxController
+    from repro.core.adaptive import AdaptiveCheckpointPolicy as JaxPolicy
+    from repro_torch.core.adaptive import (AdaptiveCheckpointController,
+                                           AdaptiveCheckpointPolicy)
+
+    kw = dict(max_fraction=0.5, max_interval_seconds=1e9)
+    port, ref = AdaptiveCheckpointController(AdaptiveCheckpointPolicy(**kw)), \
+        JaxController(JaxPolicy(**kw))
+    for ctl in (port, ref):
+        ctl.start_run(0.0)
+        ctl.observe_checkpoint(1.0, 0.1)
+    poll = dict(iteration=5, now=10.0, total_seconds=10.0, checkpoint_seconds=0.1)
+    assert port.decide(**poll).reason == ref.decide(**poll).reason == "predictor-admit"
+    assert port.decide(**poll, final_save_margin=0.5).reason == "predictor-admit"
+    late = port.decide(**poll, final_save_margin=-0.1)
+    assert not late.checkpoint and late.reason == "final-save-near"
+    # the fault-tolerance floor still forces a write
+    port.policy = AdaptiveCheckpointPolicy(max_fraction=0.5, max_interval_seconds=5.0)
+    assert port.decide(**poll, final_save_margin=-0.1).reason == "max-interval"
+
+
+@pytest.mark.parametrize("synchronous", [False, True])
+def test_launcher_binds_the_final_save_margin_for_async_writes(tmp_path, synchronous):
+    """``run_training`` gives AdaptCheck the margin of an asynchronous write
+    before SHUTDOWN's final save: the steps left at the mean step, less the
+    last write's seconds; a synchronous write has none to give."""
+    steps = 4
+    settings = TrainSettings(device="cpu", steps=steps, global_batch=2, seq_len=16,
+                             report_every=0, ckpt_dir=str(tmp_path), ckpt_mode="adaptive",
+                             ckpt_delay_s=0.05, ckpt_synchronous=synchronous)
+    sess = TimingSession()
+    run_training(settings, session=sess)
+    ctl = sess.control_loop.controller("adaptcheck")
+    if synchronous:
+        assert ctl._final_save_margin is None
+        return
+    evol = sess.db.get("EVOL/trainer::train_step")
+    step_s = evol.seconds() / evol.count
+    margin = ctl._final_save_margin
+    assert margin(steps - 1) < 0  # the last step: any write still lands after it
+    assert margin(0) - margin(2) == pytest.approx(2 * step_s)

@@ -13,7 +13,7 @@ source's and ``chip_smoke.py``'s to print), and how many ``HGMMA`` (wgmma)
 and ``UTMALDG`` (TMA tile load) instructions its SASS holds (``cuobjdump
 -sass``).  Exits non-zero if a source does not
 compile or a tensor-core kernel (``*_tc_kernel``, and ``*_wg_kernel``: the
-hd-256 dkv kernel whose warpgroups split dK and dV) lacks either
+dkv kernel whose warpgroups split dK and dV) lacks either
 instruction.
 """
 

@@ -34,10 +34,15 @@ run the two in turns (old, new, new, old), each in its own process: both
 packages are called ``repro_torch``.  Each checkout builds its kernels into
 its own ``build/`` directory; the timer is always this checkout's.
 
-With ``--dkv-splits``, also the head_dim-256 dkv cases at every split of
-the GQA group (1, 2, 4, 8, 16) beside the one its planner picks
-(``ops.dkv_split``, replaced for the sweep), to check the planner's rule
-on the card.
+``flash_bwd_dkv`` also at every shape a main path gives it at head_dim 64
+and 128 (``DKV_PATH_CASES``: the pipeline's microbatch and a process's
+stage, a TP rank's shard, encdec, llama, moonshot and vlm training, a MoE
+rank's shard), each with its plan.
+
+With ``--dkv-splits``, also those cases and the head_dim-256 ones at every
+split of the GQA group (each divisor of the group) beside the one its
+planner picks (``ops.dkv_split``, replaced for the sweep), to check the
+planner's rule on the card.
 
 With ``--profile``, also the device time of each kernel a recurrence call
 or a head_dim-256 dkv call launches (``torch.profiler``, 20 back-to-back
@@ -68,6 +73,15 @@ BWD_CASES = {  # name: (B, S = T, window), 32/8 heads of 64, causal
 HD256_BWD_CASES = {  # name: (B, S = T, window), 16/1 heads of 256, causal
     "hybrid_B1_S4096_w2048": (1, 4096, 2048),
     "hybrid_ragged_B1_S300_w128": (1, 300, 128),
+}
+DKV_PATH_CASES = {  # name: (B, S = T, H, KV, hd, causal), bf16
+    "pipeline_B1_S1024_32x8_hd64": (1, 1024, 32, 8, 64, True),
+    "dist_B2_S1024_16x4_hd64": (2, 1024, 16, 4, 64, True),
+    "encdec_B4_S1024_16x16_hd64_noncausal": (4, 1024, 16, 16, 64, False),
+    "llama_B4_S1024_32x8_hd64": (4, 1024, 32, 8, 64, True),
+    "moe_dist_B2_S1024_8x8_hd128": (2, 1024, 8, 8, 128, True),
+    "moonshot_B4_S1024_16x16_hd128": (4, 1024, 16, 16, 128, True),
+    "vlm_B4_S1280_48x8_hd128": (4, 1280, 48, 8, 128, True),
 }
 RMSNORM_FWD_CASES = {  # name: (N, D), bf16
     "rmsnorm_fwd_512x2048": (512, 2048),
@@ -140,7 +154,7 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also break each recurrence call's device time down by kernel")
     parser.add_argument("--dkv-splits", action="store_true",
-                        help="also time the head_dim-256 dkv cases at every split of the group")
+                        help="also time the dkv path cases at every split of the group")
     args = parser.parse_args()
 
     import torch
@@ -167,7 +181,19 @@ def main() -> int:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    times = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planner = fa_ops.dkv_split
+
+    def sweep(name, dkv, b, s, kv, group, hd):
+        """``name``'s dkv call at every split of the group, and the plan's."""
+        chosen = planner(b, s, kv, group, hd, sms)
+        for split in (d for d in range(1, group + 1) if group % d == 0):
+            fa_ops.dkv_split = lambda *_, split=split: split
+            times[f"dkv_{name}_split{split}"] = _device_ms(torch, dkv)
+        fa_ops.dkv_split = planner
+        times[f"dkv_{name}_planner_split"] = chosen
+
+    times, plans = {}, {}
     for name, (b, s, h, kv, hd, window) in SHAPES.items():
         q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
         times[name] = _device_ms(
@@ -196,14 +222,19 @@ def main() -> int:
         times[f"dkv_{name}_hd256"] = _device_ms(torch, dkv)
         profiled[f"dkv_{name}_hd256"] = dkv
         if args.dkv_splits:
-            planner = fa_ops.dkv_split
-            chosen = planner(b, s, 1, 16, 256, torch.cuda.get_device_properties(0)
-                             .multi_processor_count)
-            for split in (1, 2, 4, 8, 16):
-                fa_ops.dkv_split = lambda *_, split=split: split
-                times[f"dkv_{name}_hd256_split{split}"] = _device_ms(torch, dkv)
-            fa_ops.dkv_split = planner
-            times[f"dkv_{name}_hd256_planner_split"] = chosen
+            sweep(f"{name}_hd256", dkv, b, s, 1, 16, 256)
+    for name, (b, s, h, kv, hd, causal) in DKV_PATH_CASES.items():
+        q, do = rnd(b, s, h, hd), rnd(b, s, h, hd)
+        k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        out, lse = fa_ops.flash_fwd(q, k, v, causal=causal)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dkv = (lambda grads_of=(q, k, v, do, lse, delta), causal=causal:
+               fa_ops.flash_bwd_dkv(*grads_of, causal=causal))
+        times[f"dkv_{name}"] = _device_ms(torch, dkv)
+        if hasattr(fa_ops, "dkv_plan"):
+            plans[name] = fa_ops.dkv_plan(b, s, kv, h // kv, hd, torch.bfloat16, sms)
+        if args.dkv_splits:
+            sweep(name, dkv, b, s, kv, h // kv, hd)
     for name, (n, d) in RMSNORM_FWD_CASES.items():
         x = rnd(n, d)
         w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(torch.bfloat16)
@@ -252,6 +283,7 @@ def main() -> int:
     host_us = {name: _host_us(torch, fn) for name, fn in host.items()}
     print(json.dumps({"root": str(args.root), "build_s": round(build_s, 2),
                       "device": torch.cuda.get_device_name(0), "ms": times,
+                      "dkv_plans": plans,
                       "fwd_serve_host_us": host_us}), flush=True)
     return 0
 
