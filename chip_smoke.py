@@ -845,9 +845,9 @@ def _rmsnorm_phase(torch, F, rn_ops, gen):
         _print(f"[rmsnorm] ({n}, {d}) bf16: max_abs_err={err:.3e} kernel_ms={ms:.5f} "
                f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} ({bound_by}) "
                f"library_ms={library_ms:.5f} {_shares(ms, bound_ms, library_ms)} "
-               f"[{plan['launches']} launch a call, {plan['blocks']} blocks of "
-               f"{plan['threads']} threads, {plan['registers']} registers/thread, "
-               f"{plan['local_bytes']} B local/thread]")
+               f"[{plan['kernel']} kernel, {plan['launches']} launch a call, {plan['blocks']} "
+               f"blocks of {plan['threads']} threads, {plan['registers']} registers/thread, "
+               f"{plan['local_bytes']} B local/thread, {plan['smem_bytes']} B shared/block]")
     return rows
 
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels: shared
-// memory barriers (mbarrier), TMA tile loads and their tensor maps, wgmma
+// memory barriers (mbarrier) and named barriers, TMA tile loads and stores
+// and their tensor maps, the swizzle TMA lays a tile out in, wgmma
 // shared-memory descriptors and the wgmma products themselves.
 //
 // Layout conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix
@@ -109,6 +110,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of shared memory out to a 4-d tensor map (rows past the map's
+// extent are not written), in the thread's current bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// close the thread's bulk group and wait until its stores have read their
+// shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wait at named barrier ID (0 is __syncthreads) until THREADS threads have
+// (an immediate id, so ptxas reserves only the barriers a kernel names)
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
 // one box of a 1-d tensor map into shared memory; completion counted on `bar`
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0) {
@@ -182,6 +213,16 @@ inline int make_vector_map(CUtensorMap* map, const float* base, long long len, i
 // wgmma
 // ---------------------------------------------------------------------------
 
+// Byte offset, from a 1024-byte-aligned base, at which TMA's swizzle puts
+// byte `off` of a tile of SPAN-column slabs: the 16-byte chunk index XOR
+// the row within the swizzle's period (128-byte swizzle: bits 4-6 ^= bits
+// 7-9; 64-byte: bits 4-5 ^= bits 7-8).
+template <int SPAN>
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  constexpr uint32_t mask = SPAN == 64 ? 7 : 3;
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
 // shared-memory matrix descriptor; swizzle_bytes 128 or 64
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes, int swizzle_bytes) {
@@ -217,6 +258,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x in one MUFU.EX2 (ex2.approx.ftz: results below 2^-126 flush to 0;
+// exp2f's subnormal handling costs four instructions around it)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -23,12 +23,20 @@
 //    few rows;
 //  * the sum of squares is a shuffle reduction inside each group (xor
 //    offsets below G), f32 throughout;
-//  * blocks shrink from 8 warps to as few as one until there are as many
-//    blocks as SMs, so short calls still spread over the card;
-//  * wider rows take a looped kernel that reads each row a second time
-//    (from L1/L2) to scale and store it.
-// One launch a call.  D = d_model (2048, 4096) and D = head_dim (64: the
-// rwkv6 group norm) are the path's widths.
+//  * rows of 513 to 1024 16-byte accesses (D <= 8192 in bf16, 4096 in f32:
+//    internvl2-26b's 6144) stay in registers too, held by a group of four
+//    warps, at most 8 accesses of x and 8 of w a lane (6 each at D = 6144
+//    bf16); each warp's shuffle-reduced sum of squares meets the group's
+//    other three in shared memory, added in warp order by every lane, so a
+//    row's scale does not depend on the launch;
+//  * blocks shrink from 8 warps to as few as one (one group of four for the
+//    wide rows) until there are as many blocks as SMs, so short calls still
+//    spread over the card;
+//  * wider rows, and unaligned rows past 512 elements (one element a lane),
+//    take a looped kernel that reads each row a second time (from L1/L2) to
+//    scale and store it.
+// One launch a call.  D = d_model (1024, 2048, 4096, 6144) and D = head_dim
+// (64: the rwkv6 group norm) are the path's widths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,8 +122,71 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   }
 }
 
-// Rows wider than the register kernel takes: one warp a row, read twice
-// (the second time from L1/L2).
+// Rows of up to 32 * W * CH accesses, held in registers by a group of W
+// warps: warp v = warp % W of group g = warp / W of block b takes
+// row b * (warps / W) + g, its lane holding accesses j * 32 * W + 32 * v +
+// lane, j < CH, and the lane's columns of w.  Each warp's sum of squares goes
+// through shared memory, and every lane adds its group's W partials in
+// warp order.
+template <typename T, int VEC, int W, int CH>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+    rmsnorm_fwd_group_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                             T* __restrict__ y, long long n, int d, float eps) {
+  using R = typename Raw<T, VEC>::type;
+  __shared__ float part[MAX_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int l = (warp % W) * 32 + (threadIdx.x & 31);
+  const long long row = (long long)blockIdx.x * ((blockDim.x >> 5) / W) + warp / W;
+
+  R xr[CH], wr[CH];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (j * 32 * W + l) * VEC;
+    xr[j] = zero<R>();
+    if (row < n && c < d) xr[j] = *reinterpret_cast<const R*>(x + row * d + c);
+  }
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (j * 32 * W + l) * VEC;
+    wr[j] = zero<R>();
+    if (c < d) wr[j] = *reinterpret_cast<const R*>(w + c);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    float f[VEC];
+    unpack(xr[j], f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ss += f[e] * f[e];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if ((threadIdx.x & 31) == 0) part[warp] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int v = 0; v < W; ++v) total += part[warp - warp % W + v];
+  const float r = rsqrtf(total / (float)d + eps);
+  if (row >= n) return;
+
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = (j * 32 * W + l) * VEC;
+    if (c < d) {
+      opaque(wr[j]);
+      opaque(xr[j]);
+      float f[VEC], g[VEC];
+      unpack(xr[j], f);
+      unpack(wr[j], g);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) f[e] = f[e] * r * g[e];
+      store(y + row * d + c, f);
+    }
+  }
+}
+
+// Rows wider than the register kernels take, and unaligned rows past 512
+// elements: one warp a row, read twice (the second time from L1/L2).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     rmsnorm_fwd_loop_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -152,17 +223,21 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 template <typename T>
 using KernelFn = void (*)(const T*, const T*, T*, long long, int, float);
 
-// Launch `kernel` over n rows, `rows` of them a warp: 8 warps a block,
-// halved while there would be fewer blocks than SMs (or, with `info`,
-// report the plan: registers and local bytes a thread, threads and blocks).
+enum Kind { ROWS = 0, GROUP = 1, LOOP = 2 };  // which kernel a plan runs
+
+// Launch `kernel` over n rows, `rows` of them a group of `per` warps: 8
+// warps a block, halved while there would be fewer blocks than SMs, down to
+// one group (or, with `info`, report the plan: registers and local bytes a
+// thread, threads and blocks, static shared memory a block, and its kind).
 template <typename T>
-int launch(KernelFn<T> kernel, long long rows, const void* x, const void* w, void* y,
-           long long n, int d, float eps, cudaStream_t stream, int* info) {
+int launch(KernelFn<T> kernel, Kind kind, long long rows, int per, const void* x,
+           const void* w, void* y, long long n, int d, float eps, cudaStream_t stream,
+           int* info) {
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
-  auto need = [&](int warps) { return (n + warps * rows - 1) / (warps * rows); };
+  auto need = [&](int warps) { return (n * per + warps * rows - 1) / (warps * rows); };
   int warps = MAX_WARPS;
-  while (warps > 1 && need(warps) < sms) warps /= 2;
+  while (warps > per && need(warps) < sms) warps /= 2;
   const long long blocks = need(warps);
   if (info != nullptr) {
     cudaFuncAttributes attr;
@@ -172,6 +247,8 @@ int launch(KernelFn<T> kernel, long long rows, const void* x, const void* w, voi
     info[1] = (int)attr.localSizeBytes;
     info[2] = warps * 32;
     info[3] = (int)blocks;
+    info[4] = (int)attr.sharedSizeBytes;
+    info[5] = kind;
     return 0;
   }
   kernel<<<(unsigned)blocks, warps * 32, 0, stream>>>(
@@ -182,12 +259,13 @@ int launch(KernelFn<T> kernel, long long rows, const void* x, const void* w, voi
 template <typename T, int VEC, int G, int CH, int RG>
 int rows_kernel(const void* x, const void* w, void* y, long long n, int d, float eps,
                 cudaStream_t stream, int* info) {
-  return launch<T>(rmsnorm_fwd_rows_kernel<T, VEC, G, CH, RG>, (long long)RG * (32 / G), x, w,
-                   y, n, d, eps, stream, info);
+  return launch<T>(rmsnorm_fwd_rows_kernel<T, VEC, G, CH, RG>, ROWS, (long long)RG * (32 / G),
+                   1, x, w, y, n, d, eps, stream, info);
 }
 
 // the register kernel for rows of at most 512 accesses (at least four a
-// lane in flight), the looped one beyond
+// lane in flight), groups of four warps a row for 16-byte rows of up to 1024
+// accesses, the looped kernel beyond
 template <typename T, int VEC>
 int dispatch(const void* x, const void* w, void* y, long long n, int d, float eps,
              cudaStream_t st, int* info) {
@@ -199,7 +277,12 @@ int dispatch(const void* x, const void* w, void* y, long long n, int d, float ep
   if (accesses <= 128) return rows_kernel<T, VEC, 32, 4, 1>(x, w, y, n, d, eps, st, info);
   if (accesses <= 256) return rows_kernel<T, VEC, 32, 8, 1>(x, w, y, n, d, eps, st, info);
   if (accesses <= 512) return rows_kernel<T, VEC, 32, 16, 1>(x, w, y, n, d, eps, st, info);
-  return launch<T>(rmsnorm_fwd_loop_kernel<T, VEC>, 1, x, w, y, n, d, eps, st, info);
+  if constexpr (VEC > 1) {
+    if (accesses <= 1024)
+      return launch<T>(rmsnorm_fwd_group_kernel<T, VEC, 4, 8>, GROUP, 1, 4, x, w, y, n, d, eps,
+                       st, info);
+  }
+  return launch<T>(rmsnorm_fwd_loop_kernel<T, VEC>, LOOP, 1, 1, x, w, y, n, d, eps, st, info);
 }
 
 int run(const void* x, const void* w, void* y, int dtype, long long n, int d, float eps,
@@ -225,8 +308,9 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y, int dtype, lon
 }
 
 // What rmsnorm_fwd would launch for the same arguments (the pointers decide
-// the access width): out[4] = registers and local (spill) bytes a thread,
-// threads a block and blocks.
+// the access width): out[6] = registers and local (spill) bytes a thread,
+// threads a block, blocks, static shared memory bytes a block, and the
+// kernel (0: a row to a warp or less, 1: a row to four warps, 2: looped).
 extern "C" int rmsnorm_fwd_info(const void* x, const void* w, const void* y, int dtype,
                                 long long n, int d, int* out) {
   return run(x, w, const_cast<void*>(y), dtype, n, d, 0.f, nullptr, out);

@@ -9,8 +9,10 @@ The kernels replace the Pallas TPU kernels ``rmsnorm_fwd``
 element); their design — a group of 8 to 32 lanes per row, 16-byte vector
 accesses, f32 shuffle reductions — aims at full-width memory transactions.
 The forward keeps each row in registers between its sum of squares and the
-store (rows of up to 4096 bf16 or 2048 f32 elements; narrow rows several to
-a warp; wider rows take a looped kernel), in one launch.  The backward
+store (rows of up to 4096 bf16 or 2048 f32 elements in one warp, narrow
+rows several to a warp; rows of up to 8192 bf16 or 4096 f32 elements in a
+group of four warps; wider or unaligned rows take a looped kernel), in one
+launch.  The backward
 keeps each row in registers between its two sums and the dx write (rows of
 up to 2048 bf16 or 1024 f32 elements; wider rows take a looped kernel) and
 forms dw in two stages (per-block f32 partial sums, then a hand-written
@@ -163,19 +165,22 @@ def rms_norm_bwd(
 
 def fwd_kernel_info(x: torch.Tensor, w: torch.Tensor) -> dict[str, int]:
     """What ``rms_norm_fwd`` launches for these CUDA rows (N, D): registers
-    and local (spill) bytes a thread, threads a block, blocks, and launches
-    (always 1); builds the kernels on first use."""
+    and local (spill) bytes a thread, threads a block, blocks, static shared
+    memory a block, launches (always 1) and ``kernel``: "rows" (a row to a
+    warp or less, in registers), "group" (a row to four warps, in registers)
+    or "loop" (read twice); builds the kernels on first use."""
     _check_rows(x, w)
     fn = build.library("rmsnorm").rmsnorm_fwd_info
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, i, ctypes.c_longlong, i, p]
     fn.restype = i
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     n, d = x.shape
     # y is allocated like x, so its alignment is x's
     build.check(fn(x.data_ptr(), w.data_ptr(), x.data_ptr(), _DTYPES[x.dtype], n, d,
                    ctypes.addressof(out)), "rmsnorm_fwd_info")
-    return dict(zip(("registers", "local_bytes", "threads", "blocks"), out), launches=1)
+    return dict(zip(("registers", "local_bytes", "threads", "blocks", "smem_bytes"), out),
+                kernel=("rows", "group", "loop")[out[5]], launches=1)
 
 
 def bwd_kernel_info(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> dict[str, int]:

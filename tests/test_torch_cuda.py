@@ -261,16 +261,21 @@ def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, n, d, offset):
     (517, 2048, 0),    # d_model 2048, rows past a multiple of the block's 8
     (1001, 64, 0),     # rwkv6's group norm: 16 rows a warp, the last warp partial
     (16387, 64, 0),
-    (5, 8192, 0),      # past the register plan: the looped kernel
+    (5, 8192, 0),      # bf16: 1024 accesses, four warps a row; f32: the looped kernel
     (300, 2048, 1),    # rows one element past a 16-byte boundary: the looped kernel
     (77, 64, 1),       # unaligned and narrow: one element a lane, in registers
     (9, 100, 0),       # D % VEC != 0
+    # past 512 accesses (bf16 4104-8192, f32 2052-4096): four warps a row
+    # where 16-byte accesses reach, at a decode step's rows, 1 and 5120 rows
+    *((n, d, 0) for d in (2052, 4096, 4104, 6144, 8192) for n in (1, 4, 5120)),
+    (768, 6144, 1),    # internvl2-26b's width, unaligned: the looped kernel
 ])
 def test_rmsnorm_fwd_register_rows_match_plain(gen, dtype, n, d, offset):
     """The forward keeps each row in registers between its sum of squares
-    and its store (rows of up to 512 accesses, several rows a warp when
-    narrow): every width and row count the plan cuts, and unaligned views,
-    agree with the plain version, in one launch a call."""
+    and its store (rows of up to 512 accesses in a warp, several rows a warp
+    when narrow; up to 1024 in four warps): every width and row count the
+    plan cuts, and unaligned views, agree with the plain version, in one
+    launch a call."""
     flat = torch.randn((n * d + offset,), generator=gen, device="cuda").to(dtype)
     x = flat[offset:].view(n, d)
     w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
@@ -282,6 +287,86 @@ def test_rmsnorm_fwd_register_rows_match_plain(gen, dtype, n, d, offset):
     torch.testing.assert_close(y.float(), rn_ops.rms_norm_plain(x, w, 1e-5).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
     assert torch.equal(rn_ops.rms_norm_fwd(x, w, 1e-5), y)
+
+
+@pytest.mark.parametrize("dtype,d,offset,kernel", [
+    (torch.bfloat16, 4096, 0, "rows"),     # 512 accesses: one warp a row
+    (torch.bfloat16, 4104, 0, "group"),    # 513 accesses
+    (torch.bfloat16, 6144, 0, "group"),    # internvl2-26b's d_model
+    (torch.bfloat16, 8192, 0, "group"),    # 1024 accesses
+    (torch.bfloat16, 8200, 0, "loop"),     # 1025 accesses
+    (torch.bfloat16, 6144, 1, "loop"),     # unaligned: one element a lane
+    (torch.float32, 2048, 0, "rows"),
+    (torch.float32, 2052, 0, "group"),
+    (torch.float32, 4096, 0, "group"),
+    (torch.float32, 4100, 0, "loop"),
+])
+def test_rmsnorm_fwd_plan_picks_the_kernel_by_row_accesses(gen, dtype, d, offset, kernel):
+    """Rows of up to 512 16-byte accesses go to the one-warp register
+    kernel, 513-1024 to four warps a row, wider rows and unaligned views to
+    the looped kernel; each agrees with the plain version at 4 and 5120 rows
+    (a decode step spreads over at least four blocks of one group)."""
+    for n in (4, 5120):
+        flat = torch.randn((n * d + offset,), generator=gen, device="cuda").to(dtype)
+        x = flat[offset:].view(n, d)
+        w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
+        plan = rn_ops.fwd_kernel_info(x, w)
+        assert plan["kernel"] == kernel and plan["local_bytes"] == 0
+        if kernel == "group":
+            assert plan["threads"] % 128 == 0 and plan["blocks"] * plan["threads"] >= 128 * n
+        y = rn_ops.rms_norm_fwd(x, w, 1e-5)
+        torch.testing.assert_close(y.float(), rn_ops.rms_norm_plain(x, w, 1e-5).float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+#: the main paths' attention heads (H, KV, hd) at head_dim 64 and 128
+FWD_FAMILIES = {"vlm": (48, 8, 128), "moonshot": (16, 16, 128), "encdec": (16, 16, 64),
+                "llama": (32, 8, 64)}
+
+
+def _fwd_repeats(gen, b, s, t, h, kv, hd, causal, window):
+    """The bf16 forward against its plain version in one launch, and a
+    second call giving the same bits."""
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").bfloat16()
+    before = fa_ops.launches
+    out, lse = fa_ops.flash_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, causal=causal, window=window)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    out2, lse2 = fa_ops.flash_fwd(q, k, v, causal=causal, window=window)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1280])
+@pytest.mark.parametrize("family", list(FWD_FAMILIES))
+def test_flash_fwd_families_match_plain_and_repeat(gen, family, s):
+    """The pipelined bf16 forward at each main path's heads (encdec's not
+    causal), S = T below, at and across one 64-key tile and at vlm's
+    training length, where causal blocks end with a key tile that
+    warpgroup 0 sees nothing of."""
+    h, kv, hd = FWD_FAMILIES[family]
+    _fwd_repeats(gen, 1 if s == 1280 else 2, s, s, h, kv, hd, family != "encdec", None)
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (200, 330, False, None),   # S != T, not causal
+    (330, 200, False, None),
+    (512, 512, True, 128),     # window 128: warpgroup 1 skips the block's first key tile
+    (300, 300, False, 128),    # the window without causality
+    (256, 256, True, None),    # causal: warpgroup 0 sees nothing of the last key tile
+    (129, 129, True, None),    # a second query tile of one row
+])
+@pytest.mark.parametrize("family", list(FWD_FAMILIES))
+def test_flash_fwd_families_masks_match_plain_and_repeat(gen, family, s, t, causal, window):
+    """The pipelined bf16 forward under every mask the paths use, at each
+    main path's heads."""
+    h, kv, hd = FWD_FAMILIES[family]
+    _fwd_repeats(gen, 2, s, t, h, kv, hd, causal, window)
 
 
 @pytest.mark.parametrize("b,s,t,h,kv,causal,window", [

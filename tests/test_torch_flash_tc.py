@@ -69,13 +69,18 @@ def _masked_scores(q, k, causal, window):
     return scores.masked_fill(~ok, float("-inf")), ok
 
 
+#: keys a tile of the bf16 forward kernel by head_dim: `Tiles<HD>::BK` in
+#: csrc/flash_attention.cu
+FWD_KEY_TILE = {32: 64, 64: 64, 128: 128, 256: 64}
+
+
 def tc_fwd_emulated(q, k, v, *, causal, window):
-    """The bf16 forward kernel's arithmetic: key tiles of 128 (64 at hd 256),
+    """The bf16 forward kernel's arithmetic: key tiles of FWD_KEY_TILE[hd],
     online softmax in f32, P rounded to bf16 before P·V, the denominator
     from the unrounded P; out in bf16, lse in f32."""
     b, s, h, hd = q.shape
     t, n_kv = k.shape[1], k.shape[2]
-    bk = 64 if hd == 256 else 128
+    bk = FWD_KEY_TILE[hd]
     scores, _ = _masked_scores(q, k, causal, window)
     vf = v.float()
     m = torch.full(scores.shape[:-1] + (1,), float("-inf"))
@@ -170,6 +175,8 @@ FWD_CASES = [
     (1, 100, 100, 4, 2, 128, True, None),     # ragged, wide head
     (1, 512, 512, 2, 1, 256, True, 2048),     # recurrentgemma-9b: MQA, hd 256
     (1, 300, 300, 2, 1, 256, True, 128),      # hd 256, ragged, the window bites
+    (1, 200, 200, 6, 1, 128, True, None),     # internvl2-26b's 6:1 GQA across key tiles
+    (1, 200, 330, 4, 4, 64, False, None),     # seamless's cross-attention: S != T, not causal
 ]
 
 

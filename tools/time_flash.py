@@ -5,9 +5,11 @@ checkout (this one by default):
 
     python3 tools/time_flash.py [--root CHECKOUT]
 
-``flash_fwd`` at its three path shapes (llama serving B=1 S=T=512, llama
-training B=4 S=T=1024, both 32/8 heads of 64, causal; recurrentgemma-9b
-prefill B=1 S=T=2560, 16/1 heads of 256, window 2048); ``flash_bwd_dq``
+``flash_fwd`` at every main path's shape (``FWD_PATH_CASES``: vlm,
+moonshot, encdec and llama training and prefill (both prompt lengths), the pipeline's
+microbatch, a TP rank's shard, a MoE rank's shard, a sharded server's
+rank, recurrentgemma-9b's hd-256 prefill and training) and at one hd-32
+shape; ``flash_bwd_dq``
 and ``flash_bwd_dkv`` at the training shape and at ``chip_smoke.py``'s
 ragged S=T=300 and window-128 cases, and at head_dim 256 at
 recurrentgemma-9b's training path (B=1, S=T=4096, 16/1 heads, window 2048)
@@ -37,7 +39,14 @@ its own ``build/`` directory; the timer is always this checkout's.
 ``flash_bwd_dkv`` also at every shape a main path gives it at head_dim 64
 and 128 (``DKV_PATH_CASES``: the pipeline's microbatch and a process's
 stage, a TP rank's shard, encdec, llama, moonshot and vlm training, a MoE
-rank's shard), each with its plan.
+rank's shard), each with its plan.  ``rmsnorm_fwd`` also at the vlm's
+width 6144 and the encdec's width 1024 (their prefill, decode and training
+rows).
+
+``--only REGEX`` times only the cases whose key in the JSON line matches
+(``re.search``): ``--only '^fwd_'`` for the forward alone.  ``--check``
+first holds each forward path case against ``flash_fwd_plain`` (out 2e-2,
+lse 2e-5), so a variant that is timed is also right.
 
 With ``--dkv-splits``, also those cases and the head_dim-256 ones at every
 split of the GQA group (each divisor of the group) beside the one its
@@ -60,11 +69,6 @@ import sys
 import time
 from pathlib import Path
 
-SHAPES = {  # name: (B, S = T, H, KV, hd, window)
-    "fwd_serve_B1_S512_hd64": (1, 512, 32, 8, 64, None),
-    "fwd_train_B4_S1024_hd64": (4, 1024, 32, 8, 64, None),
-    "fwd_hybrid_B1_S2560_hd256_w2048": (1, 2560, 16, 1, 256, 2048),
-}
 BWD_CASES = {  # name: (B, S = T, window), 32/8 heads of 64, causal
     "train_B4_S1024": (4, 1024, None),
     "ragged_B4_S300": (4, 300, None),
@@ -83,6 +87,28 @@ DKV_PATH_CASES = {  # name: (B, S = T, H, KV, hd, causal), bf16
     "moonshot_B4_S1024_16x16_hd128": (4, 1024, 16, 16, 128, True),
     "vlm_B4_S1280_48x8_hd128": (4, 1280, 48, 8, 128, True),
 }
+FWD_PATH_CASES = {  # name: (B, S = T, H, KV, hd, causal, window), bf16
+    "vlm_train_B4_S1280_48x8_hd128": (4, 1280, 48, 8, 128, True, None),
+    "moonshot_train_B4_S1024_16x16_hd128": (4, 1024, 16, 16, 128, True, None),
+    "encdec_train_B4_S1024_16x16_hd64_noncausal": (4, 1024, 16, 16, 64, False, None),
+    "llama_train_B4_S1024_32x8_hd64": (4, 1024, 32, 8, 64, True, None),
+    "vlm_prefill_B1_S768_48x8_hd128": (1, 768, 48, 8, 128, True, None),
+    "moonshot_prefill_B1_S512_16x16_hd128": (1, 512, 16, 16, 128, True, None),
+    "encdec_prefill_B1_S512_16x16_hd64_noncausal": (1, 512, 16, 16, 64, False, None),
+    "llama_prefill_B1_S512_32x8_hd64": (1, 512, 32, 8, 64, True, None),
+    "vlm_prefill_B1_S556_48x8_hd128": (1, 556, 48, 8, 128, True, None),
+    "moonshot_prefill_B1_S300_16x16_hd128": (1, 300, 16, 16, 128, True, None),
+    "encdec_prefill_B1_S300_16x16_hd64_noncausal": (1, 300, 16, 16, 64, False, None),
+    "llama_prefill_B1_S300_32x8_hd64": (1, 300, 32, 8, 64, True, None),
+    "pipeline_B1_S1024_32x8_hd64": (1, 1024, 32, 8, 64, True, None),
+    "dist_B2_S1024_16x4_hd64": (2, 1024, 16, 4, 64, True, None),
+    "moe_dist_B2_S1024_8x8_hd128": (2, 1024, 8, 8, 128, True, None),
+    "sharded_B2_S512_16x4_hd64": (2, 512, 16, 4, 64, True, None),
+    "hybrid_prefill_B1_S2560_16x1_hd256_w2048": (1, 2560, 16, 1, 256, True, 2048),
+    "hybrid_train_B1_S4096_16x1_hd256_w2048": (1, 4096, 16, 1, 256, True, 2048),
+    # no main path runs hd 32; this row decides which instance serves it
+    "hd32_B4_S1024_32x8": (4, 1024, 32, 8, 32, True, None),
+}
 RMSNORM_FWD_CASES = {  # name: (N, D), bf16
     "rmsnorm_fwd_512x2048": (512, 2048),
     "rmsnorm_fwd_300x2048": (300, 2048),
@@ -93,6 +119,14 @@ RMSNORM_FWD_CASES = {  # name: (N, D), bf16
     "rmsnorm_fwd_131072x64": (131072, 64),
     "rmsnorm_fwd_2560x4096": (2560, 4096),
     "rmsnorm_fwd_4x4096": (4, 4096),
+    "rmsnorm_fwd_768x6144": (768, 6144),
+    "rmsnorm_fwd_556x6144": (556, 6144),
+    "rmsnorm_fwd_4x6144": (4, 6144),
+    "rmsnorm_fwd_5120x6144": (5120, 6144),
+    "rmsnorm_fwd_512x1024": (512, 1024),
+    "rmsnorm_fwd_300x1024": (300, 1024),
+    "rmsnorm_fwd_4x1024": (4, 1024),
+    "rmsnorm_fwd_4096x1024": (4096, 1024),
 }
 RGLRU_CASES = {  # name: (B, S, D, dtype name), with h0
     "rglru_1x2560x4096_f32": (1, 2560, 4096, "float32"),
@@ -155,7 +189,12 @@ def main() -> int:
                         help="also break each recurrence call's device time down by kernel")
     parser.add_argument("--dkv-splits", action="store_true",
                         help="also time the dkv path cases at every split of the group")
+    parser.add_argument("--check", action="store_true",
+                        help="hold each forward path case against its plain version first")
+    parser.add_argument("--only", default="",
+                        help="time only the cases whose key matches this regular expression")
     args = parser.parse_args()
+    want = re.compile(args.only).search
 
     import torch
 
@@ -194,11 +233,9 @@ def main() -> int:
         times[f"dkv_{name}_planner_split"] = chosen
 
     times, plans = {}, {}
-    for name, (b, s, h, kv, hd, window) in SHAPES.items():
-        q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
-        times[name] = _device_ms(
-            torch, lambda: fa_ops.flash_fwd(q, k, v, causal=True, window=window))
     for name, (b, s, window) in BWD_CASES.items():
+        if not want(f"dq_{name}_hd64") and not want(f"dkv_{name}_hd64"):
+            continue
         q, do = rnd(b, s, 32, 64), rnd(b, s, 32, 64)
         k, v = rnd(b, s, 8, 64), rnd(b, s, 8, 64)
         out, lse = fa_ops.flash_fwd_plain(q, k, v, causal=True, window=window)
@@ -210,6 +247,8 @@ def main() -> int:
             torch, lambda: fa_ops.flash_bwd_dkv(*grads_of, causal=True, window=window))
     profiled = {}
     for name, (b, s, window) in HD256_BWD_CASES.items():
+        if not want(f"dq_{name}_hd256") and not want(f"dkv_{name}_hd256"):
+            continue
         q, do = rnd(b, s, 16, 256), rnd(b, s, 16, 256)
         k, v = rnd(b, s, 1, 256), rnd(b, s, 1, 256)
         out, lse = fa_ops.flash_fwd(q, k, v, causal=True, window=window)
@@ -224,6 +263,8 @@ def main() -> int:
         if args.dkv_splits:
             sweep(f"{name}_hd256", dkv, b, s, 1, 16, 256)
     for name, (b, s, h, kv, hd, causal) in DKV_PATH_CASES.items():
+        if not want(f"dkv_{name}"):
+            continue
         q, do = rnd(b, s, h, hd), rnd(b, s, h, hd)
         k, v = rnd(b, s, kv, hd), rnd(b, s, kv, hd)
         out, lse = fa_ops.flash_fwd(q, k, v, causal=causal)
@@ -235,11 +276,27 @@ def main() -> int:
             plans[name] = fa_ops.dkv_plan(b, s, kv, h // kv, hd, torch.bfloat16, sms)
         if args.dkv_splits:
             sweep(name, dkv, b, s, kv, h // kv, hd)
+    for name, (b, s, h, kv, hd, causal, window) in FWD_PATH_CASES.items():
+        if not want(f"fwd_{name}"):
+            continue
+        q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+        if args.check:
+            out, lse = fa_ops.flash_fwd(q, k, v, causal=causal, window=window)
+            ref_out, ref_lse = fa_ops.flash_fwd_plain(q, k, v, causal=causal, window=window)
+            torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=2e-2)
+            torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+            del out, lse, ref_out, ref_lse
+        times[f"fwd_{name}"] = _device_ms(
+            torch, lambda: fa_ops.flash_fwd(q, k, v, causal=causal, window=window))
     for name, (n, d) in RMSNORM_FWD_CASES.items():
+        if not want(name):
+            continue
         x = rnd(n, d)
         w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(torch.bfloat16)
         times[name] = _device_ms(torch, lambda: rn_ops.rms_norm_fwd(x, w, 1e-5))
     for name, (n, d, dtype) in RMSNORM_BWD_CASES.items():
+        if not want(name):
+            continue
         dtype = getattr(torch, dtype)
         x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
         w = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
@@ -259,6 +316,7 @@ def main() -> int:
         state = torch.randn((b, h, k, k), generator=gen, device="cuda")
         recurrences[name] = (lambda r=r, kk=kk, v=v, w=w, u=u, state=state:
                              wk_ops.wkv6_fwd(r, kk, v, w, u, state))
+    recurrences = {name: fn for name, fn in recurrences.items() if want(name)}
     for name, fn in recurrences.items():
         times[name] = _device_ms(torch, fn)
     if args.profile:
@@ -281,9 +339,13 @@ def main() -> int:
     host = {"wrapper": lambda: fa_ops.flash_fwd(q, k, v, causal=True),
             "entry_point": lambda: fa_ops._fwd_kernel()(*entry)}
     host_us = {name: _host_us(torch, fn) for name, fn in host.items()}
+    # registers, local bytes, shared memory and threads of each bf16 forward
+    # instance that ran
+    fwd_info = {hd: fa_ops.kernel_info("flash_fwd", torch.bfloat16, hd)
+                for hd in sorted({c[4] for n, c in FWD_PATH_CASES.items() if f"fwd_{n}" in times})}
     print(json.dumps({"root": str(args.root), "build_s": round(build_s, 2),
                       "device": torch.cuda.get_device_name(0), "ms": times,
-                      "dkv_plans": plans,
+                      "dkv_plans": plans, "fwd_instances": fwd_info,
                       "fwd_serve_host_us": host_us}), flush=True)
     return 0
 
