@@ -8,10 +8,19 @@ a standard registration mechanism so new metrics require *no modification to any
 existing timing code*: every :class:`~repro.core.timers.Timer` automatically
 encapsulates one instance of every registered clock.
 
-Hardware adaptation (see DESIGN.md): TPUs expose no user-readable PMU, so the
-PAPI-analogue clocks here are *derived* device clocks (``xla_flops``/``xla_bytes``)
-fed by XLA's compiled cost analysis, plus generic :class:`CounterClock` channels
-for framework events (checkpoint bytes, collective bytes, tokens processed).
+Hardware adaptation: PyTorch returns before the card finishes, so a host clock
+around asynchronous work measures its enqueue.  The port's device clock is a
+pair of CUDA timing events recorded on the current stream at a timer window's
+start and stop (:func:`device_event_start` / :func:`device_event_stop`); the
+pair is read back without a synchronise of its own, at the program's own
+synchronisation points (:func:`resolve_device_events`), and adds its elapsed
+seconds to the counter channel ``<timer path>/device_s``.  The timers record
+the pair (and a span, ``core.timers.span_log``) only while a
+``torch.profiler`` session records; otherwise a window pays one flag check.
+The remaining PAPI-analogue channels are :class:`CounterClock` channels for
+framework events (model FLOPs of executed steps, checkpoint bytes, collective
+bytes, tokens processed); ``xla_flops`` / ``xla_bytes`` keep their names only
+for parity with the reference's reports.
 
 Performance architecture (paper: "a high performance interface"):
 
@@ -69,6 +78,9 @@ __all__ = [
     "increment_counter",
     "fold_pending_counters",
     "reset_default_clocks",
+    "device_event_start",
+    "device_event_stop",
+    "resolve_device_events",
 ]
 
 
@@ -610,6 +622,114 @@ class CounterClock(Clock):
 
     def fused_sampler(self):
         return _make_counter_sampler(tuple(self.units))
+
+
+# ---------------------------------------------------------------------------
+# Device clock: CUDA-event seconds of timer windows.  A recorded window holds
+# a pair of timing events from its device's pool; a stopped pair waits in
+# _DEVICE_PENDING until resolve_device_events finds both events complete (a
+# non-blocking ``query``), then adds ``elapsed_time`` to the window's
+# ``device_s`` channel and returns the events to that pool.  torch is imported only here, by a
+# recording window: a process that never profiles never loads it for this.
+# ---------------------------------------------------------------------------
+
+#: resolve on a stop once this many pairs wait (a program with no
+#: synchronisation point of its own still folds what the card has finished)
+_DEVICE_RESOLVE_AT = 4096
+
+#: free events by device index (an event is bound to the device it first
+#: recorded on)
+_EVENT_POOLS: dict[int, list] = {}
+_DEVICE_PENDING: list[tuple[str, int, object, object]] = []
+_DEVICE_LOCK = threading.Lock()
+#: stream objects by (device index, raw stream handle), since the default
+#: stream's handle is 0 on every device: ``torch.cuda.current_stream()``
+#: builds a new object each call, most of a record's host cost (~13 µs
+#: against ~6 µs on an H100 host under the profiler)
+_STREAMS: dict[tuple[int, int], object] = {}
+
+
+def _cuda_ready() -> bool:
+    import torch
+
+    return torch.cuda.is_initialized()
+
+
+def _new_device_event():
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _current_device() -> int:
+    import torch
+
+    return torch._C._cuda_getDevice()
+
+
+def _current_stream(device: int):
+    """The calling thread's current CUDA stream on ``device``."""
+    import torch
+
+    key = (device, torch._C._cuda_getCurrentRawStream(device))
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.current_stream(device)
+    return stream
+
+
+def _pooled_event(device: int):
+    try:
+        return _EVENT_POOLS[device].pop()
+    except (KeyError, IndexError):
+        return _new_device_event()
+
+
+def device_event_start():
+    """(device index, a pooled timing event recorded now on its current
+    stream), or None in a process that has not initialised CUDA (a CPU-only
+    run)."""
+    if not _cuda_ready():
+        return None
+    device = _current_device()
+    event = _pooled_event(device)
+    event.record(_current_stream(device))
+    return device, event
+
+
+def device_event_stop(channel: str, start) -> None:
+    """Record the pair's end event now, on the start's device, and leave the
+    pair to :func:`resolve_device_events`, which adds its seconds to
+    ``channel``."""
+    device, begin = start
+    end = _pooled_event(device)
+    end.record(_current_stream(device))
+    with _DEVICE_LOCK:
+        _DEVICE_PENDING.append((channel, device, begin, end))
+        due = len(_DEVICE_PENDING) >= _DEVICE_RESOLVE_AT
+    if due:
+        resolve_device_events()
+
+
+def resolve_device_events() -> int:
+    """Fold every pair whose two events have completed into its channel;
+    pairs still in flight wait for the next call.  Never waits for the
+    device.  Returns the number of pairs folded."""
+    if not _DEVICE_PENDING:
+        return 0
+    folded = 0
+    with _DEVICE_LOCK:
+        waiting = []
+        for pair in _DEVICE_PENDING:
+            channel, device, start, end = pair
+            if end.query() and start.query():
+                increment_counter(channel, start.elapsed_time(end) / 1e3)
+                _EVENT_POOLS.setdefault(device, []).extend((start, end))
+                folded += 1
+            else:
+                waiting.append(pair)
+        _DEVICE_PENDING[:] = waiting
+    return folded
 
 
 # ---------------------------------------------------------------------------

@@ -44,22 +44,29 @@ removed; use :func:`repro.timing.scope` / :func:`repro.timing.timed`.)
 
 from __future__ import annotations
 
+import sys
 import threading
+import time
+from collections import deque
 from collections.abc import Iterator, Mapping
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 from . import clocks as _clocks
 from .clocks import _REGISTRY_VERSION as _VERSION  # atomic int read; hot path
 
 __all__ = [
     "PARENT_STATS_CAP",
+    "SPAN_LOG_CAP",
     "ScopeHandle",
+    "SpanEntry",
     "Timer",
     "TimerDB",
     "TimerNode",
     "path_matches",
     "reset_timer_db",
+    "span_log",
     "timer_db",
 ]
 
@@ -72,6 +79,51 @@ __all__ = [
 #: ``parent_stats_evictions`` counter is bumped — exported as
 #: ``repro_timing_parent_stats_evictions_total`` so a soak can alert on it.
 PARENT_STATS_CAP = 128
+
+#: Entries the span log keeps; past it the oldest entry goes and the counter
+#: channel ``spans_dropped`` counts it.
+SPAN_LOG_CAP = 1 << 16
+
+
+class SpanEntry(NamedTuple):
+    """One recorded timer window: host times on ``time.perf_counter_ns``."""
+
+    path: str
+    parent: str | None
+    start_ns: int
+    end_ns: int
+
+
+# The span log: process-global, like the counter cells, so it outlives the
+# session whose windows it holds.  Windows are recorded only while a
+# torch.profiler session records (torch's own flag, read through sys.modules
+# so that a process without torch never imports it): each such window appends
+# one SpanEntry at its stop and, where CUDA is initialised, times a pair of
+# device events (core.clocks.device_event_start/stop) into the channel
+# "<timer path>/device_s".
+_SPAN_LOG: deque[SpanEntry] = deque(maxlen=SPAN_LOG_CAP)
+_MODULES = sys.modules
+
+
+def span_log(lo_ns: int, hi_ns: int) -> list[SpanEntry]:
+    """The logged windows that overlap [lo_ns, hi_ns] (``perf_counter_ns``),
+    in the order they stopped."""
+    return [e for e in list(_SPAN_LOG) if e.end_ns >= lo_ns and e.start_ns <= hi_ns]
+
+
+def _open_span() -> tuple:
+    event = _clocks.device_event_start()
+    return time.perf_counter_ns(), event
+
+
+def _close_span(timer: Timer, span: tuple) -> None:
+    end_ns = time.perf_counter_ns()
+    start_ns, event = span
+    if event is not None:
+        _clocks.device_event_stop(f"{timer.name}/device_s", event)
+    if len(_SPAN_LOG) == _SPAN_LOG.maxlen:
+        _clocks.increment_counter("spans_dropped", 1.0)
+    _SPAN_LOG.append(SpanEntry(timer.name, timer.parent_name, start_ns, end_ns))
 
 
 def path_matches(name: str, prefix: str) -> bool:
@@ -242,6 +294,7 @@ class Timer:
         "_parent_path",
         "_parent_stats",
         "parent_stats_evictions",
+        "_span",
     )
 
     def __init__(self, name: str, handle: int) -> None:
@@ -265,6 +318,7 @@ class Timer:
         self._parent_path: tuple[str, ...] = ()
         self._parent_stats: dict[tuple[str, ...], list] = {}
         self.parent_stats_evictions = 0
+        self._span: tuple | None = None  # the open window's record (_open_span)
 
     # -- layout management (lock held) ----------------------------------------
     def _sync_layout_locked(self) -> None:
@@ -319,6 +373,10 @@ class Timer:
                     raise
             self._marks = marks
             self.running = True
+            # the span recorder: one flag check a window while nothing profiles
+            prof = _MODULES.get("torch.autograd.profiler")
+            if prof is not None and prof._is_profiler_enabled:
+                self._span = _open_span()
 
     def stop(self) -> None:
         with self._lock:
@@ -359,6 +417,10 @@ class Timer:
                     entry[0] += now[wi] - marks[wi]
                 entry[1] += 1
                 entry[2] = self.count
+            span = self._span
+            if span is not None:
+                self._span = None
+                _close_span(self, span)
 
     def reset(self) -> None:
         with self._lock:

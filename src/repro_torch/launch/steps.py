@@ -59,7 +59,7 @@ from ..models import model as M, pipeline as MP
 from ..models.config import ArchConfig, ShapeConfig
 from ..models.layers import PSpec, axes_tree, tree_leaves, tree_map
 from ..optim import AdamWConfig, adamw_update, warmup_cosine
-from ..timing import timed
+from ..timing import scope_handle, timed
 
 __all__ = [
     "rules_for",
@@ -227,11 +227,17 @@ def make_train_step(
                          f"{shape.global_batch}")
     sharded = _is_sharded(mesh)
     rules = rules if rules is not None else rules_for(cfg)
+    # the step's two phases, each a window of its own (and, while a profiler
+    # records, a span with CUDA-event device seconds)
+    grads_span = scope_handle("train_step/grads")
+    optimizer_span = scope_handle("train_step/optimizer")
 
     def grads_of(params, batch):
-        g, m = _grads(cfg, params, batch)
-        if sharded:  # a Partial sum over the batch shards is reduced here
-            g = tree_map(lambda gg, p: gg.redistribute(p.device_mesh, p.placements), g, params)
+        with grads_span:
+            g, m = _grads(cfg, params, batch)
+            if sharded:  # a Partial sum over the batch shards is reduced here
+                g = tree_map(lambda gg, p: gg.redistribute(p.device_mesh, p.placements), g,
+                             params)
         return g, m
 
     def step(params, opt_state, batch):
@@ -251,7 +257,8 @@ def make_train_step(
             metrics = {k: torch.stack([m[k] for m in per_micro]).mean(0) for k in per_micro[0]}
         else:
             grads, metrics = grads_of(params, batch)
-        params, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state, lr)
+        with optimizer_span:
+            params, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state, lr)
         metrics = dict(metrics)
         metrics.update(stats)
         metrics["lr"] = lr

@@ -115,7 +115,7 @@ from ..core import (
     timer_db,
     tree_rows,
 )
-from ..core.clocks import CounterClock, register_clock
+from ..core.clocks import CounterClock, register_clock, resolve_device_events
 from ..data import DataLoader, SyntheticConfig, SyntheticLM
 from ..dist import collectives, p2p
 from ..dist.meshutil import device_mesh, init_process_group, local_mesh
@@ -584,8 +584,9 @@ def run_training(
             _agree_weights(stage_plan)
         params, opt_state, metrics = s["exec"](s["params"], s["opt_state"], s["batch"])
         # reading the metrics back waits for the device: the EVOL timer holds
-        # the step's device time
+        # the step's device time, and the step's device-event pairs are done
         metrics = {k: float(v) for k, v in metrics.items()}
+        resolve_device_events()
         s["params"], s["opt_state"] = params, opt_state
         s["updates"] = s.iteration + 1
         s["metrics"] = metrics

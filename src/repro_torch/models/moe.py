@@ -12,6 +12,9 @@ tensor operations batched over groups and experts, with no Python loop over
 either: 64 experts x 48 layers of per-expert launches would make a decode
 step host-bound.
 
+Each call is the timer scope ``model/moe``; under remat the recompute enters
+it again (on the card from autograd's thread).  The backward runs outside it.
+
 Router math in f32; Switch-style load-balancing aux loss, which the model
 sums over the layers into the training loss.  The expert products are
 library GEMMs: the reference computes them outside any Pallas kernel.  The
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist.context import constrain, is_dtensor, local_apply, placements_of
+from ..timing import scope_handle
 from .config import ArchConfig
 from .layers import PSpec
 
@@ -165,12 +169,13 @@ def _slots(cfg: ArchConfig, xe: torch.Tensor, n_groups: int) -> torch.Tensor:
 
 
 def _moe_grouped(cfg: ArchConfig, p: dict[str, torch.Tensor], x: torch.Tensor):
-    if is_dtensor(x):
-        return _moe_sharded(cfg, p, x)
-    r, xe = _dispatch(cfg, p["router"], x)
-    ye = _experts(p, xe)
-    y = _combine(cfg, r.top_i, r.weights, r.keep, r.pos, ye, x.dtype)
-    return y, _aux(cfg, r.mask, r.gates)
+    with scope_handle("model/moe"):
+        if is_dtensor(x):
+            return _moe_sharded(cfg, p, x)
+        r, xe = _dispatch(cfg, p["router"], x)
+        ye = _experts(p, xe)
+        y = _combine(cfg, r.top_i, r.weights, r.keep, r.pos, ye, x.dtype)
+        return y, _aux(cfg, r.mask, r.gates)
 
 
 def _moe_sharded(cfg: ArchConfig, p: dict[str, torch.Tensor], x: torch.Tensor):

@@ -65,6 +65,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.clocks import resolve_device_events
 from ..core.params import ParamRegistry, param_registry
 from ..core.timers import TimerDB, timer_db
 from ..models import model as M
@@ -471,9 +472,11 @@ class ServeSession:
         return head
 
     def _sync(self) -> None:
-        """Wait for the card, so a scope's window ends when its work does."""
+        """Wait for the card, so a scope's window ends when its work does;
+        then fold the timer windows' finished device-event pairs."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            resolve_device_events()
 
     def _prefill_into_slot(self, handle: RequestHandle, finished: list[RequestResult]) -> None:
         slot: Slot = handle._slot

@@ -21,19 +21,33 @@ entry points that grew around the flat Cactus-style timer database
   exclusive (self minus children) seconds; ``format_tree()`` renders the
   hierarchical Fig.-2 report; ``total_seconds("serve")`` rolls up whole path
   segments.
+* **Span log**: while a ``torch.profiler`` session records, every timer
+  window also logs a :class:`~repro_torch.core.timers.SpanEntry` (path,
+  parent, host start/end on ``time.perf_counter_ns``) and, on the card, its
+  CUDA-event seconds into the counter channel ``<path>/device_s``;
+  ``span_log(lo_ns, hi_ns)`` reads the log.
 
 The old surfaces keep working (``repro.core`` re-exports are unchanged;
 ``db.timing``/``core.timers.timed`` emit ``DeprecationWarning``); this module
 is the supported way in.  Guarded by ``tests/test_api_surface.py``.
 """
 
-from ..core.timers import ScopeHandle, Timer, TimerDB, TimerNode, timer_db
+from ..core.timers import (
+    ScopeHandle,
+    SpanEntry,
+    Timer,
+    TimerDB,
+    TimerNode,
+    span_log,
+    timer_db,
+)
 from .reporting import format_tree, total_seconds, tree
 from .scopes import counter, current_scope, scope, scope_handle, timed
 from .session import TimingSession, current_session, session
 
 __all__ = [
     "ScopeHandle",
+    "SpanEntry",
     "Timer",
     "TimerDB",
     "TimerNode",
@@ -45,6 +59,7 @@ __all__ = [
     "scope",
     "scope_handle",
     "session",
+    "span_log",
     "timed",
     "timer_db",
     "total_seconds",
